@@ -1,0 +1,572 @@
+"""Live bank-mode orchestrator (port of sdrtrunk_tpu/runtime/orchestrator.py).
+
+The continuous ring -> decode -> events -> traffic-following loop for one
+digital decoder kind (P25 Phase 1 C4FM), in bank mode: one slot-bank step
+on the device demodulates every slot of a chunk, then compacts the symbol
+streams, correlates them against the P25P1 sync patterns and packs the
+result into one flat uint8 transfer; the host frames the whole bank with
+``P25P1BankProcessor`` and routes messages into per-slot decoder states
+and the ``TrafficChannelManager``, which starts and stops traffic slots
+mid-stream. "Starting a channel" is a write of (bin, mixer step) into the
+slot plan plus an in-place reset of that slot's device state.
+
+The host layer is the JAX package's own (``sdrtrunk_tpu.runtime``,
+``sdrtrunk_tpu.audio.mbe``, ``sdrtrunk_tpu.protocol``), imported as it is.
+Time is the sample clock (samples processed / sample rate), so runs are
+deterministic and replayable.
+"""
+from __future__ import annotations
+
+import json
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from sdrtrunk_tpu.audio.mbe import FakeMBECodec, MBECodec
+from sdrtrunk_tpu.protocol.p25p1.bankframer import SYNC_DIBIT_PATTERNS
+from sdrtrunk_tpu.runtime.bank_processor import P25P1BankProcessor
+from sdrtrunk_tpu.runtime.events import DecodeEvent
+from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
+from sdrtrunk_tpu.runtime.metrics import FrequencyErrorMonitor
+from sdrtrunk_tpu.runtime.traffic import TrafficChannelManager
+
+from .. import resolve_device
+from ..receiver import WidebandReceiver
+
+__all__ = ["ChannelSlot", "Orchestrator", "compact_and_correlate", "ingest"]
+
+_DIGITAL_KINDS = ("c4fm", "p25p1")
+_P25P1_SYNC_MAX_ERRORS = 9          # bit errors over the 24-dibit sync
+
+
+@dataclass
+class ChannelSlot:
+    """One retunable channel slot of the running receiver."""
+    index: int
+    frequency_hz: float = 0.0
+    is_control: bool = False
+    active: bool = False
+    activated_at: float = 0.0
+
+
+def ingest(x: torch.Tensor) -> torch.Tensor:
+    """Wire format -> float: int8 IQ pairs scale by 1/127; float pairs and
+    complex pass through."""
+    if x.dtype == torch.int8:
+        return x.to(torch.float32) * (1.0 / 127.0)
+    return x
+
+
+def compact_and_correlate(dib: torch.Tensor, valid: torch.Tensor, cap: int,
+                          patterns: np.ndarray = SYNC_DIBIT_PATTERNS,
+                          max_errors: int = _P25P1_SYNC_MAX_ERRORS):
+    """On-device symbol compaction, sync correlation and packing.
+
+    dib (C, K) dibits, valid (C, K) bool. Valid dibits are compacted to
+    the front of a (C, cap) row by cumsum + scatter; entries at or beyond
+    counts[c] are not meaningful (the host reads below counts only,
+    protocol/p25p1/bankframer.py:149-175). Each compact lag is tested
+    against every pattern by XOR-popcount; a hit is a lag whose best
+    pattern has <= max_errors bit errors. Returns (dib4 (C, cap/4) uint8,
+    counts (C,) int32, hits (C, cap/8) uint8) in the bank processor's
+    packing contract (runtime/bank_processor.py).
+    """
+    c, k = dib.shape
+    dev = dib.device
+    counts = valid.sum(dim=1, dtype=torch.int32)
+    pos = torch.cumsum(valid, dim=1) - 1
+    idx = torch.where(valid, pos.clamp(max=cap), cap)       # cap = dump
+    sdib = torch.zeros((c, cap + 1), dtype=torch.uint8, device=dev)
+    sdib.scatter_(1, idx, dib.to(torch.uint8))
+    sdib = sdib[:, :cap]
+    d4 = sdib.reshape(c, cap // 4, 4)
+    dib4 = d4[..., 0] | (d4[..., 1] << 2) | (d4[..., 2] << 4) | (d4[..., 3] << 6)
+
+    pats = torch.as_tensor(np.asarray(patterns, np.uint8), device=dev)
+    npat, plen = pats.shape
+    lags = cap - (plen - 1)
+    err = torch.zeros((c, npat, lags), dtype=torch.int16, device=dev)
+    for j in range(plen):
+        diff = sdib[:, None, j:j + lags] ^ pats[None, :, j, None]
+        err += (diff & 1) + (diff >> 1)
+    hits = torch.zeros((c, cap), dtype=torch.uint8, device=dev)
+    hits[:, :lags] = err.amin(dim=1) <= max_errors
+    h8 = hits.reshape(c, cap // 8, 8)
+    hbits = h8[..., 0] << 7
+    for i in range(1, 8):
+        hbits = hbits | (h8[..., i] << (7 - i))
+    return dib4, counts, hbits
+
+
+class Orchestrator:
+    """Continuous bank-mode decode loop with dynamic traffic following.
+
+    source: callable read(num_samples) -> NumPy IQ (int8 (n, 2) pairs,
+            float32 (n, 2) pairs or complex), shorter or None at the end.
+    center_frequency_hz: RF frequency at baseband 0.
+    control_offsets_hz: baseband offsets of the control channel(s); each
+            gets a pinned slot whose TrafficChannelManager activates and
+            tears down the remaining slots.
+    device: where the slot bank runs ("cuda" by default; no fallback).
+    """
+
+    def __init__(self, source, sample_rate: float,
+                 center_frequency_hz: float,
+                 control_offsets_hz, slots: int = 8,
+                 channel_bandwidth: float = 12500.0,
+                 decoder: str = "c4fm",
+                 codec: MBECodec | None = None,
+                 chunk_samples: int | None = None,
+                 idle_teardown_seconds: float = 2.0,
+                 metrics_sink=None,
+                 ppm_correction: bool = True,
+                 ppm_threshold: float = 0.4,
+                 ppm_observation_seconds: float = 30.0,
+                 control_rotation=None,
+                 rotation_delay: float = 0.5,
+                 event_log_path=None,
+                 bank_mode: bool | None = None,
+                 banks=None,
+                 channel_map=None,
+                 ingest_format: str = "auto",
+                 audio_format: str = "mulaw8",
+                 host_process: bool = False,
+                 device="cuda"):
+        if banks is not None:
+            raise NotImplementedError(
+                "heterogeneous banks are not ported yet (ROADMAP Queue 1 "
+                "item 14, slice F)")
+        if decoder not in _DIGITAL_KINDS:
+            raise NotImplementedError(
+                f"decoder {decoder!r} is not ported yet: DMR is ROADMAP "
+                "Queue 1 item 10, LSM/P25P2 item 11, the analog bank "
+                "item 12, the mixed analog-trunking bank item 13")
+        if ingest_format == "int4":
+            raise NotImplementedError(
+                "the int4 wire format is not ported: it was a slow-link "
+                "compromise (ROADMAP, what the port does not copy)")
+        if ingest_format != "auto":
+            raise ValueError(f"unknown ingest_format {ingest_format!r}")
+        if audio_format not in ("mulaw8", "int16"):
+            raise ValueError(f"unknown audio_format {audio_format!r}")
+        if host_process:
+            raise NotImplementedError(
+                "host_process (the bank worker process) is not ported yet "
+                "(ROADMAP Queue 1 item 15)")
+        if isinstance(control_offsets_hz, (int, float, np.floating)):
+            control_offsets_hz = [control_offsets_hz]
+        control_offsets_hz = [float(e) for e in control_offsets_hz]
+        if slots < len(control_offsets_hz) + 1:
+            raise ValueError("need at least one traffic slot")
+        if bank_mode is None:
+            bank_mode = slots >= 32
+        if not bank_mode:
+            raise NotImplementedError(
+                "the per-slot (non-bank) path is not ported yet (ROADMAP "
+                "Queue 1 item 15); pass bank_mode=True")
+        self.device = resolve_device(device)
+        self.source = source
+        self.sample_rate = float(sample_rate)
+        self.center_frequency_hz = float(center_frequency_hz)
+        self.codec = codec if codec is not None else FakeMBECodec()
+        self.metrics_sink = metrics_sink
+
+        self.rx = WidebandReceiver(sample_rate, [0.0] * slots,
+                                   channel_bandwidth=channel_bandwidth,
+                                   decoder=decoder, device=self.device)
+        m = self.rx.channelizer.channels
+        self.chunk_samples = (chunk_samples if chunk_samples is not None
+                              else 16 * m)
+        if self.chunk_samples % m != 0:
+            raise ValueError(f"chunk_samples must be a multiple of {m}")
+        # symbols per slot per chunk at the fastest tracked timing, plus
+        # margin, rounded to the packing granule
+        k = 2 * self.chunk_samples // m
+        demod = self.rx.decoder.demod
+        sps_min = demod.samples_per_symbol * (1.0 - demod.max_deviation)
+        self._bank_cap = int(np.ceil((k / sps_min + 8) / 64)) * 64
+
+        self.step = self._build_live_step()
+        self.state = self.rx.init_state()
+
+        self.bins = np.zeros((slots, 2), np.int32)
+        self.steps = np.zeros(slots, np.float32)
+        self._plan_dev = None
+        self.slots = [ChannelSlot(i) for i in range(slots)]
+
+        self.correction_ppm = 0.0
+        self.event_logger = None
+        if event_log_path is not None:
+            from sdrtrunk_tpu.runtime.eventlog import DecodeEventLogger
+            self.event_logger = DecodeEventLogger(event_log_path)
+        self.traffic = TrafficChannelManager(
+            "APCO25", idle_teardown_seconds=idle_teardown_seconds,
+            on_activate=self._activate, on_teardown=self._teardown)
+        if self.event_logger is not None:
+            self.traffic.event_sink = self.event_logger.receive
+        self.bank_proc = P25P1BankProcessor(
+            slots, control_slots=set(range(len(control_offsets_hz))),
+            traffic=self.traffic, codec=self.codec)
+        for slot, off in zip(self.slots, control_offsets_hz):
+            slot.is_control = True
+            slot.active = True
+            slot.frequency_hz = self.center_frequency_hz + off
+            self._tune(slot.index, off)
+        self.rotation = None
+        if control_rotation:
+            from sdrtrunk_tpu.runtime.rotation import ChannelRotationMonitor
+            self.rotation = ChannelRotationMonitor(
+                control_rotation, self._rotate_control,
+                rotation_delay=rotation_delay)
+
+        self.now = 0.0
+        self.samples_processed = 0
+        self._last_upload: tuple[float, int] | None = None
+        self._pinned: dict = {}
+        self.audio_segments: list = []
+        self.skipped_grants: list[float] = []
+        self.error_state: str | None = None
+
+        self.ppm_monitor = None
+        if ppm_correction and self.slots[0].is_control \
+                and self.slots[0].frequency_hz > 0:
+            self.ppm_monitor = FrequencyErrorMonitor(
+                self.slots[0].frequency_hz, threshold_ppm=ppm_threshold,
+                observation_seconds=ppm_observation_seconds,
+                on_correct=self._apply_ppm)
+
+    # --- control plane -------------------------------------------------
+
+    def _build_live_step(self):
+        """Live step = the receiver's dynamic step + on-device compaction,
+        sync correlation and packing into ONE flat uint8 tensor:
+        dib4 | hits | counts (le int32) | pll (le f32 of slot 0)."""
+        base = self.rx.build_dynamic()
+        cap = self._bank_cap
+
+        def fused(x, state, bins, steps):
+            out, st = base(ingest(x), state, bins, steps)
+            dib4, counts, hbits = compact_and_correlate(
+                out["dibits"], out["valid"], cap)
+            packed = torch.cat([
+                dib4.reshape(-1), hbits.reshape(-1),
+                counts.view(torch.uint8),
+                out["pll_freq"][:1].contiguous().view(torch.uint8)])
+            return {"packed": packed}, st
+
+        return fused
+
+    def _tune(self, slot: int, offset_hz: float) -> None:
+        # tuner ppm error shifts every RF frequency by f*ppm/1e6; the
+        # correction is applied at the slot mixer
+        f_abs = self.center_frequency_hz + offset_hz
+        offset_hz = offset_hz + self.correction_ppm * 1e-6 * f_abs
+        ch = self.rx.channelizer
+        b = ch.channel_for_frequency(offset_hz)
+        if not 0 <= b < ch.channels:
+            raise ValueError(f"offset {offset_hz} outside coverage")
+        residual = offset_hz - ch.center_frequency(b)
+        self.bins[slot] = (b, b)
+        self.steps[slot] = 2.0 * np.pi * residual / ch.channel_sample_rate
+        self._plan_dev = None
+        self.state = self.rx.reset_slot(self.state, slot)   # in place
+
+    def _bank_reset_slot(self, index: int, preload=None) -> None:
+        self.bank_proc.reset_slot(index, preload=preload)
+        state = self.bank_proc.states[index]
+        if self.event_logger is not None and hasattr(state, "history"):
+            state.history.add_listener(self.event_logger.receive)
+
+    def _slot_flush_drain(self, slot) -> None:
+        """Flush open calls on a slot and collect its audio segments."""
+        self.bank_proc.flush(slot.index, self.now)
+        self.audio_segments.extend(self.bank_proc.drain_audio(slot.index))
+
+    def _rotate_control(self, frequency_hz: float) -> None:
+        """Move the control slot to the next candidate frequency."""
+        slot = next(s for s in self.slots if s.is_control)
+        offset = frequency_hz - self.center_frequency_hz
+        ch = self.rx.channelizer
+        if abs(offset) > ch.channels * ch.channel_spacing / 2:
+            return
+        slot.frequency_hz = frequency_hz
+        self._tune(slot.index, offset)
+
+    def _apply_ppm(self, ppm: float) -> None:
+        """Sustained PLL error -> global tuner correction + retune."""
+        self.correction_ppm += ppm
+        for slot in self.slots:
+            if slot.active:
+                self._tune(slot.index,
+                           slot.frequency_hz - self.center_frequency_hz)
+
+    def stop_all(self, reason: str = "") -> None:
+        """Tuner error state: stop every running channel, flushing open
+        calls to AudioSegments."""
+        self.error_state = reason or "error"
+        for slot in self.slots:
+            if not slot.active:
+                continue
+            self._slot_flush_drain(slot)
+            slot.active = False
+        self.traffic.active.clear()
+
+    def retune(self, new_center_frequency_hz: float) -> None:
+        """Tuner moved: remap active slots; those outside coverage are
+        torn down."""
+        self.center_frequency_hz = float(new_center_frequency_hz)
+        ch = self.rx.channelizer
+        half_span = ch.channels * ch.channel_spacing / 2
+        for slot in self.slots:
+            if not slot.active:
+                continue
+            offset = slot.frequency_hz - self.center_frequency_hz
+            if abs(offset) > half_span:
+                if slot.is_control:
+                    raise ValueError(
+                        f"retune to {new_center_frequency_hz} drops the "
+                        f"control channel at {slot.frequency_hz}")
+                self._slot_flush_drain(slot)
+                slot.active = False
+                self.skipped_grants.append(slot.frequency_hz)
+                continue
+            self._tune(slot.index, offset)
+
+    def _free_slot(self) -> ChannelSlot | None:
+        for slot in self.slots:
+            if not slot.active and not slot.is_control:
+                return slot
+        return None
+
+    def _activate(self, frequency_hz: float,
+                  identifiers: IdentifierCollection) -> None:
+        """Traffic grant -> start decoding the granted frequency."""
+        offset = frequency_hz - self.center_frequency_hz
+        ch = self.rx.channelizer
+        if abs(offset) > ch.channels * ch.channel_spacing / 2:
+            self.skipped_grants.append(frequency_hz)
+            return
+        for slot in self.slots:
+            if slot.active and slot.frequency_hz == frequency_hz:
+                return
+        slot = self._free_slot()
+        if slot is None:
+            self.skipped_grants.append(frequency_hz)
+            return
+        self._tune(slot.index, offset)
+        slot.frequency_hz = frequency_hz
+        slot.active = True
+        slot.activated_at = self.now
+        self._bank_reset_slot(slot.index, preload=identifiers)
+
+    def _teardown(self, frequency_hz: float) -> None:
+        for slot in self.slots:
+            if slot.active and not slot.is_control \
+                    and slot.frequency_hz == frequency_hz:
+                self._slot_flush_drain(slot)
+                slot.active = False
+
+    # --- data plane ----------------------------------------------------
+
+    def _prepare(self, iq: np.ndarray) -> np.ndarray:
+        """Host-side wire format: int8 (n, 2) passes raw, complex becomes
+        float32 (n, 2) pairs."""
+        iq = np.asarray(iq)
+        if np.iscomplexobj(iq):
+            iq = np.stack([iq.real, iq.imag], -1).astype(np.float32)
+        return iq
+
+    def _upload(self, iq: np.ndarray) -> torch.Tensor:
+        """Host->device transfer of a prepared chunk (runs on the
+        pipeline's upload thread in run()). On CUDA it stages through one
+        of two page-locked buffers and copies asynchronously; a buffer is
+        refilled only after its previous copy has finished."""
+        t0 = time.perf_counter()
+        src = torch.from_numpy(np.ascontiguousarray(iq))
+        if self.device.type == "cuda":
+            key = (tuple(src.shape), src.dtype)
+            if key not in self._pinned:
+                self._pinned[key] = [
+                    [torch.empty(src.shape, dtype=src.dtype,
+                                 pin_memory=True), None] for _ in range(2)]
+            ring = self._pinned[key]
+            ring.append(ring.pop(0))
+            buf, done = ring[-1]
+            if done is not None:
+                done.synchronize()
+            buf.copy_(src)
+            dev = buf.to(self.device, non_blocking=True)
+            ring[-1][1] = torch.cuda.Event()
+            ring[-1][1].record()
+        else:
+            dev = src
+        self._last_upload = (time.perf_counter() - t0, iq.nbytes)
+        return dev
+
+    def _dispatch(self, dev_iq: torch.Tensor):
+        """Queue the live step for an already-uploaded chunk."""
+        if self._plan_dev is None:
+            self._plan_dev = (
+                torch.as_tensor(self.bins, dtype=torch.long,
+                                device=self.device),
+                torch.as_tensor(self.steps, device=self.device))
+        out, self.state = self.step(dev_iq, self.state, *self._plan_dev)
+        self.samples_processed += dev_iq.shape[0]
+        return out, self.samples_processed / self.sample_rate
+
+    def run_chunk(self, iq: np.ndarray) -> dict:
+        """Process one wideband chunk through the slot bank + host layer."""
+        out, now = self._dispatch(self._upload(self._prepare(iq)))
+        return self._process(out, now)
+
+    def _split_packed(self, buf: np.ndarray):
+        """Parse the flat uint8 transfer (dib4 | hits | counts | pll)."""
+        c = len(self.slots)
+        cap = self._bank_cap
+        q, h = cap // 4, cap // 8
+        dib4 = buf[: c * q].reshape(c, q)
+        hits = buf[c * q: c * (q + h)].reshape(c, h)
+        counts = buf[c * (q + h): c * (q + h) + 4 * c].view(np.int32)
+        pll_raw = float(buf[-4:].view(np.float32)[0])
+        return dib4, hits, counts, pll_raw
+
+    def _pull_bank(self, out: dict, now: float) -> dict:
+        """Download-worker half of a chunk: transfer + unpack + bank-frame
+        (stateful; strictly in chunk order on the one download thread)."""
+        dib4, hits, counts, pll_raw = self._split_packed(
+            out["packed"].cpu().numpy())
+        msgs = self.bank_proc.frame_chunk(dib4, counts, hits)
+        return {"bank_msgs": msgs, "counts": counts, "pll_raw": pll_raw}
+
+    def _process(self, out: dict, now: float) -> dict:
+        self.now = now
+        if "packed" in out:
+            out = self._pull_bank(out, now)        # un-pipelined path
+        bank_msgs, counts = out["bank_msgs"], out["counts"]
+        pll_raw = out["pll_raw"]
+
+        pll_err_hz = None
+        if self.ppm_monitor is not None:
+            # loop freq (rad/sample at channel rate) -> Hz; positive loop
+            # freq means the PLL mixes UP for a signal below expectation
+            rate = self.rx.channelizer.channel_sample_rate
+            pll_err_hz = float(-pll_raw * rate / (2.0 * np.pi))
+            self.ppm_monitor.update(pll_err_hz, self.now)
+
+        active = np.array([s.active for s in self.slots])
+        per_slot = self.bank_proc.route(bank_msgs, counts, active, self.now)
+        frames = int(per_slot.sum())
+        for slot in self.slots:
+            if not slot.active:
+                continue
+            if per_slot[slot.index] and not slot.is_control:
+                self.traffic.process_activity(slot.frequency_hz, self.now)
+            self.audio_segments.extend(
+                self.bank_proc.drain_audio(slot.index))
+        self.traffic.check_teardown(self.now)
+
+        if self.rotation is not None:
+            ctrl = next(s for s in self.slots if s.is_control)
+            self.rotation.state(self.bank_proc.channel_state(ctrl.index),
+                                self.now)
+            self.rotation.check(self.now)
+
+        metrics = {
+            "t": round(self.now, 6),
+            "samples": self.samples_processed,
+            "active_channels": sum(s.active for s in self.slots),
+            "frames": frames,
+            "events": len(self.traffic.events),
+            "audio_segments": len(self.audio_segments),
+        }
+        if self._last_upload is not None:
+            dt, nbytes = self._last_upload
+            metrics["upload_ms"] = round(dt * 1e3, 1)
+            if dt > 0:
+                metrics["upload_mbps"] = round(nbytes / dt / 1e6, 1)
+        framer = self.bank_proc.framer
+        for key in ("deferred_hard_bch", "expired_pending",
+                    "dropped_hard_rs"):
+            v = getattr(framer, key, 0)
+            if v:
+                metrics[key] = int(v)
+        if framer.pending:
+            metrics["pending_frames"] = len(framer.pending)
+        unk = sum(m.unknown_opcodes for m in self.bank_proc.metrics)
+        if unk:
+            metrics["unknown_opcodes"] = int(unk)
+        if pll_err_hz is not None:
+            metrics["pll_error_hz"] = round(pll_err_hz, 1)
+            metrics["correction_ppm"] = round(self.correction_ppm, 3)
+        if self.metrics_sink is not None:
+            self.metrics_sink(json.dumps(metrics))
+        return metrics
+
+    def run(self, max_chunks: int | None = None) -> dict:
+        """Drain the source to exhaustion (or max_chunks) and return the
+        final metrics line.
+
+        Pipelined: an upload thread stages chunk n+1 while the device
+        computes chunk n and a download thread pulls and bank-frames
+        chunk n-1. Control-plane writes from chunk n (grants, retunes)
+        take effect from chunk n+2. A bounded run consumes exactly
+        max_chunks chunks from the source."""
+        metrics = {}
+        chunks = 0
+        pending = None
+
+        def next_prepared():
+            if self.error_state is not None:
+                return None
+            iq = self.source(self.chunk_samples)
+            if iq is None or len(iq) < self.chunk_samples:
+                return None
+            return self._prepare(iq)
+
+        def may_read(done: int) -> bool:
+            # prefetching past the budget would drop a chunk of IQ on
+            # every bounded run() call
+            return max_chunks is None or done < max_chunks
+
+        with ThreadPoolExecutor(1) as up_pool, \
+                ThreadPoolExecutor(1) as down_pool:
+            prep = next_prepared() if may_read(0) else None
+            fut = up_pool.submit(self._upload, prep) if prep is not None \
+                else None
+            while fut is not None and \
+                    (max_chunks is None or chunks < max_chunks):
+                if self.error_state is not None:
+                    break
+                dev_iq = fut.result()
+                out, now = self._dispatch(dev_iq)
+                prep = next_prepared() if may_read(chunks + 1) else None
+                fut = up_pool.submit(self._upload, prep) \
+                    if prep is not None else None
+                cur = (down_pool.submit(self._pull_bank, out, now), now)
+                if pending is not None:
+                    metrics = self._process(pending[0].result(),
+                                            pending[1])
+                pending = cur
+                chunks += 1
+            if fut is not None:
+                fut.result()
+        if pending is not None:
+            metrics = self._process(pending[0].result(), pending[1])
+        return metrics
+
+    # --- introspection ---------------------------------------------------
+
+    @property
+    def events(self) -> list[DecodeEvent]:
+        return self.traffic.events
+
+    def channel_status(self) -> list[dict]:
+        return [{
+            "slot": s.index, "active": s.active,
+            "control": s.is_control, "frequency_hz": s.frequency_hz,
+            "frames": int(self.bank_proc.frame_counts[s.index]),
+            "metrics": self.bank_proc.metrics[s.index].as_dict(),
+        } for s in self.slots]

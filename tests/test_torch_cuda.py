@@ -1,0 +1,67 @@
+"""Tests of the DQPSK CUDA kernel; they need a card and skip without one.
+
+The file imports no JAX, so that it runs on a machine with a card and no
+JAX installed. tests/conftest.py imports JAX, so run it there with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from sdrtrunk_tpu.signal.generators import awgn, c4fm_modulate, random_dibits
+from sdrtrunk_tpu_torch.dsp import dqpsk_cuda
+from sdrtrunk_tpu_torch.dsp.psk import DQPSKDemodulator, DQPSKState
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _c4fm_block(channels: int, t: int, seed: int) -> np.ndarray:
+    rows = []
+    for c in range(channels):
+        x = c4fm_modulate(random_dibits(t // 5 + 16, seed=seed + c), 25000.0)
+        rows.append(awgn(x[:t], snr_db=30.0,
+                         rng=np.random.default_rng(seed + 100 + c)))
+    return np.stack(rows).astype(np.complex64)
+
+
+def _state(demod, c):
+    return DQPSKState(*[a.expand((c,) + a.shape).clone()
+                        for a in demod.init_state()])
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_loop_on_card(card):
+    """The kernel and the plain loop agree bit for bit on the card."""
+    c, t = 64, 2048
+    x = torch.as_tensor(_c4fm_block(c, t, 3), device=card)
+    demod = DQPSKDemodulator(25000.0, device=card)
+    s0 = _state(demod, c)
+    before = dqpsk_cuda.dqpsk_cuda.launches
+    dibits, valid, state = demod.batched(x, s0)
+    assert dqpsk_cuda.dqpsk_cuda.launches == before + 1
+    ref_dibits, ref_valid, ref_state = demod.scan_batched(x, s0)
+    assert float(valid.float().mean()) > 0.15
+    assert torch.equal(valid, ref_valid)
+    assert torch.equal(dibits, ref_dibits)
+    for a, b in zip(state, ref_state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_does_not_take(card):
+    demod = DQPSKDemodulator(25000.0, device=card)
+    s0 = _state(demod, 2)
+    with pytest.raises(ValueError, match="complex64"):
+        demod.batched(torch.zeros((2, 16), dtype=torch.complex128,
+                                  device=card), s0)
+    with pytest.raises(ValueError, match="window"):
+        demod.batched(torch.zeros((3, 16), dtype=torch.complex64,
+                                  device=card), s0)

@@ -1,0 +1,133 @@
+"""The port imports no JAX, and its kernel path never falls back.
+
+* Every file of sdrtrunk_tpu_torch/, chip_smoke.py and
+  tests/test_torch_cuda.py is parsed, and no
+  import of jax, or of an sdrtrunk_tpu module that imports jax, is allowed
+  (the machine with the card has no JAX installed).
+* A fresh interpreter that imports the port's orchestrator and every other
+  port module has no 'jax' in sys.modules.
+* batched() on a non-CPU tensor goes to the CUDA kernel; when its build
+  fails, the call raises and the plain loop is never run.
+"""
+import ast
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from sdrtrunk_tpu_torch.dsp import dqpsk_cuda
+from sdrtrunk_tpu_torch.dsp.psk import DQPSKDemodulator, DQPSKState
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "sdrtrunk_tpu_torch"
+REFERENCE = ROOT / "sdrtrunk_tpu"
+_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+jax\b", re.MULTILINE)
+
+
+def _jax_modules() -> set[str]:
+    """Dotted names of the reference modules whose source imports jax."""
+    mods = set()
+    for path in REFERENCE.rglob("*.py"):
+        if _JAX_IMPORT.search(path.read_text()):
+            rel = path.relative_to(ROOT).with_suffix("")
+            name = ".".join(rel.parts)
+            mods.add(name[:-len(".__init__")] if name.endswith(".__init__")
+                     else name)
+    return mods
+
+
+def _port_files() -> list[Path]:
+    # test_torch_cuda.py runs on the card's machine, which has no JAX
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "test_torch_cuda.py"]
+
+
+def _imported(tree: ast.AST) -> list[str]:
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            names.append(node.module)
+            names += [f"{node.module}.{a.name}" for a in node.names]
+    return names
+
+
+def test_reference_module_list_is_known():
+    mods = _jax_modules()
+    assert "sdrtrunk_tpu.receiver" in mods
+    assert "sdrtrunk_tpu.dsp.psk" in mods
+    assert "sdrtrunk_tpu.runtime.bank_processor" not in mods
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    banned = _jax_modules()
+    for name in _imported(ast.parse(path.read_text(), str(path))):
+        assert name != "jax" and not name.startswith("jax."), \
+            f"{path.name} imports {name}"
+        assert name not in banned, \
+            f"{path.name} imports {name}, which imports jax"
+
+
+def test_fresh_interpreter_loads_no_jax():
+    mods = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    code = ("import sys\n"
+            "import sdrtrunk_tpu_torch.runtime.orchestrator\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "import chip_smoke\n"
+            "assert 'jax' not in sys.modules, sorted(\n"
+            "    m for m in sys.modules if m.startswith('jax'))\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_kernel_build_failure_raises_without_fallback(monkeypatch):
+    demod = DQPSKDemodulator(25000.0, device="cpu")
+    c = 2
+    state = DQPSKState(*[a.expand((c,) + a.shape).clone().to("meta")
+                         for a in demod.init_state()])
+    x = torch.zeros((c, 16), dtype=torch.complex64, device="meta")
+
+    class BuildFailed(RuntimeError):
+        pass
+
+    def fail():
+        raise BuildFailed("nvcc failed")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain loop ran for a non-CPU tensor")
+
+    monkeypatch.setattr(dqpsk_cuda, "build", fail)
+    monkeypatch.setattr(DQPSKDemodulator, "scan_batched", plain)
+    monkeypatch.setattr(DQPSKDemodulator, "scan_packed", plain)
+    before = dqpsk_cuda.dqpsk_cuda.launches
+    with pytest.raises(BuildFailed):
+        demod.batched(x, state)
+    assert dqpsk_cuda.dqpsk_cuda.launches == before
+
+
+def test_kernel_wrapper_rejects_a_cpu_tensor(monkeypatch):
+    monkeypatch.setattr(dqpsk_cuda, "build", lambda: None)
+    demod = DQPSKDemodulator(25000.0, device="cpu")
+    state = DQPSKState(*[a.expand((1,) + a.shape).clone()
+                         for a in demod.init_state()])
+    with pytest.raises(ValueError, match="CUDA"):
+        dqpsk_cuda.dqpsk_cuda(demod, torch.zeros((1, 8), dtype=torch.complex64),
+                              state)
+
+
+def test_cuda_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        DQPSKDemodulator(25000.0)

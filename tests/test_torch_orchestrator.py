@@ -1,0 +1,182 @@
+"""The whole slice on the CPU: the port's bank-mode Orchestrator against
+the JAX one on the capture of tests/test_orchestrator_bank.py.
+
+800 kHz of int8 IQ, 4 slots in bank mode: a P25 control channel
+broadcasts IDEN_UP and a group-voice grant; the grant must activate a
+traffic slot while running, the call there must become one AudioSegment
+(18 IMBE frames of 20 ms, talkgroup 0x457) and the slot must be torn down
+when the call goes idle. Both orchestrators start from one state, carried
+across with convert.py, and must give the same events, frame counts,
+audio and metrics trace.
+"""
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import test_orchestrator as to
+from sdrtrunk_tpu.parallel.boundary import complex_flags, unpack_tree
+from sdrtrunk_tpu.runtime.identifiers import IdentifierRole
+from sdrtrunk_tpu.runtime.orchestrator import Orchestrator as JOrchestrator
+from sdrtrunk_tpu.signal import generators
+from sdrtrunk_tpu_torch.convert import (params_from_numpy,
+                                        receiver_state_from_numpy)
+from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+
+torch.set_num_threads(1)
+
+_TRACE_KEYS = ("t", "samples", "active_channels", "frames", "events",
+               "audio_segments")
+
+
+def _capture() -> np.ndarray:
+    total_dibits = int(2.6 * to.BAUD)
+    rng = np.random.default_rng(7)
+    voice = [rng.integers(0, 2, (9, 144)).astype(np.uint8) for _ in range(2)]
+    wide = None
+    for offset, dibits in (
+            (to.CONTROL_OFF, to._control_stream(total_dibits)),
+            (to.TRAFFIC_OFF, to._traffic_stream(total_dibits, voice))):
+        iq = generators.c4fm_modulate(dibits, to.FS)
+        if wide is None:
+            n = len(iq) // 64 * 64
+            wide = np.zeros(n, np.complex64)
+        t = np.arange(n) / to.FS
+        wide += (iq[:n] * np.exp(2j * np.pi * offset * t)).astype(np.complex64)
+    scale = float(np.max(np.abs(np.stack([wide.real, wide.imag]))))
+    return np.clip(np.stack([wide.real, wide.imag], -1) / scale * 120.0,
+                   -127, 127).astype(np.int8)
+
+
+def _source(iq8):
+    pos = 0
+
+    def read(num):
+        nonlocal pos
+        chunk = iq8[pos:pos + num]
+        pos += num
+        return chunk if len(chunk) else None
+
+    return read
+
+
+@pytest.fixture(scope="module")
+def runs():
+    iq8 = _capture()
+    kw = dict(slots=4, chunk_samples=64 * 256, idle_teardown_seconds=0.6,
+              bank_mode=True)
+    j_lines, t_lines = [], []
+    jorch = JOrchestrator(_source(iq8), to.FS, to.CENTER_HZ,
+                          [to.CONTROL_OFF], metrics_sink=j_lines.append, **kw)
+    torch_orch = Orchestrator(_source(iq8), to.FS, to.CENTER_HZ,
+                              [to.CONTROL_OFF], metrics_sink=t_lines.append,
+                              device="cpu", **kw)
+    # one starting point: the JAX orchestrator's design arrays and its
+    # (float-pair packed) receiver state after the control slot was tuned
+    jrx = jorch.rx
+    torch_orch.rx.load_state_dict(params_from_numpy(
+        jrx.channelizer.hmat, jrx.decoder.baseband_taps,
+        jrx.decoder.demod.bank))
+    flags = complex_flags(jrx.init_state())
+    tree = jax.tree.map(np.asarray, unpack_tree(jorch.state, flags))
+    torch_orch.state = receiver_state_from_numpy(tree, device="cpu")
+    np.testing.assert_array_equal(torch_orch.bins, jorch.bins)
+    np.testing.assert_array_equal(torch_orch.steps, jorch.steps)
+    jorch.run()
+    torch_orch.run()
+    return jorch, j_lines, torch_orch, t_lines
+
+
+def _events(orch):
+    return [(e.event_type, e.frequency_hz, round(e.time_start, 6),
+             e.details) for e in orch.events]
+
+
+def test_same_events_and_grant_followed(runs):
+    jorch, _, orch, _ = runs
+    freq = to.CENTER_HZ + to.TRAFFIC_OFF
+    assert not orch.skipped_grants
+    assert [e for e in orch.events if e.frequency_hz == pytest.approx(freq)]
+    assert _events(orch) == _events(jorch)
+
+
+def test_same_frame_counts(runs):
+    jorch, _, orch, _ = runs
+    got = [s["frames"] for s in orch.channel_status()]
+    assert got == [s["frames"] for s in jorch.channel_status()]
+    assert got[0] > 0 and sum(got[1:]) >= 4
+
+
+def test_voice_becomes_one_audio_segment(runs):
+    jorch, _, orch, _ = runs
+    segs = [s for s in orch.audio_segments if s.duration > 0]
+    ref = [s for s in jorch.audio_segments if s.duration > 0]
+    assert len(segs) == len(ref) == 1
+    assert segs[0].duration == pytest.approx(18 * 0.020)
+    assert segs[0].duration == ref[0].duration
+    tgs = [i.value for i in segs[0].identifiers.all()
+           if i.role == IdentifierRole.TO]
+    assert to.GROUP in tgs
+
+
+def test_same_metrics_trace(runs):
+    _, j_lines, _, t_lines = runs
+    trace = [{k: json.loads(line)[k] for k in _TRACE_KEYS}
+             for line in t_lines]
+    assert trace == [{k: json.loads(line)[k] for k in _TRACE_KEYS}
+                     for line in j_lines]
+    active = [m["active_channels"] for m in trace]
+    assert max(active) == 2 and active[-1] == 1
+
+
+def test_traffic_slot_torn_down(runs):
+    _, _, orch, _ = runs
+    freq = to.CENTER_HZ + to.TRAFFIC_OFF
+    assert freq not in orch.traffic.active
+    slot = next(s for s in orch.slots
+                if not s.is_control and s.frequency_hz == freq)
+    assert not slot.active
+
+
+def test_bounded_run_consumes_exactly_max_chunks():
+    iq8 = np.zeros((64 * 64 * 10, 2), np.int8)
+    reads = []
+
+    def source(num):
+        reads.append(num)
+        return iq8[:num]
+
+    orch = Orchestrator(source, to.FS, to.CENTER_HZ, [to.CONTROL_OFF],
+                        slots=4, chunk_samples=64 * 64, bank_mode=True,
+                        ppm_correction=False, device="cpu")
+    orch.run(max_chunks=3)
+    assert len(reads) == 3
+    assert orch.samples_processed == 3 * 64 * 64
+
+
+def test_run_chunk_processes_one_chunk():
+    """The un-pipelined entry: one chunk through device step, transfer,
+    bank framing and the metrics sink."""
+    lines = []
+    orch = Orchestrator(lambda n: None, to.FS, to.CENTER_HZ,
+                        [to.CONTROL_OFF], slots=4, chunk_samples=64 * 64,
+                        bank_mode=True, ppm_correction=False,
+                        metrics_sink=lines.append, device="cpu")
+    metrics = orch.run_chunk(np.zeros((64 * 64, 2), np.int8))
+    assert metrics["samples"] == 64 * 64
+    assert metrics["frames"] == 0 and metrics["active_channels"] == 1
+    assert json.loads(lines[-1]) == metrics
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"decoder": "dmr"}, {"decoder": "nbfm"}, {"decoder": "p25p2"},
+    {"banks": [("c4fm", 4)]}, {"host_process": True},
+    {"ingest_format": "int4"}, {"bank_mode": False}])
+def test_unported_options_raise(kwargs):
+    args = dict(slots=4, bank_mode=True, device="cpu")
+    args.update(kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Orchestrator(lambda n: None, to.FS, to.CENTER_HZ, [to.CONTROL_OFF],
+                     **args)
