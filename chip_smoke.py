@@ -8,23 +8,40 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which raises on
 failure (the exit code is then not 0):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: the DQPSK kernel from sdrtrunk_tpu_torch/csrc/dqpsk.cu;
-3. kernel against its plain PyTorch version on the card, at the live
-   bank's shape (1023 channels x 10240 samples): identical on the signal
-   channels, with both times measured by CUDA events;
-4. the live loop at the product's full width: 12.8 MS/s of int8 IQ,
-   1024 bins, 1023 slots (a P25 control channel granting a traffic
-   channel, one free slot for the grant, 1021 voice slots), through
-   Orchestrator(device="cuda").run() for 3 warm-up and 4 timed chunks of
-   0.41 s. It must follow the grant, decode frames on >= 99% of the voice
-   slots, produce audio and launch the kernel once per chunk.
+2. build: both kernels, sdrtrunk_tpu_torch/csrc/dqpsk.cu and gardner.cu,
+   one nvcc each, started together; ptxas's registers and spills;
+3. each kernel against its plain PyTorch version on the card at the shape
+   its live loop gives it, identical on the signal channels and timed by
+   CUDA events: the DQPSK kernel at the C4FM bank's 1023 channels x 10240
+   samples, the Gardner kernel at W = 11 (LSM, 25 kHz, 1023 x 10240) and
+   W = 16 (P25 Phase 2, 50 kHz, 1023 x 20480);
+4. the live P25P1 C4FM loop at the product's full width: 12.8 MS/s of
+   int8 IQ, 1024 bins, 1023 slots (a P25 control channel granting a
+   traffic channel, one free slot for the grant, 1021 voice slots),
+   through Orchestrator(decoder="c4fm", device="cuda").run() for 3
+   warm-up and 4 timed chunks of 0.41 s. It must follow the grant, decode
+   frames on >= 99% of the voice slots, produce audio and launch the DQPSK
+   kernel once per chunk;
+5. the live P25 Phase 2 loop at the same width: 1023 slots of scrambled
+   HDQPSK voice (PTT + VOICE_4 cycles ending in END_PTT) at random phases,
+   the scramble parameters set on every slot as bench.py's P25P2 bank
+   bench sets them, through Orchestrator(decoder="p25p2") for 3 + 4
+   chunks. It must decode fragments on >= 99% of the voice slots, produce
+   AudioSegments and launch the Gardner kernel once per chunk;
+6. the live LSM bank at a smaller depth: 64 slots of P25 Phase 1 TSBK
+   control streams, LSM-modulated, through Orchestrator(decoder="lsm") for
+   3 chunks, with frames on >= 99% of the slots and one Gardner launch per
+   chunk.
 
-The line before the last is the kernels' JSON record; the last line is
+Each live loop resets both kernels' launch counts just before it runs and
+reads them just after. At the end the script prints its own run time, then
+the kernels' JSON record on the line before the last; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -43,6 +60,8 @@ GROUP, SOURCE = 0x457, 0xABCDE
 KERNEL_C, KERNEL_T = 1023, 10240
 NOISE_CHANNELS = 8
 STATE_TOL = 1e-4
+P25P2_KEY = (0xA4BC3, 0x123, 0x29A)            # WACN, system, NAC
+LSM_SLOTS, LSM_CHUNKS = 64, 3
 
 
 def _card() -> str:
@@ -64,73 +83,169 @@ def _cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-# --- phase 3: the kernel against its plain version -----------------------
+def _launch_counters():
+    from sdrtrunk_tpu_torch.dsp.dqpsk_cuda import dqpsk_cuda
+    from sdrtrunk_tpu_torch.dsp.gardner_cuda import gardner_cuda
+    return {"dqpsk": dqpsk_cuda, "gardner": gardner_cuda}
 
-def check_kernel(card: str) -> dict:
+
+# --- phase 2: build -------------------------------------------------------
+
+def build_kernels() -> dict:
+    """Build both kernel libraries in parallel; returns ptxas's registers
+    and spills per kernel instantiation."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda, nvcc
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(m.build) for m in (dqpsk_cuda, gardner_cuda)]
+        for f in futures:
+            f.result()
+    print(f"[build] dqpsk and gardner kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    regs = {}
+    for name in ("dqpsk", "gardner"):
+        entry = None
+        for line in nvcc.ptxas_report(name).splitlines():
+            m = re.search(r"Compiling entry function '.*?(dqpsk|gardner)"
+                          r"_kernelILi(\d+)E", line)
+            if m:
+                entry = f"{m.group(1)}<W={m.group(2)}>"
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and entry:
+                regs.setdefault(entry, {})["spill_stores"] = int(m.group(1))
+                regs[entry]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                regs.setdefault(entry, {})["registers"] = int(m.group(1))
+                entry = None            # what follows is a helper's
+    print("[build] ptxas " + json.dumps(regs), flush=True)
+    if any(v.get("spill_stores", 0) or v.get("spill_loads", 0)
+           for v in regs.values()):
+        raise AssertionError(f"a kernel spills registers: {regs}")
+    return regs
+
+
+# --- phase 3: the kernels against their plain versions --------------------
+
+def _signal_block(modulate, t: int, rate: float, baud: float):
+    """(1023, t) complex64 on the card: 1015 channels of a modulated
+    random-dibit stream at 30 dB from random offsets, then 8 noise-only."""
     import numpy as np
     import torch
 
-    from sdrtrunk_tpu.signal.generators import (awgn, c4fm_modulate,
-                                                random_dibits)
-    from sdrtrunk_tpu_torch.dsp import dqpsk_cuda
-    from sdrtrunk_tpu_torch.dsp.psk import DQPSKDemodulator, DQPSKState
+    from sdrtrunk_tpu.signal.generators import awgn, random_dibits
 
-    c, t = KERNEL_C, KERNEL_T
     rng = np.random.default_rng(1)
-    bases = [c4fm_modulate(random_dibits(t // 5 + 2400, seed=s), 25000.0)
+    sym = int(t * baud / rate)
+    bases = [modulate(random_dibits(sym + 2400, seed=s), rate, baud)
              for s in range(4)]
     rows = []
-    for ch in range(c - NOISE_CHANNELS):
+    for ch in range(KERNEL_C - NOISE_CHANNELS):
         base = bases[ch % 4]
         s = int(rng.integers(0, len(base) - t))
         rows.append(awgn(base[s:s + t], 30.0, rng=rng))
     noise = (rng.standard_normal((NOISE_CHANNELS, t))
              + 1j * rng.standard_normal((NOISE_CHANNELS, t))) * 0.5
-    x = torch.as_tensor(np.concatenate([np.stack(rows), noise])
-                        .astype(np.complex64), device="cuda")
+    return torch.as_tensor(np.concatenate([np.stack(rows), noise])
+                           .astype(np.complex64), device="cuda")
+
+
+def _hold(name: str, kernel_out, plain_out, fields, min_valid: float):
+    """Kernel against plain: identical valid and dibits on the signal
+    channels, state within STATE_TOL. Returns (max state error, channels
+    identical)."""
+    d_k, v_k, s_k = kernel_out
+    d_p, v_p, s_p = plain_out
+    sig = slice(0, KERNEL_C - NOISE_CHANNELS)
+    same = ((v_k == v_p) & ((d_k == d_p) | ~v_k)).all(dim=1).cpu()
+    errs = {}
+    for field, a, b in zip(fields, s_k, s_p):
+        errs[field] = float((a - b).abs()[sig].max())
+        if errs[field] > STATE_TOL:
+            raise AssertionError(f"{name}: kernel state {field} differs by "
+                                 f"{errs[field]} on signal channels")
+    if not bool(same[sig].all()):
+        bad = (~same[sig]).nonzero().flatten().tolist()[:10]
+        raise AssertionError(f"{name}: kernel symbols differ on signal "
+                             f"channels {bad}")
+    if float(v_k[sig].float().mean()) < min_valid:
+        raise AssertionError(f"{name}: kernel produced too few symbols")
+    return max(errs.values()), same
+
+
+def check_dqpsk(card: str) -> dict:
+    from sdrtrunk_tpu.signal.generators import c4fm_modulate
+    from sdrtrunk_tpu_torch.dsp import dqpsk_cuda
+    from sdrtrunk_tpu_torch.dsp.psk import DQPSKDemodulator, DQPSKState
+
+    c, t = KERNEL_C, KERNEL_T
+    x = _signal_block(lambda d, rate, baud: c4fm_modulate(d, rate), t,
+                      25000.0, 4800.0)
     demod = DQPSKDemodulator(25000.0, device="cuda")
     s0 = DQPSKState(*[a.expand((c,) + a.shape).clone()
                       for a in demod.init_state()])
-
-    d_k, v_k, s_k = demod.batched(x, s0)                 # the kernel
-    torch.cuda.synchronize()
+    kernel = demod.batched(x, s0)
     plain = {}
 
     def run_plain():
         plain["out"] = demod.scan_batched(x, s0)
     plain_ms = _cuda_ms(run_plain)
-    d_p, v_p, s_p = plain["out"]
     kernel_ms = _cuda_ms(lambda: dqpsk_cuda.dqpsk_cuda(demod, x, s0), reps=5)
-
-    sig = slice(0, c - NOISE_CHANNELS)
-    same = ((v_k == v_p) & ((d_k == d_p) | ~v_k)).all(dim=1).cpu()
-    errs = {}
-    for name, a, b in zip(DQPSKState._fields, s_k, s_p):
-        diff = (a - b).abs()
-        errs[name] = float(diff[sig].max())
-        if errs[name] > STATE_TOL:
-            raise AssertionError(f"kernel state {name} differs by "
-                                 f"{errs[name]} on signal channels")
-    if not bool(same[sig].all()):
-        bad = (~same[sig]).nonzero().flatten().tolist()[:10]
-        raise AssertionError(f"kernel symbols differ on signal channels {bad}")
-    if float(v_k[sig].float().mean()) < 0.15:
-        raise AssertionError("kernel produced too few symbols")
+    err, same = _hold("dqpsk", kernel, plain["out"], DQPSKState._fields, 0.15)
     print(f"[kernel] {card}: dqpsk C={c} T={t}: identical on "
-          f"{int(same.sum())}/{c} channels (signal {int(same[sig].sum())}/"
-          f"{c - NOISE_CHANNELS}); max state err {max(errs.values())}; "
+          f"{int(same.sum())}/{c} channels; max state err {err}; "
           f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
     return {"name": "dqpsk", "route": "cuda",
             "source": "sdrtrunk_tpu_torch/csrc/dqpsk.cu",
             "replaces": "sdrtrunk_tpu/dsp/pallas_psk.py:48",
-            "max_abs_err": max(errs.values()), "ms": kernel_ms,
-            "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "shape": [c, t], "plain_shape": [c, t]}
 
 
-# --- phase 4: the full-width live loop ------------------------------------
+def check_gardner(card: str, name: str, rate: float, baud: float,
+                  gain: float, t: int) -> dict:
+    """The Gardner kernel against its plain loop at the live shape
+    (1023, t)."""
+    from sdrtrunk_tpu.signal.generators import lsm_modulate
+    from sdrtrunk_tpu_torch.dsp import gardner_cuda
+    from sdrtrunk_tpu_torch.dsp.psk import GardnerDQPSKDemodulator, GardnerState
+
+    def modulate(d, r, b):
+        return lsm_modulate(d, sample_rate=r, symbol_rate=b)
+
+    c = KERNEL_C
+    demod = GardnerDQPSKDemodulator(rate, baud, gain, device="cuda")
+    s0 = GardnerState(*[a.expand((c,) + a.shape).clone()
+                        for a in demod.init_state()])
+    x = _signal_block(modulate, t, rate, baud)
+    kernel = demod.batched(x, s0)
+    plain = {}
+
+    def run_plain():
+        plain["out"] = demod.scan_batched(x, s0)
+    plain_ms = _cuda_ms(run_plain)
+    kernel_ms = _cuda_ms(lambda: gardner_cuda.gardner_cuda(demod, x, s0),
+                         reps=5)
+    err, same = _hold(name, kernel, plain["out"], GardnerState._fields, 0.1)
+    print(f"[kernel] {card}: {name} W={demod.window_len} C={c} T={t}: "
+          f"identical on {int(same.sum())}/{c} channels; max state err "
+          f"{err}; kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms",
+          flush=True)
+    return {"name": name, "route": "cuda",
+            "source": "sdrtrunk_tpu_torch/csrc/gardner.cu",
+            "replaces": "sdrtrunk_tpu/dsp/pallas_gardner.py:50",
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "shape": [c, t], "plain_shape": [c, t]}
+
+
+# --- phases 4-6: the live loops -------------------------------------------
 
 def _p25_streams(total_dibits: int, base_hz: float):
-    """(control, traffic, voice superframe) dibit streams."""
+    """(control, traffic, voice superframe) P25P1 dibit streams."""
     import numpy as np
 
     from sdrtrunk_tpu.protocol.bits import from_int
@@ -159,8 +274,10 @@ def _p25_streams(total_dibits: int, base_hz: float):
         0x3A, rng.integers(0, 2, 64).astype(np.uint8)))
     parts = [rng.integers(0, 4, 120).astype(np.uint8), t_iden, t_iden,
              t_grant, t_grant]
+    # IDEN_UP is rebroadcast through the stream, as a control channel
+    # does, so a receiver that missed the first one still maps the grant
     while sum(len(p) for p in parts) < total_dibits - 2 * len(t_grant):
-        parts += [t_rfss, t_grant]
+        parts += [t_rfss, t_iden, t_grant]
     control = np.concatenate(parts)
 
     lc = lc_build_group_voice(group=GROUP, source=SOURCE)
@@ -190,36 +307,84 @@ def _p25_streams(total_dibits: int, base_hz: float):
     return pad(control), pad(traffic), superframe
 
 
-def synthesize_capture(ch, offsets, total_chunks: int) -> list:
-    """int8 (n, 2) chunks of the 1023-slot capture, synthesized on the card
-    by the port's synthesis bank with filter state carried across chunks
-    (each chunk re-synthesizes the previous one's last 2T blocks, which
-    equals one-shot synthesis)."""
+def _p25p2_cycle():
+    """One call cycle of P25P2 dibits: three fragments of scrambled PTT
+    (SACCH, TDMA channel 0) + VOICE_4 (channel 1), then a fragment of
+    scrambled END_PTT on both TDMA channels, so that each cycle's voice
+    ends as an AudioSegment."""
+    import numpy as np
+
+    from sdrtrunk_tpu.protocol.bits import from_int
+    from sdrtrunk_tpu.protocol.p25p2 import P25P2FragmentAssembler
+    from sdrtrunk_tpu.protocol.p25p2.timeslot import (MacPduType,
+                                                      sacch_encode,
+                                                      voice4_encode)
+
+    rng = np.random.default_rng(0)
+    asm = P25P2FragmentAssembler(*P25P2_KEY)
+    ptt = np.zeros(180, np.uint8)
+    ptt[0:3] = from_int(MacPduType.PTT.value, 3)
+    ptt[80:88] = from_int(0x80, 8)
+    ptt[104:128] = from_int(SOURCE, 24)
+    ptt[128:144] = from_int(GROUP, 16)
+    endptt = np.zeros(180, np.uint8)
+    endptt[0:3] = from_int(MacPduType.END_PTT.value, 3)
+    endptt[104:128] = from_int(SOURCE, 24)
+    endptt[128:144] = from_int(GROUP, 16)
+    frames = rng.integers(0, 2, (4, 72)).astype(np.uint8)
+    frags = [asm.assemble(i, [sacch_encode(ptt, scrambled=True),
+                              voice4_encode(frames),
+                              sacch_encode(ptt, scrambled=True),
+                              voice4_encode(frames)]) for i in range(3)]
+    frags.append(asm.assemble(0, [sacch_encode(endptt, scrambled=True)] * 4))
+    return P25P2FragmentAssembler.to_dibits(frags)
+
+
+def _lsm_tsbks():
+    """A P25P1 control stream of TSBKs (tests/test_orchestrator_bank.py's
+    LSM scene)."""
+    import numpy as np
+
+    from sdrtrunk_tpu.protocol.p25p1.duid import DUID
+    from sdrtrunk_tpu.protocol.p25p1.framer import P25P1FrameAssembler
+    from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
+
+    rng = np.random.default_rng(5)
+    asm = P25P1FrameAssembler(nac=0x293)
+    tsbk = asm.assemble(DUID.TSBK, tsbk_encode(
+        0x3A, rng.integers(0, 2, 64).astype(np.uint8)))
+    return np.concatenate([rng.integers(0, 4, 150).astype(np.uint8)]
+                          + [tsbk] * 6)
+
+
+def _tiled_streams(cycle, modulate, sps: float, slots: int, n_ch: int,
+                   seed: int):
+    """(slots, n_ch) complex64 on the card: a dibit cycle, tiled and
+    modulated once (sps samples a symbol), read from a random phase per
+    slot."""
     import numpy as np
     import torch
 
-    from sdrtrunk_tpu.signal.generators import c4fm_modulate
+    rng = np.random.default_rng(seed)
+    per = int(len(cycle) * sps)                # samples per cycle
+    starts = rng.integers(0, per, slots)
+    base = modulate(np.tile(cycle, (int(starts.max()) + n_ch) // per + 2))
+    base = torch.as_tensor(base.astype(np.complex64), device="cuda")
+    return base[torch.as_tensor(starts, device="cuda")[:, None]
+                + torch.arange(n_ch, device="cuda")[None, :]]
+
+
+def synthesize_chunks(ch, streams, offsets, total_chunks: int) -> list:
+    """int8 (n, 2) wideband chunks of per-slot channel streams (slots,
+    n_ch), synthesized on the card by the port's synthesis bank with filter
+    state carried across chunks (each chunk re-synthesizes the previous
+    one's last 2T blocks, which equals one-shot synthesis)."""
+    import torch
+
     from sdrtrunk_tpu_torch.dsp.synthesizer import synthesize_bank
 
     chunk = M * CHUNK_BLOCKS
     k = 2 * chunk // M
-    rate = ch.channel_sample_rate
-    n_ch = (total_chunks + 1) * k
-    total_dibits = int(n_ch / rate * 4800) + 64
-    control, traffic, superframe = _p25_streams(
-        total_dibits, CENTER_HZ + offsets[0])
-    rng = np.random.default_rng(0)
-    starts = rng.integers(0, len(superframe) * 5, SLOTS)
-    need = int(starts.max()) + n_ch + len(superframe)
-    voice = np.tile(superframe, need // (len(superframe) * 5) + 2)
-    base = torch.as_tensor(c4fm_modulate(voice, rate).astype(np.complex64),
-                           device="cuda")
-    streams = base[torch.as_tensor(starts, device="cuda")[:, None]
-                   + torch.arange(n_ch, device="cuda")[None, :]]
-    for row, dib in ((0, control), (TRAFFIC_INDEX, traffic)):
-        streams[row] = torch.as_tensor(
-            c4fm_modulate(dib, rate)[:n_ch].astype(np.complex64),
-            device="cuda")
     bins = torch.as_tensor([ch.channel_for_frequency(o) for o in offsets],
                            device="cuda")
     pad = 2 * ch.taps_per_channel
@@ -237,6 +402,24 @@ def synthesize_capture(ch, offsets, total_chunks: int) -> list:
                         -127, 127).to(torch.int8).cpu().numpy() for x in xs]
 
 
+def _source(chunks):
+    chunk = M * CHUNK_BLOCKS
+    pos = 0
+
+    def read(num):
+        nonlocal pos
+        j = pos // chunk
+        pos += num
+        return chunks[j] if j < len(chunks) else None
+
+    return read
+
+
+# the layer key of each symbol loop's kernel in layer_times' record
+_KERNEL_LAYER = {"DQPSKDemodulator": "dqpsk_kernel",
+                 "GardnerDQPSKDemodulator": "gardner_kernel"}
+
+
 def layer_times(orch, iq8) -> dict:
     """Per-chunk device ms of each layer of the live step, on one chunk,
     from a copy of the running state (CUDA events)."""
@@ -244,13 +427,13 @@ def layer_times(orch, iq8) -> dict:
 
     from sdrtrunk_tpu_torch.convert import tree_map
     from sdrtrunk_tpu_torch.dsp.channelizer import channelize_core
-    from sdrtrunk_tpu_torch.dsp.dqpsk_cuda import dqpsk_cuda
     from sdrtrunk_tpu_torch.dsp.psk import unpack_symbols
     from sdrtrunk_tpu_torch.receiver import dynamic_select_mix
     from sdrtrunk_tpu_torch.runtime.orchestrator import (
-        compact_and_correlate, ingest)
+        compact_and_correlate, ingest, sync_patterns)
 
     rx = orch.rx
+    demod = rx.decoder.demod
     state = tree_map(lambda a: a.clone(), orch.state)
     bins, steps = (torch.as_tensor(orch.bins, dtype=torch.long,
                                    device="cuda"),
@@ -271,58 +454,30 @@ def layer_times(orch, iq8) -> dict:
         (r["leveled"], _), _ = rx.decoder._front(r["streams"], state["dec"])
 
     def kernel():
-        r["packed"], _ = dqpsk_cuda(rx.decoder.demod, r["leveled"],
-                                    state["dec"]["psk"])
+        r["packed"], _ = demod._kernel(r["leveled"], state["dec"]["psk"])
 
     def tail():
-        compact_and_correlate(*unpack_symbols(r["packed"]), orch._bank_cap)
+        compact_and_correlate(*unpack_symbols(r["packed"]), orch._bank_cap,
+                              *sync_patterns(orch.decoder_name))
 
     out = {}
     for name, fn in (("ingest_channelize", chan), ("select_mix", select),
-                     ("front_end", front), ("dqpsk_kernel", kernel),
+                     ("front_end", front),
+                     (_KERNEL_LAYER[type(demod).__name__], kernel),
                      ("tail", tail)):
         fn()
         out[name] = _cuda_ms(fn, reps=3)
     return out
 
 
-def run_live(card: str) -> dict:
-    import numpy as np
+def drive(orch, kernel: str, chunks: int, warmup: int) -> dict:
+    """Run the live loop for `chunks` chunks (the first `warmup` untimed)
+    with both kernels' launch counts set to 0 just before and read just
+    after. Checks that every live-step output lay on the card and that
+    only `kernel` launched, once per chunk. Returns timing and counts."""
     import torch
 
-    from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
-    from sdrtrunk_tpu_torch.dsp import dqpsk_cuda
-    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
-    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
-
-    chunk = M * CHUNK_BLOCKS
-    ch = Channelizer.design(FS, 12500.0, device="cuda")
-    assert ch.channels == M
-    offsets = [(i - M // 2 + 1) * 12500.0 for i in range(SLOTS)]
-    t0 = time.perf_counter()
-    chunks = synthesize_capture(ch, offsets, WARMUP + TIMED)
-    synth_s = time.perf_counter() - t0
-
-    pos = 0
-
-    def source(num):
-        nonlocal pos
-        j = pos // chunk
-        pos += num
-        return chunks[j] if j < len(chunks) else None
-
-    orch = Orchestrator(source, FS, CENTER_HZ, [offsets[0]], slots=SLOTS,
-                        decoder="c4fm", chunk_samples=chunk,
-                        idle_teardown_seconds=1e9, ppm_correction=False,
-                        device="cuda")
-    traffic_hz = CENTER_HZ + offsets[TRAFFIC_INDEX]
-    voice_hz = [CENTER_HZ + o for i, o in enumerate(offsets)
-                if i not in (0, TRAFFIC_INDEX)]
-    for f in voice_hz:
-        orch._activate(f, IdentifierCollection())
-    if sum(s.active for s in orch.slots) != SLOTS - 1:
-        raise AssertionError("voice slots did not all activate")
-
+    counters = _launch_counters()
     devices = set()
     step = orch.step
 
@@ -342,40 +497,99 @@ def run_live(card: str) -> dict:
             framing["s"] += time.perf_counter() - f0
     orch.bank_proc.frame_chunk = timed_frame_chunk
 
-    dqpsk_cuda.dqpsk_cuda.launches = 0          # count the main path only
-    orch.run(max_chunks=WARMUP)
+    for fn in counters.values():               # count the main path only
+        fn.launches = 0
+    orch.run(max_chunks=warmup)
     torch.cuda.synchronize()
     framing["s"] = 0.0
     t0 = time.perf_counter()
-    metrics = orch.run(max_chunks=TIMED)
+    metrics = orch.run(max_chunks=chunks - warmup)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dqpsk_cuda.dqpsk_cuda.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
 
-    status = orch.channel_status()
-    by_freq = {s["frequency_hz"]: s for s in status}
-    voice_frames = np.array([by_freq[f]["frames"] for f in voice_hz])
-    traffic = by_freq.get(traffic_hz)
+    timed = M * CHUNK_BLOCKS * (chunks - warmup)
+    if launches[kernel] != chunks or sum(launches.values()) != chunks:
+        raise AssertionError(f"kernel launches {launches} for {chunks} "
+                             f"chunks (expected {kernel} once per chunk)")
+    if devices != {"cuda"}:
+        raise AssertionError(f"live step outputs on {devices}")
+    return {"metrics": metrics, "launches": launches[kernel],
+            "msps": timed / elapsed / 1e6,
+            "realtime_factor": timed / elapsed / FS,
+            "host_framing_ms_per_chunk":
+                framing["s"] * 1e3 / (chunks - warmup)}
+
+
+def _coverage(orch, slot_hz):
+    """Frames decoded on each of the slots at slot_hz."""
+    import numpy as np
+    by_freq = {s["frequency_hz"]: s for s in orch.channel_status()}
+    return np.array([by_freq[f]["frames"] for f in slot_hz])
+
+
+def run_c4fm(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu.signal.generators import c4fm_modulate
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+
+    chunk = M * CHUNK_BLOCKS
+    ch = Channelizer.design(FS, 12500.0, device="cuda")
+    assert ch.channels == M
+    offsets = [(i - M // 2 + 1) * 12500.0 for i in range(SLOTS)]
+    t0 = time.perf_counter()
+    rate = ch.channel_sample_rate
+    n_ch = (WARMUP + TIMED + 1) * (2 * chunk // M)
+    control, traffic, superframe = _p25_streams(
+        int(n_ch / rate * 4800) + 64, CENTER_HZ + offsets[0])
+    streams = _tiled_streams(superframe, lambda d: c4fm_modulate(d, rate),
+                             rate / 4800.0, SLOTS, n_ch, seed=0)
+    for row, dib in ((0, control), (TRAFFIC_INDEX, traffic)):
+        streams[row] = torch.as_tensor(
+            c4fm_modulate(dib, rate)[:n_ch].astype(np.complex64),
+            device="cuda")
+    chunks = synthesize_chunks(ch, streams, offsets, WARMUP + TIMED)
+    synth_s = time.perf_counter() - t0
+
+    orch = Orchestrator(_source(chunks), FS, CENTER_HZ, [offsets[0]],
+                        slots=SLOTS, decoder="c4fm", chunk_samples=chunk,
+                        idle_teardown_seconds=1e9, ppm_correction=False,
+                        bank_mode=True, device="cuda")
+    traffic_hz = CENTER_HZ + offsets[TRAFFIC_INDEX]
+    voice_hz = [CENTER_HZ + o for i, o in enumerate(offsets)
+                if i not in (0, TRAFFIC_INDEX)]
+    for f in voice_hz:
+        orch._activate(f, IdentifierCollection())
+    if sum(s.active for s in orch.slots) != SLOTS - 1:
+        raise AssertionError("voice slots did not all activate")
+
+    run = drive(orch, "dqpsk", WARMUP + TIMED, WARMUP)
+    voice_frames = _coverage(orch, voice_hz)
+    status = {s["frequency_hz"]: s for s in orch.channel_status()}
+    traffic = status.get(traffic_hz)
     segs = [s for s in orch.audio_segments if s.duration > 0]
-    msps = chunk * TIMED / elapsed / 1e6
-    layers = layer_times(orch, chunks[-1])
     result = {
-        "card": card, "slots": SLOTS, "wideband_msps": FS / 1e6,
-        "chunk_samples": chunk, "timed_chunks": TIMED,
-        "msps": msps, "realtime_factor": msps * 1e6 / FS,
-        "frames": int(sum(s["frames"] for s in status)),
+        "card": card, "decoder": "c4fm", "slots": SLOTS,
+        "wideband_msps": FS / 1e6, "chunk_samples": chunk,
+        "timed_chunks": TIMED, "msps": run["msps"],
+        "realtime_factor": run["realtime_factor"],
+        "frames": int(sum(s["frames"] for s in status.values())),
         "voice_slots_with_frames": int((voice_frames > 0).sum()),
         "voice_slots": len(voice_hz),
         "traffic_frames": None if traffic is None else traffic["frames"],
         "events": len(orch.events), "audio_segments": len(segs),
         "skipped_grants": len(orch.skipped_grants),
-        "active_channels": metrics.get("active_channels"),
-        "kernel_launches": launches,
-        "device_ms_per_chunk": layers,
-        "host_framing_ms_per_chunk": framing["s"] * 1e3 / TIMED,
+        "active_channels": run["metrics"].get("active_channels"),
+        "kernel_launches": run["launches"],
+        "device_ms_per_chunk": layer_times(orch, chunks[-1]),
+        "host_framing_ms_per_chunk": run["host_framing_ms_per_chunk"],
         "synthesis_s": synth_s,
     }
-    print("[live] " + json.dumps(result), flush=True)
+    print("[live c4fm] " + json.dumps(result), flush=True)
     if traffic is None or not any(s.active and s.frequency_hz == traffic_hz
                                   for s in orch.slots):
         raise AssertionError("the grant did not activate the traffic slot")
@@ -386,11 +600,104 @@ def run_live(card: str) -> dict:
                              f"{len(voice_hz)} voice slots")
     if not segs:
         raise AssertionError("no AudioSegment")
-    if launches != WARMUP + TIMED:
-        raise AssertionError(f"kernel launched {launches} times for "
-                             f"{WARMUP + TIMED} chunks")
-    if devices != {"cuda"}:
-        raise AssertionError(f"live step outputs on {devices}")
+    return result
+
+
+def run_p25p2(card: str) -> dict:
+    from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu.signal.generators import lsm_modulate
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+
+    chunk = M * CHUNK_BLOCKS
+    ch = Channelizer.design(FS, 12500.0, device="cuda")
+    offsets = [(i - M // 2 + 1) * 12500.0 for i in range(SLOTS)]
+    t0 = time.perf_counter()
+    rate = ch.channel_sample_rate
+    n_ch = (WARMUP + TIMED + 1) * (2 * chunk // M)
+    streams = _tiled_streams(
+        _p25p2_cycle(),
+        lambda d: lsm_modulate(d, sample_rate=rate, symbol_rate=6000.0),
+        rate / 6000.0, SLOTS, n_ch, seed=0)
+    chunks = synthesize_chunks(ch, streams, offsets, WARMUP + TIMED)
+    synth_s = time.perf_counter() - t0
+
+    orch = Orchestrator(_source(chunks), FS, CENTER_HZ, [offsets[0]],
+                        slots=SLOTS, decoder="p25p2", chunk_samples=chunk,
+                        idle_teardown_seconds=1e9, ppm_correction=False,
+                        bank_mode=True, device="cuda")
+    voice_hz = [CENTER_HZ + o for o in offsets[1:]]
+    for f in voice_hz:
+        orch._activate(f, IdentifierCollection())
+    if sum(s.active for s in orch.slots) != SLOTS:
+        raise AssertionError("voice slots did not all activate")
+    # traffic channels carry the system's scramble parameters (a control
+    # channel's preload in production; set directly, as bench.py does)
+    for s in range(SLOTS):
+        orch.bank_proc.framer.set_scramble_parameters(s, *P25P2_KEY)
+        orch.bank_proc.states[s].scramble_key = P25P2_KEY
+
+    run = drive(orch, "gardner", WARMUP + TIMED, WARMUP)
+    voice_frames = _coverage(orch, voice_hz)
+    segs = [s for s in orch.audio_segments if s.duration > 0]
+    result = {
+        "card": card, "decoder": "p25p2", "slots": SLOTS,
+        "timeslots": 2 * SLOTS, "wideband_msps": FS / 1e6,
+        "chunk_samples": chunk, "timed_chunks": TIMED, "msps": run["msps"],
+        "realtime_factor": run["realtime_factor"],
+        "fragments": int(sum(s["frames"] for s in orch.channel_status())),
+        "voice_slots_with_fragments": int((voice_frames > 0).sum()),
+        "voice_slots": len(voice_hz), "audio_segments": len(segs),
+        "active_channels": run["metrics"].get("active_channels"),
+        "kernel_launches": run["launches"],
+        "device_ms_per_chunk": layer_times(orch, chunks[-1]),
+        "host_framing_ms_per_chunk": run["host_framing_ms_per_chunk"],
+        "synthesis_s": synth_s,
+    }
+    print("[live p25p2] " + json.dumps(result), flush=True)
+    if (voice_frames > 0).mean() < 0.99:
+        raise AssertionError(f"fragments on only {(voice_frames > 0).sum()} "
+                             f"of {len(voice_hz)} voice slots")
+    if not segs:
+        raise AssertionError("no AudioSegment")
+    return result
+
+
+def run_lsm(card: str) -> dict:
+    from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu.signal.generators import lsm_modulate
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+
+    chunk = M * CHUNK_BLOCKS
+    ch = Channelizer.design(FS, 12500.0, device="cuda")
+    # 64 slots spread over the band, 16 bins apart
+    offsets = [(16 * i - M // 2 + 8) * 12500.0 for i in range(LSM_SLOTS)]
+    rate = ch.channel_sample_rate
+    n_ch = (LSM_CHUNKS + 1) * (2 * chunk // M)
+    streams = _tiled_streams(
+        _lsm_tsbks(), lambda d: lsm_modulate(d, sample_rate=rate),
+        rate / 4800.0, LSM_SLOTS, n_ch, seed=3)
+    chunks = synthesize_chunks(ch, streams, offsets, LSM_CHUNKS)
+    orch = Orchestrator(_source(chunks), FS, CENTER_HZ, [offsets[0]],
+                        slots=LSM_SLOTS, decoder="lsm", chunk_samples=chunk,
+                        idle_teardown_seconds=1e9, ppm_correction=False,
+                        bank_mode=True, device="cuda")
+    slot_hz = [CENTER_HZ + o for o in offsets]
+    for f in slot_hz[1:]:
+        orch._activate(f, IdentifierCollection())
+    run = drive(orch, "gardner", LSM_CHUNKS, 1)
+    frames = _coverage(orch, slot_hz)
+    result = {"card": card, "decoder": "lsm", "slots": LSM_SLOTS,
+              "chunks": LSM_CHUNKS, "frames": int(frames.sum()),
+              "control_frames": int(frames[0]),
+              "slots_with_frames": int((frames > 0).sum()),
+              "kernel_launches": run["launches"],
+              "realtime_factor": run["realtime_factor"]}
+    print("[live lsm] " + json.dumps(result), flush=True)
+    if not frames[0] or (frames > 0).mean() < 0.99:
+        raise AssertionError(f"LSM frames on {(frames > 0).sum()} of "
+                             f"{LSM_SLOTS} slots (control {frames[0]})")
     return result
 
 
@@ -400,6 +707,7 @@ def main() -> int:
         print("chip_smoke.py: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -412,16 +720,17 @@ def main() -> int:
     card = _card()
     print(card, flush=True)
 
-    from sdrtrunk_tpu_torch.dsp import dqpsk_cuda
-    t0 = time.perf_counter()
-    dqpsk_cuda.build()
-    print(f"[build] dqpsk kernel built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-
-    kernel = check_kernel(card)
-    live = run_live(card)
-    kernel["launches"] = live["kernel_launches"]
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    build_kernels()
+    dqpsk = check_dqpsk(card)
+    lsm_k = check_gardner(card, "gardner_lsm", 25000.0, 4800.0, 0.3, KERNEL_T)
+    p25p2_k = check_gardner(card, "gardner_p25p2", 50000.0, 6000.0, 0.1,
+                            2 * KERNEL_T)
+    dqpsk["launches"] = run_c4fm(card)["kernel_launches"]
+    p25p2_k["launches"] = run_p25p2(card)["kernel_launches"]
+    lsm_k["launches"] = run_lsm(card)["kernel_launches"]
+    print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print(json.dumps({"kernels": [dqpsk, p25p2_k, lsm_k]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

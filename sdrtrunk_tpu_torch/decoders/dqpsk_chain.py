@@ -3,7 +3,10 @@
 Baseband FIR -> power monitor -> 32-sample feed-forward AGC -> DQPSK
 symbol recovery, batched over a (C, T) block of channels. Subclasses set
 ``config`` (with ``agc_window``), the ``baseband_taps`` buffer and the
-``demod`` submodule. P25 Phase 2's x2 upsampling is not ported yet.
+``demod`` submodule (a ``DQPSKDemodulator`` or a
+``GardnerDQPSKDemodulator``). A subclass may set ``upsample`` = 2 to
+zero-stuff the channel stream before the baseband FIR, which then doubles
+as the interpolation filter (P25 Phase 2's 50 kHz channel rate).
 """
 from __future__ import annotations
 
@@ -31,7 +34,13 @@ class DQPSKChainDecoder(nn.Module):
         }
 
     def _front(self, x: torch.Tensor, state: dict):
-        """FIR + power monitor + AGC over a (C, T) block."""
+        """(Zero-stuff +) FIR + power monitor + AGC over a (C, T) block."""
+        if self.upsample > 1:
+            up = self.upsample
+            c, t = x.shape
+            stuffed = torch.zeros((c, t * up), dtype=x.dtype, device=x.device)
+            stuffed[:, ::up] = x * up       # images removed by the LPF
+            x = stuffed
         filtered, fir_state = fir.fir_apply(x, self.baseband_taps,
                                             state["fir"])
         power_trace, power_state = demod.power_db(filtered, 0.0004,

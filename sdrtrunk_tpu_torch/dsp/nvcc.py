@@ -1,0 +1,124 @@
+"""Build and load of the port's CUDA kernels (``csrc/<name>.cu``), and the
+input checks their wrappers share.
+
+Each kernel source is compiled with nvcc at first use into ``_build/``
+(listed in .gitignore) as a shared library with a plain C interface, under
+a name keyed by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, and loaded with ctypes. Nothing is built at import. ptxas
+reports each kernel's registers, shared memory and spills (``-Xptxas -v``);
+the report is kept beside the library as ``lib<name>_<key>.log``.
+
+The symbol-loop kernels (dqpsk.cu, gardner.cu) take the same inputs: a
+(T, C) complex64 stream, the (129, 8) interpolator bank and the state in
+the reference layout; ``check_inputs`` refuses anything else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "check_inputs", "check_tensor",
+           "load_kernel", "ptxas_report"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
+
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the port's "
+                       "kernels are built from sdrtrunk_tpu_torch/csrc with nvcc")
+
+
+def _library(name: str) -> Path:
+    source = CSRC / f"{name}.cu"
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's report (registers, spills) from the build of ``name``."""
+    return _library(name).with_suffix(".log").read_text()
+
+
+def load_kernel(name: str, symbol: str, argtypes: list) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` (once per key) and load it; ``symbol``
+    gets ``argtypes`` and an int return (its CUDA status). Raises
+    RuntimeError when nvcc fails."""
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        so = _library(name)
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{proc.stderr}")
+            so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return lib
+
+
+def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple, device: torch.device) -> None:
+    """Raise ValueError unless t is a contiguous dtype tensor of shape on
+    device."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{kernel}: {name} must be a contiguous {dtype} tensor of "
+            f"shape {shape} on {device}; got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def check_inputs(kernel: str, demod, x: torch.Tensor, state) -> torch.Tensor:
+    """Check x, the bank and the state (window (C, W) complex64, then four
+    (C,) float32 and the rest (C,) complex64 leaves) against what a symbol
+    loop kernel takes; returns x as the (T, C) stream the kernel reads."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel}: x must be on a CUDA device, got {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"{kernel}: x must be (C, T), got {tuple(x.shape)}")
+    dev = x.device
+    c, t = x.shape
+    xt = x.T.contiguous()
+    check_tensor(kernel, "x", xt, torch.complex64, (t, c), dev)
+    check_tensor(kernel, "bank", demod.bank, torch.float32, (129, 8), dev)
+    check_tensor(kernel, "window", state.window, torch.complex64,
+                 (c, demod.window_len), dev)
+    for i, name in enumerate(state._fields[1:]):
+        check_tensor(kernel, name, getattr(state, name),
+                     torch.float32 if i < 4 else torch.complex64, (c,), dev)
+    return xt

@@ -3,7 +3,8 @@
 Wideband IQ -> polyphase channelize (all M bins) -> per-slot bin select,
 two-bin join and residual mix -> batched decoder chain. Only the parts the
 live bank step uses are ported: ``init_state``, ``build_dynamic`` and
-``reset_slot``, for the P25 Phase 1 C4FM decoder.
+``reset_slot``, for the DQPSK chain decoders (P25 Phase 1 C4FM and LSM,
+P25 Phase 2).
 """
 from __future__ import annotations
 
@@ -27,10 +28,16 @@ def make_channel_decoder(kind: str, sample_rate: float, device="cuda"):
     if kind in ("c4fm", "p25p1"):
         from .decoders.c4fm import C4FMConfig, C4FMDecoder
         return C4FMDecoder(C4FMConfig(sample_rate=sample_rate), device=device)
+    if kind in ("lsm", "p25p1-lsm"):
+        from .decoders.lsm import LSMConfig, LSMDecoder
+        return LSMDecoder(LSMConfig(sample_rate=sample_rate), device=device)
+    if kind == "p25p2":
+        from .decoders.p25p2 import P25P2Config, P25P2Decoder
+        return P25P2Decoder(P25P2Config(sample_rate=sample_rate),
+                            device=device)
     raise NotImplementedError(
         f"decoder kind {kind!r} is not ported yet: DMR is ROADMAP Queue 1 "
-        "item 10, LSM/P25P2 item 11, NBFM/AM item 12, the analog trunking "
-        "kinds item 13")
+        "item 10, NBFM/AM item 12, the analog trunking kinds item 13")
 
 
 def dynamic_select_mix(y: torch.Tensor, rot: torch.Tensor,

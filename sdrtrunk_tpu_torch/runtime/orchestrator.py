@@ -1,14 +1,16 @@
 """Live bank-mode orchestrator (port of sdrtrunk_tpu/runtime/orchestrator.py).
 
 The continuous ring -> decode -> events -> traffic-following loop for one
-digital decoder kind (P25 Phase 1 C4FM), in bank mode: one slot-bank step
-on the device demodulates every slot of a chunk, then compacts the symbol
-streams, correlates them against the P25P1 sync patterns and packs the
-result into one flat uint8 transfer; the host frames the whole bank with
-``P25P1BankProcessor`` and routes messages into per-slot decoder states
-and the ``TrafficChannelManager``, which starts and stops traffic slots
-mid-stream. "Starting a channel" is a write of (bin, mixer step) into the
-slot plan plus an in-place reset of that slot's device state.
+digital decoder kind (P25 Phase 1 C4FM or LSM, P25 Phase 2), in bank mode:
+one slot-bank step on the device demodulates every slot of a chunk, then
+compacts the symbol streams, correlates them against the protocol's sync
+patterns and packs the result into one flat uint8 transfer; the host
+frames the whole bank with the protocol's bank processor
+(``P25P1BankProcessor``, ``P25P2BankProcessor``) and routes messages into
+per-slot decoder states and the ``TrafficChannelManager``, which starts
+and stops traffic slots mid-stream. "Starting a channel" is a write of
+(bin, mixer step) into the slot plan plus an in-place reset of that
+slot's device state.
 
 The host layer is the JAX package's own (``sdrtrunk_tpu.runtime``,
 ``sdrtrunk_tpu.audio.mbe``, ``sdrtrunk_tpu.protocol``), imported as it is.
@@ -27,7 +29,9 @@ import torch
 
 from sdrtrunk_tpu.audio.mbe import FakeMBECodec, MBECodec
 from sdrtrunk_tpu.protocol.p25p1.bankframer import SYNC_DIBIT_PATTERNS
-from sdrtrunk_tpu.runtime.bank_processor import P25P1BankProcessor
+from sdrtrunk_tpu.protocol.p25p2.bankframer import P25P2_SYNC_DIBITS
+from sdrtrunk_tpu.runtime.bank_processor import (P25P1BankProcessor,
+                                                 P25P2BankProcessor)
 from sdrtrunk_tpu.runtime.events import DecodeEvent
 from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
 from sdrtrunk_tpu.runtime.metrics import FrequencyErrorMonitor
@@ -36,10 +40,16 @@ from sdrtrunk_tpu.runtime.traffic import TrafficChannelManager
 from .. import resolve_device
 from ..receiver import WidebandReceiver
 
-__all__ = ["ChannelSlot", "Orchestrator", "compact_and_correlate", "ingest"]
+__all__ = ["ChannelSlot", "Orchestrator", "compact_and_correlate", "ingest",
+           "sync_patterns"]
 
-_DIGITAL_KINDS = ("c4fm", "p25p1")
 _P25P1_SYNC_MAX_ERRORS = 9          # bit errors over the 24-dibit sync
+_P25P2_SYNC_MAX_ERRORS = 4          # over the 20-dibit sync (P25P2SyncPattern)
+
+# decoder kind -> traffic-manager protocol label, for the kinds ported
+# (reference orchestrator.py:42-47)
+_PROTOCOL_LABELS = {"c4fm": "APCO25", "p25p1": "APCO25", "lsm": "APCO25",
+                    "p25p1-lsm": "APCO25", "p25p2": "APCO25-P2"}
 
 
 @dataclass
@@ -60,17 +70,30 @@ def ingest(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def sync_patterns(decoder: str) -> tuple[np.ndarray, int]:
+    """(dibit patterns, max bit errors) the tail correlates for a decoder
+    kind: P25P1 (C4FM, LSM) its 4 rotation images of the 24-dibit sync at
+    <= 9 bit errors; P25P2 its one 20-dibit pattern at <= 4."""
+    if decoder == "p25p2":
+        return P25P2_SYNC_DIBITS[None, :], _P25P2_SYNC_MAX_ERRORS
+    return SYNC_DIBIT_PATTERNS, _P25P1_SYNC_MAX_ERRORS
+
+
 def compact_and_correlate(dib: torch.Tensor, valid: torch.Tensor, cap: int,
-                          patterns: np.ndarray = SYNC_DIBIT_PATTERNS,
-                          max_errors: int = _P25P1_SYNC_MAX_ERRORS):
+                          patterns: np.ndarray, max_errors: int):
     """On-device symbol compaction, sync correlation and packing.
 
     dib (C, K) dibits, valid (C, K) bool. Valid dibits are compacted to
-    the front of a (C, cap) row by cumsum + scatter; entries at or beyond
-    counts[c] are not meaningful (the host reads below counts only,
-    protocol/p25p1/bankframer.py:149-175). Each compact lag is tested
-    against every pattern by XOR-popcount; a hit is a lag whose best
-    pattern has <= max_errors bit errors. Returns (dib4 (C, cap/4) uint8,
+    the front of a (C, cap) row by cumsum + scatter. Entries at or beyond
+    counts[c] are zero here, where the reference's sort leaves the dibits
+    of samples with no symbol; neither bank framer reads them: P25P1's
+    reads dibits below counts and hits at lags below counts - 23
+    (protocol/p25p1/bankframer.py:149-175), P25P2's dibits below counts
+    and hits at lags below counts - 19 (protocol/p25p2/bankframer.py:
+    154-170), so a sync window that reaches past counts is never used.
+    Each compact lag is tested against every pattern (``sync_patterns``)
+    by XOR-popcount; a hit is a lag whose best pattern has <= max_errors
+    bit errors. Returns (dib4 (C, cap/4) uint8,
     counts (C,) int32, hits (C, cap/8) uint8) in the bank processor's
     packing contract (runtime/bank_processor.py).
     """
@@ -139,11 +162,11 @@ class Orchestrator:
             raise NotImplementedError(
                 "heterogeneous banks are not ported yet (ROADMAP Queue 1 "
                 "item 14, slice F)")
-        if decoder not in _DIGITAL_KINDS:
+        if decoder not in _PROTOCOL_LABELS:
             raise NotImplementedError(
                 f"decoder {decoder!r} is not ported yet: DMR is ROADMAP "
-                "Queue 1 item 10, LSM/P25P2 item 11, the analog bank "
-                "item 12, the mixed analog-trunking bank item 13")
+                "Queue 1 item 10, the analog bank item 12, the mixed "
+                "analog-trunking bank item 13")
         if ingest_format == "int4":
             raise NotImplementedError(
                 "the int4 wire format is not ported: it was a slow-link "
@@ -171,6 +194,7 @@ class Orchestrator:
         self.source = source
         self.sample_rate = float(sample_rate)
         self.center_frequency_hz = float(center_frequency_hz)
+        self.decoder_name = decoder
         self.codec = codec if codec is not None else FakeMBECodec()
         self.metrics_sink = metrics_sink
 
@@ -184,7 +208,7 @@ class Orchestrator:
             raise ValueError(f"chunk_samples must be a multiple of {m}")
         # symbols per slot per chunk at the fastest tracked timing, plus
         # margin, rounded to the packing granule
-        k = 2 * self.chunk_samples // m
+        k = 2 * self.chunk_samples // m * self.rx.decoder.upsample
         demod = self.rx.decoder.demod
         sps_min = demod.samples_per_symbol * (1.0 - demod.max_deviation)
         self._bank_cap = int(np.ceil((k / sps_min + 8) / 64)) * 64
@@ -203,11 +227,14 @@ class Orchestrator:
             from sdrtrunk_tpu.runtime.eventlog import DecodeEventLogger
             self.event_logger = DecodeEventLogger(event_log_path)
         self.traffic = TrafficChannelManager(
-            "APCO25", idle_teardown_seconds=idle_teardown_seconds,
+            _PROTOCOL_LABELS[decoder],
+            idle_teardown_seconds=idle_teardown_seconds,
             on_activate=self._activate, on_teardown=self._teardown)
         if self.event_logger is not None:
             self.traffic.event_sink = self.event_logger.receive
-        self.bank_proc = P25P1BankProcessor(
+        bank_cls = (P25P2BankProcessor if decoder == "p25p2"
+                    else P25P1BankProcessor)
+        self.bank_proc = bank_cls(
             slots, control_slots=set(range(len(control_offsets_hz))),
             traffic=self.traffic, codec=self.codec)
         for slot, off in zip(self.slots, control_offsets_hz):
@@ -246,11 +273,12 @@ class Orchestrator:
         dib4 | hits | counts (le int32) | pll (le f32 of slot 0)."""
         base = self.rx.build_dynamic()
         cap = self._bank_cap
+        sync = sync_patterns(self.decoder_name)
 
         def fused(x, state, bins, steps):
             out, st = base(ingest(x), state, bins, steps)
             dib4, counts, hbits = compact_and_correlate(
-                out["dibits"], out["valid"], cap)
+                out["dibits"], out["valid"], cap, *sync)
             packed = torch.cat([
                 dib4.reshape(-1), hbits.reshape(-1),
                 counts.view(torch.uint8),
@@ -265,17 +293,30 @@ class Orchestrator:
         f_abs = self.center_frequency_hz + offset_hz
         offset_hz = offset_hz + self.correction_ppm * 1e-6 * f_abs
         ch = self.rx.channelizer
-        b = ch.channel_for_frequency(offset_hz)
-        if not 0 <= b < ch.channels:
-            raise ValueError(f"offset {offset_hz} outside coverage")
-        residual = offset_hz - ch.center_frequency(b)
-        self.bins[slot] = (b, b)
+        if self.decoder_name == "p25p2":
+            # P25 Phase 2 gets the reference's wide channel (50 kHz minimum
+            # rate): the straddling bin pair (m, m+1), joined by the PR
+            # synthesizer, serves a flat 25 kHz passband anywhere, bin
+            # centers included; floor keeps the residual in [-spacing/2,
+            # spacing/2) (reference orchestrator.py:609-631)
+            spacing = ch.channel_spacing
+            mbin = int(np.floor(offset_hz / spacing))
+            residual = offset_hz - (ch.center_frequency(mbin) + spacing / 2.0)
+            if abs(residual) > spacing / 2 + 1e-6:
+                raise ValueError(f"offset {offset_hz} outside coverage")
+            self.bins[slot] = (mbin % ch.channels, (mbin + 1) % ch.channels)
+        else:
+            b = ch.channel_for_frequency(offset_hz)
+            if not 0 <= b < ch.channels:
+                raise ValueError(f"offset {offset_hz} outside coverage")
+            residual = offset_hz - ch.center_frequency(b)
+            self.bins[slot] = (b, b)
         self.steps[slot] = 2.0 * np.pi * residual / ch.channel_sample_rate
         self._plan_dev = None
         self.state = self.rx.reset_slot(self.state, slot)   # in place
 
-    def _bank_reset_slot(self, index: int, preload=None) -> None:
-        self.bank_proc.reset_slot(index, preload=preload)
+    def _bank_reset_slot(self, index: int, preload=None, **extra) -> None:
+        self.bank_proc.reset_slot(index, preload=preload, **extra)
         state = self.bank_proc.states[index]
         if self.event_logger is not None and hasattr(state, "history"):
             state.history.add_listener(self.event_logger.receive)
@@ -360,7 +401,14 @@ class Orchestrator:
         slot.frequency_hz = frequency_hz
         slot.active = True
         slot.activated_at = self.now
-        self._bank_reset_slot(slot.index, preload=identifiers)
+        # P25P2 traffic channels need the scramble key the control channel
+        # learned (preload data, ChannelProcessingManager:403)
+        extra = {}
+        key_fn = getattr(self.bank_proc, "scramble_key", None)
+        key = key_fn() if key_fn is not None else None
+        if key is not None:
+            extra["scramble_key"] = key
+        self._bank_reset_slot(slot.index, preload=identifiers, **extra)
 
     def _teardown(self, frequency_hz: float) -> None:
         for slot in self.slots:

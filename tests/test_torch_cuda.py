@@ -1,4 +1,5 @@
-"""Tests of the DQPSK CUDA kernel; they need a card and skip without one.
+"""Tests of the CUDA kernels (DQPSK and Gardner DQPSK); they need a card and
+skip without one.
 
 The file imports no JAX, so that it runs on a machine with a card and no
 JAX installed. tests/conftest.py imports JAX, so run it there with
@@ -9,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from sdrtrunk_tpu.signal.generators import awgn, c4fm_modulate, random_dibits
-from sdrtrunk_tpu_torch.dsp import dqpsk_cuda
-from sdrtrunk_tpu_torch.dsp.psk import DQPSKDemodulator, DQPSKState
+from sdrtrunk_tpu.signal.generators import (awgn, c4fm_modulate, lsm_modulate,
+                                            random_dibits)
+from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda
+from sdrtrunk_tpu_torch.dsp.psk import (DQPSKDemodulator, DQPSKState,
+                                        GardnerDQPSKDemodulator, GardnerState)
 
 torch.set_num_threads(1)
 
@@ -65,3 +68,64 @@ def test_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="window"):
         demod.batched(torch.zeros((3, 16), dtype=torch.complex64,
                                   device=card), s0)
+
+
+def _lsm_block(channels: int, t: int, seed: int, rate: float,
+               baud: float) -> np.ndarray:
+    rows = []
+    for c in range(channels):
+        dib = random_dibits(int(t * baud / rate) + 16, seed=seed + c)
+        x = lsm_modulate(dib, sample_rate=rate, symbol_rate=baud)
+        rows.append(awgn(x[:t], snr_db=30.0,
+                         rng=np.random.default_rng(seed + 100 + c)))
+    return np.stack(rows).astype(np.complex64)
+
+
+def _gstate(demod, c):
+    return GardnerState(*[a.expand((c,) + a.shape).clone()
+                          for a in demod.init_state()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,baud,gain,window", [
+    (25000.0, 4800.0, 0.3, 11),        # LSM
+    (50000.0, 6000.0, 0.1, 16)])       # P25 Phase 2
+def test_gardner_kernel_matches_plain_loop_on_card(card, rate, baud, gain,
+                                                   window):
+    """The Gardner kernel and its plain loop agree bit for bit, carried
+    state included, across two calls."""
+    c, t = 64, 2048
+    x = torch.as_tensor(_lsm_block(c, t, 5, rate, baud), device=card)
+    demod = GardnerDQPSKDemodulator(rate, baud, gain, device=card)
+    assert demod.window_len == window
+    s0 = _gstate(demod, c)
+    before = gardner_cuda.gardner_cuda.launches
+    d1, v1, s1 = demod.batched(x[:, :1000], s0)
+    d2, v2, s2 = demod.batched(x[:, 1000:], s1)
+    assert gardner_cuda.gardner_cuda.launches == before + 2
+    ref_d, ref_v, ref_s = demod.scan_batched(x, s0)
+    assert float(ref_v.float().mean()) > 0.1
+    assert torch.equal(torch.cat([v1, v2], 1), ref_v)
+    assert torch.equal(torch.cat([d1, d2], 1), ref_d)
+    for a, b in zip(s2, ref_s):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gardner_kernel_rejects_what_it_does_not_take(card):
+    demod = GardnerDQPSKDemodulator(25000.0, device=card)
+    s0 = _gstate(demod, 2)
+    with pytest.raises(ValueError, match="complex64"):
+        demod.batched(torch.zeros((2, 16), dtype=torch.complex128,
+                                  device=card), s0)
+    with pytest.raises(ValueError, match="window"):
+        demod.batched(torch.zeros((3, 16), dtype=torch.complex64,
+                                  device=card), s0)
+    with pytest.raises(ValueError, match="prev_cur_symbol"):
+        demod.batched(torch.zeros((2, 16), dtype=torch.complex64,
+                                  device=card),
+                      s0._replace(prev_cur_symbol=s0.pll_freq))
+    odd = GardnerDQPSKDemodulator(30000.0, device=card)     # W = 12
+    with pytest.raises(ValueError, match="instantiation"):
+        odd.batched(torch.zeros((2, 16), dtype=torch.complex64, device=card),
+                    _gstate(odd, 2))

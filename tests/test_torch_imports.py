@@ -7,7 +7,10 @@
 * A fresh interpreter that imports the port's orchestrator and every other
   port module has no 'jax' in sys.modules.
 * batched() on a non-CPU tensor goes to the CUDA kernel; when its build
-  fails, the call raises and the plain loop is never run.
+  fails, the call raises and the plain loop is never run. The shared nvcc
+  helper raises when nvcc fails, and leaves no library behind, and the
+  input check both wrappers share refuses a tensor of the wrong device,
+  dtype, shape or layout.
 """
 import ast
 import re
@@ -18,8 +21,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from sdrtrunk_tpu_torch.dsp import dqpsk_cuda
-from sdrtrunk_tpu_torch.dsp.psk import DQPSKDemodulator, DQPSKState
+from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda, nvcc
+from sdrtrunk_tpu_torch.dsp.psk import (DQPSKDemodulator, DQPSKState,
+                                        GardnerDQPSKDemodulator, GardnerState)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sdrtrunk_tpu_torch"
@@ -131,3 +135,65 @@ def test_cuda_default_device_raises_without_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         DQPSKDemodulator(25000.0)
+
+
+def test_gardner_kernel_build_failure_raises_without_fallback(monkeypatch):
+    demod = GardnerDQPSKDemodulator(25000.0, device="cpu")
+    c = 2
+    state = GardnerState(*[a.expand((c,) + a.shape).clone().to("meta")
+                           for a in demod.init_state()])
+    x = torch.zeros((c, 16), dtype=torch.complex64, device="meta")
+
+    class BuildFailed(RuntimeError):
+        pass
+
+    def fail():
+        raise BuildFailed("nvcc failed")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain loop ran for a non-CPU tensor")
+
+    monkeypatch.setattr(gardner_cuda, "build", fail)
+    monkeypatch.setattr(GardnerDQPSKDemodulator, "scan_batched", plain)
+    monkeypatch.setattr(GardnerDQPSKDemodulator, "scan_packed", plain)
+    before = gardner_cuda.gardner_cuda.launches
+    with pytest.raises(BuildFailed):
+        demod.batched(x, state)
+    assert gardner_cuda.gardner_cuda.launches == before
+
+
+def test_gardner_wrapper_rejects_a_window_without_instantiation(monkeypatch):
+    monkeypatch.setattr(gardner_cuda, "build", lambda: None)
+    demod = GardnerDQPSKDemodulator(30000.0, device="cpu")      # W = 12
+    state = GardnerState(*[a.expand((1,) + a.shape).clone()
+                           for a in demod.init_state()])
+    with pytest.raises(ValueError, match="instantiation"):
+        gardner_cuda.gardner_cuda(
+            demod, torch.zeros((1, 8), dtype=torch.complex64), state)
+
+
+@pytest.mark.parametrize("name", ["dqpsk", "gardner"])
+def test_nvcc_failure_raises_and_leaves_no_library(monkeypatch, tmp_path,
+                                                   name):
+    """The shared build helper runs nvcc once per source and raises with
+    nvcc's message when it fails; nothing is loaded."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no card here' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(nvcc, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="no card here"):
+        nvcc.load_kernel(name, f"{name}_launch", [])
+    assert not list((tmp_path / "_build").glob("*.so"))
+
+
+@pytest.mark.parametrize("case", ["device", "dtype", "shape", "layout"])
+def test_shared_input_check_refuses_what_a_kernel_does_not_take(case):
+    good = torch.zeros((4, 3), dtype=torch.complex64)
+    bad = {"device": good.to("meta"),
+           "dtype": good.to(torch.complex128),
+           "shape": good[:2],
+           "layout": torch.zeros((3, 4), dtype=torch.complex64).T}[case]
+    nvcc.check_tensor("k", "x", good, torch.complex64, (4, 3), good.device)
+    with pytest.raises(ValueError, match="k: x must be a contiguous"):
+        nvcc.check_tensor("k", "x", bad, torch.complex64, (4, 3), good.device)
