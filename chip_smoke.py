@@ -10,28 +10,40 @@ failure (the exit code is then not 0):
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: both kernels, sdrtrunk_tpu_torch/csrc/dqpsk.cu and gardner.cu,
    one nvcc each, started together; ptxas's registers and spills;
-3. each kernel against its plain PyTorch version on the card at the shape
-   its live loop gives it, identical on the signal channels and timed by
-   CUDA events: the DQPSK kernel at the C4FM bank's 1023 channels x 10240
-   samples, the Gardner kernel at W = 11 (LSM, 25 kHz, 1023 x 10240) and
-   W = 16 (P25 Phase 2, 50 kHz, 1023 x 20480);
-4. the live P25P1 C4FM loop at the product's full width: 12.8 MS/s of
+3. edge cases of the kernels' symbol-major loop, each kernel held bit for
+   bit against its plain loop: 37 channels (not a multiple of a warp), 32
+   of them at symbol rates spread over +/-2%, T = 997 (no run length
+   divides it) and T = 1, a symbol due at t = 0, two calls with carried
+   state;
+4. each kernel against its plain PyTorch version on the card at the shape
+   its live loop gives it, reached through ``batched``: identical on all
+   1023 channels (dibits, valid, every state leaf), timed by CUDA events
+   beside its bound (bytes over the memory rate or operations over the
+   float64 rate), with the share of (sample, warp) pairs on which a warp
+   of 32 channels has a symbol due: the DQPSK kernel at the C4FM bank's
+   1023 channels x 10240 samples, the Gardner kernel at W = 16 (P25 Phase
+   2, 50 kHz, 1023 x 20480) and W = 11 (LSM, 25 kHz, 1023 x 10240);
+5. the live P25P1 C4FM loop at the product's full width: 12.8 MS/s of
    int8 IQ, 1024 bins, 1023 slots (a P25 control channel granting a
    traffic channel, one free slot for the grant, 1021 voice slots),
    through Orchestrator(decoder="c4fm", device="cuda").run() for 3
    warm-up and 4 timed chunks of 0.41 s. It must follow the grant, decode
    frames on >= 99% of the voice slots, produce audio and launch the DQPSK
    kernel once per chunk;
-5. the live P25 Phase 2 loop at the same width: 1023 slots of scrambled
+6. the live P25 Phase 2 loop at the same width: 1023 slots of scrambled
    HDQPSK voice (PTT + VOICE_4 cycles ending in END_PTT) at random phases,
    the scramble parameters set on every slot as bench.py's P25P2 bank
    bench sets them, through Orchestrator(decoder="p25p2") for 3 + 4
    chunks. It must decode fragments on >= 99% of the voice slots, produce
    AudioSegments and launch the Gardner kernel once per chunk;
-6. the live LSM bank at a smaller depth: 64 slots of P25 Phase 1 TSBK
+7. the live LSM bank at a smaller depth: 64 slots of P25 Phase 1 TSBK
    control streams, LSM-modulated, through Orchestrator(decoder="lsm") for
    3 chunks, with frames on >= 99% of the slots and one Gardner launch per
    chunk.
+
+The script imports nothing of the JAX package: its signals and protocol
+encoders are the port's own copies (sdrtrunk_tpu_torch.signal,
+sdrtrunk_tpu_torch.protocol).
 
 Each live loop resets both kernels' launch counts just before it runs and
 reads them just after. At the end the script prints its own run time, then
@@ -59,7 +71,6 @@ TRAFFIC_INDEX = 600              # the granted channel's slot offset index
 GROUP, SOURCE = 0x457, 0xABCDE
 KERNEL_C, KERNEL_T = 1023, 10240
 NOISE_CHANNELS = 8
-STATE_TOL = 1e-4
 P25P2_KEY = (0xA4BC3, 0x123, 0x29A)            # WACN, system, NAC
 LSM_SLOTS, LSM_CHUNKS = 64, 3
 
@@ -129,7 +140,49 @@ def build_kernels() -> dict:
     return regs
 
 
-# --- phase 3: the kernels against their plain versions --------------------
+# --- phases 3-4: the kernels against their plain versions -----------------
+
+# the symbol loops at the shapes their live loops give them:
+# (name, kernel, sample rate, baud, timing gain, T)
+KERNELS = (("dqpsk", "dqpsk", 25000.0, 4800.0, 0.3, KERNEL_T),
+           ("gardner_p25p2", "gardner", 50000.0, 6000.0, 0.1, 2 * KERNEL_T),
+           ("gardner_lsm", "gardner", 25000.0, 4800.0, 0.3, KERNEL_T))
+_SOURCES = {"dqpsk": ("sdrtrunk_tpu_torch/csrc/dqpsk.cu",
+                      "sdrtrunk_tpu/dsp/pallas_psk.py:48"),
+            "gardner": ("sdrtrunk_tpu_torch/csrc/gardner.cu",
+                        "sdrtrunk_tpu/dsp/pallas_gardner.py:50")}
+# H100 SXM peaks (NVIDIA's data sheet): device memory, float64 outside the
+# tensor cores (the loops' float64 products and sums, cos, sin and sqrt)
+HBM_BYTES_PER_S = 3.35e12
+FP64_OPS_PER_S = 34e12
+# operations of a sample (the mix with cos and sin counted one each, the
+# phase wrap, the sampling-point count) and of a symbol step, counted from
+# csrc/*.cu
+OPS_PER_SAMPLE = 13
+OPS_PER_SYMBOL = {"dqpsk": 70, "gardner": 100}
+EDGE_C, EDGE_T, EDGE_SPLIT = 37, 997, 400
+
+
+def _symbol_loop(kind: str, rate: float, baud: float, gain: float):
+    from sdrtrunk_tpu_torch.dsp.psk import (DQPSKDemodulator,
+                                            GardnerDQPSKDemodulator)
+    cls = DQPSKDemodulator if kind == "dqpsk" else GardnerDQPSKDemodulator
+    return cls(rate, baud, gain, device="cuda")
+
+
+def _modulator(kind: str):
+    from sdrtrunk_tpu_torch.signal.generators import (c4fm_modulate,
+                                                      lsm_modulate)
+    if kind == "dqpsk":
+        return lambda d, rate, baud: c4fm_modulate(d, rate, baud)
+    return lambda d, rate, baud: lsm_modulate(d, sample_rate=rate,
+                                              symbol_rate=baud)
+
+
+def _fresh_state(demod, c: int):
+    s = demod.init_state()
+    return type(s)(*[a.expand((c,) + a.shape).clone() for a in s])
+
 
 def _signal_block(modulate, t: int, rate: float, baud: float):
     """(1023, t) complex64 on the card: 1015 channels of a modulated
@@ -137,7 +190,7 @@ def _signal_block(modulate, t: int, rate: float, baud: float):
     import numpy as np
     import torch
 
-    from sdrtrunk_tpu.signal.generators import awgn, random_dibits
+    from sdrtrunk_tpu_torch.signal.generators import awgn, random_dibits
 
     rng = np.random.default_rng(1)
     sym = int(t * baud / rate)
@@ -154,107 +207,154 @@ def _signal_block(modulate, t: int, rate: float, baud: float):
                            .astype(np.complex64), device="cuda")
 
 
-def _hold(name: str, kernel_out, plain_out, fields, min_valid: float):
-    """Kernel against plain: identical valid and dibits on the signal
-    channels, state within STATE_TOL. Returns (max state error, channels
-    identical)."""
-    d_k, v_k, s_k = kernel_out
-    d_p, v_p, s_p = plain_out
-    sig = slice(0, KERNEL_C - NOISE_CHANNELS)
-    same = ((v_k == v_p) & ((d_k == d_p) | ~v_k)).all(dim=1).cpu()
-    errs = {}
-    for field, a, b in zip(fields, s_k, s_p):
-        errs[field] = float((a - b).abs()[sig].max())
-        if errs[field] > STATE_TOL:
-            raise AssertionError(f"{name}: kernel state {field} differs by "
-                                 f"{errs[field]} on signal channels")
-    if not bool(same[sig].all()):
-        bad = (~same[sig]).nonzero().flatten().tolist()[:10]
-        raise AssertionError(f"{name}: kernel symbols differ on signal "
-                             f"channels {bad}")
-    if float(v_k[sig].float().mean()) < min_valid:
-        raise AssertionError(f"{name}: kernel produced too few symbols")
-    return max(errs.values()), same
+def _hold(name: str, kernel_out, plain_out, fields) -> float:
+    """Kernel against plain, bit for bit on every channel: dibits, valid
+    and every state leaf. Returns the max state error (0.0)."""
+    import torch
+
+    got = (kernel_out[0], kernel_out[1], *kernel_out[2])
+    want = (plain_out[0], plain_out[1], *plain_out[2])
+    for what, a, b in zip(("dibits", "valid", *fields), got, want):
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(a.shape[0], -1).any(1).nonzero()
+            raise AssertionError(f"{name}: kernel {what} differs from the "
+                                 f"plain loop on channels "
+                                 f"{bad.flatten().tolist()[:10]}")
+    return max(float((a - b).abs().max()) for a, b in zip(got[2:], want[2:]))
 
 
-def check_dqpsk(card: str) -> dict:
-    from sdrtrunk_tpu.signal.generators import c4fm_modulate
-    from sdrtrunk_tpu_torch.dsp import dqpsk_cuda
-    from sdrtrunk_tpu_torch.dsp.psk import DQPSKDemodulator, DQPSKState
+def _warp_symbol_share(valid) -> float:
+    """Share of (sample, warp of 32 consecutive channels) pairs on which a
+    channel of the warp has a symbol due: how often a warp of the
+    per-sample layout (one lane a channel) took the symbol path."""
+    import torch
 
-    c, t = KERNEL_C, KERNEL_T
-    x = _signal_block(lambda d, rate, baud: c4fm_modulate(d, rate), t,
-                      25000.0, 4800.0)
-    demod = DQPSKDemodulator(25000.0, device="cuda")
-    s0 = DQPSKState(*[a.expand((c,) + a.shape).clone()
-                      for a in demod.init_state()])
-    kernel = demod.batched(x, s0)
-    plain = {}
-
-    def run_plain():
-        plain["out"] = demod.scan_batched(x, s0)
-    plain_ms = _cuda_ms(run_plain)
-    kernel_ms = _cuda_ms(lambda: dqpsk_cuda.dqpsk_cuda(demod, x, s0), reps=5)
-    err, same = _hold("dqpsk", kernel, plain["out"], DQPSKState._fields, 0.15)
-    print(f"[kernel] {card}: dqpsk C={c} T={t}: identical on "
-          f"{int(same.sum())}/{c} channels; max state err {err}; "
-          f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
-    return {"name": "dqpsk", "route": "cuda",
-            "source": "sdrtrunk_tpu_torch/csrc/dqpsk.cu",
-            "replaces": "sdrtrunk_tpu/dsp/pallas_psk.py:48",
-            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "shape": [c, t], "plain_shape": [c, t]}
+    c, t = valid.shape
+    pad = torch.zeros(((-c) % 32, t), dtype=torch.bool, device=valid.device)
+    return float(torch.cat([valid, pad]).reshape(-1, 32, t).any(1)
+                 .float().mean())
 
 
-def check_gardner(card: str, name: str, rate: float, baud: float,
-                  gain: float, t: int) -> dict:
-    """The Gardner kernel against its plain loop at the live shape
-    (1023, t)."""
-    from sdrtrunk_tpu.signal.generators import lsm_modulate
-    from sdrtrunk_tpu_torch.dsp import gardner_cuda
-    from sdrtrunk_tpu_torch.dsp.psk import GardnerDQPSKDemodulator, GardnerState
+def _bound(kind: str, x, state, symbols: int) -> tuple[float, str]:
+    """The least time the card could take for the same work: each input
+    read once and each output written once (x, the bank, the state in and
+    out, the (T, C) bytes) over the memory rate, or the operations this
+    run's symbols need over the float64 rate, whichever is longer."""
+    c, t = x.shape
+    nbytes = (x.numel() * x.element_size() + t * c + 129 * 8 * 4
+              + 2 * sum(a.numel() * a.element_size() for a in state))
+    ops = c * t * OPS_PER_SAMPLE + symbols * OPS_PER_SYMBOL[kind]
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP64_OPS_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
 
-    def modulate(d, r, b):
-        return lsm_modulate(d, sample_rate=r, symbol_rate=b)
 
+def check_kernel(card: str, name: str, kind: str, rate: float, baud: float,
+                 gain: float, t: int) -> dict:
+    """A kernel against its plain loop at its live shape (1023, t), reached
+    through ``batched``, and timed beside its bound."""
+    from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda
+
+    wrapper = {"dqpsk": dqpsk_cuda.dqpsk_cuda,
+               "gardner": gardner_cuda.gardner_cuda}[kind]
     c = KERNEL_C
-    demod = GardnerDQPSKDemodulator(rate, baud, gain, device="cuda")
-    s0 = GardnerState(*[a.expand((c,) + a.shape).clone()
-                        for a in demod.init_state()])
-    x = _signal_block(modulate, t, rate, baud)
+    demod = _symbol_loop(kind, rate, baud, gain)
+    s0 = _fresh_state(demod, c)
+    x = _signal_block(_modulator(kind), t, rate, baud)
     kernel = demod.batched(x, s0)
     plain = {}
 
     def run_plain():
         plain["out"] = demod.scan_batched(x, s0)
     plain_ms = _cuda_ms(run_plain)
-    kernel_ms = _cuda_ms(lambda: gardner_cuda.gardner_cuda(demod, x, s0),
-                         reps=5)
-    err, same = _hold(name, kernel, plain["out"], GardnerState._fields, 0.1)
+    kernel_ms = _cuda_ms(lambda: wrapper(demod, x, s0), reps=5)
+    err = _hold(name, kernel, plain["out"], type(s0)._fields)
+    valid = kernel[1]
+    if float(valid.float().mean()) < 0.1:
+        raise AssertionError(f"{name}: kernel produced too few symbols")
+    bound_ms, bound_by = _bound(kind, x, s0, int(valid.sum()))
+    share = _warp_symbol_share(valid)
     print(f"[kernel] {card}: {name} W={demod.window_len} C={c} T={t}: "
-          f"identical on {int(same.sum())}/{c} channels; max state err "
-          f"{err}; kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms",
+          f"identical to the plain loop on all {c} channels (dibits, valid, "
+          f"every state leaf; max state err {err}); kernel {kernel_ms:.3f} "
+          f"ms against a {bound_ms:.4f} ms {bound_by} bound "
+          f"({100 * bound_ms / kernel_ms:.2f}% of it), plain "
+          f"{plain_ms:.1f} ms; (sample, warp of 32 channels) pairs with a "
+          f"symbol due {100 * share:.1f}%", flush=True)
+    source, replaces = _SOURCES[kind]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": [c, t], "plain_shape": [c, t],
+            "warp_symbol_share": share}
+
+
+def _edge_block(kind: str, rate: float, baud: float):
+    """(37, 997) complex64 on the card: channels 0-31 at symbol rates
+    spread over +/-2% (the lanes of a warp drift apart), the rest at the
+    nominal rate; 997 is prime, so no run length divides it."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.signal.generators import awgn, random_dibits
+
+    rng = np.random.default_rng(2)
+    modulate = _modulator(kind)
+    rows = []
+    for i in range(EDGE_C):
+        b = baud * (1.0 + 0.02 * (2.0 * i / 31 - 1.0)) if i < 32 else baud
+        dib = random_dibits(int(EDGE_T * b / rate) + 16, seed=100 + i)
+        rows.append(awgn(modulate(dib, rate, b)[:EDGE_T], 30.0, rng=rng))
+    return torch.as_tensor(np.stack(rows).astype(np.complex64),
+                           device="cuda")
+
+
+def check_edges(card: str) -> None:
+    """The cases the symbol-major loop creates, each kernel held bit for
+    bit against its plain loop: C = 37 (not a multiple of a warp), a warp
+    whose channels drift apart, T = 997 and T = 1, a symbol due at t = 0
+    on every third channel, and two calls with carried state."""
+    import torch
+
+    for name, kind, rate, baud, gain, _ in KERNELS:
+        demod = _symbol_loop(kind, rate, baud, gain)
+        x = _edge_block(kind, rate, baud)
+        s0 = _fresh_state(demod, EDGE_C)
+        s0.sampling_point[::3] = 1.5
+        fields = type(s0)._fields
+        plain = demod.scan_batched(x, s0)
+        _hold(f"{name} C={EDGE_C} T={EDGE_T}", demod.batched(x, s0), plain,
+              fields)
+        _hold(f"{name} T=1", demod.batched(x[:, :1], s0),
+              demod.scan_batched(x[:, :1], s0), fields)
+        d1, v1, s1 = demod.batched(x[:, :EDGE_SPLIT], s0)
+        d2, v2, s2 = demod.batched(x[:, EDGE_SPLIT:], s1)
+        _hold(f"{name} two calls", (torch.cat([d1, d2], 1),
+                                    torch.cat([v1, v2], 1), s2), plain, fields)
+        if not bool(plain[1][::3, 0].all()):
+            raise AssertionError(f"{name}: no symbol at t = 0 where one was "
+                                 "due")
+    print(f"[edges] {card}: dqpsk, gardner W=16 and W=11 identical to their "
+          f"plain loops at C={EDGE_C} with symbol rates spread +/-2%, "
+          f"T={EDGE_T} and T=1, a symbol due at t=0, and two calls "
+          f"({EDGE_SPLIT} + {EDGE_T - EDGE_SPLIT}) with carried state",
           flush=True)
-    return {"name": name, "route": "cuda",
-            "source": "sdrtrunk_tpu_torch/csrc/gardner.cu",
-            "replaces": "sdrtrunk_tpu/dsp/pallas_gardner.py:50",
-            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "shape": [c, t], "plain_shape": [c, t]}
 
 
-# --- phases 4-6: the live loops -------------------------------------------
+# --- phases 5-7: the live loops -------------------------------------------
 
 def _p25_streams(total_dibits: int, base_hz: float):
     """(control, traffic, voice superframe) P25P1 dibit streams."""
     import numpy as np
 
-    from sdrtrunk_tpu.protocol.bits import from_int
-    from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-    from sdrtrunk_tpu.protocol.p25p1.framer import P25P1FrameAssembler
-    from sdrtrunk_tpu.protocol.p25p1.hdu import hdu_encode, tdulc_encode
-    from sdrtrunk_tpu.protocol.p25p1.lc import lc_build_group_voice
-    from sdrtrunk_tpu.protocol.p25p1.ldu import ldu1_encode, ldu2_encode
-    from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
+    from sdrtrunk_tpu_torch.protocol.bits import from_int
+    from sdrtrunk_tpu_torch.protocol.p25p1.duid import DUID
+    from sdrtrunk_tpu_torch.protocol.p25p1.framer import P25P1FrameAssembler
+    from sdrtrunk_tpu_torch.protocol.p25p1.hdu import hdu_encode, tdulc_encode
+    from sdrtrunk_tpu_torch.protocol.p25p1.lc import lc_build_group_voice
+    from sdrtrunk_tpu_torch.protocol.p25p1.ldu import ldu1_encode, ldu2_encode
+    from sdrtrunk_tpu_torch.protocol.p25p1.tsbk import tsbk_encode
 
     rng = np.random.default_rng(11)
     asm = P25P1FrameAssembler(nac=0x293)
@@ -314,9 +414,9 @@ def _p25p2_cycle():
     ends as an AudioSegment."""
     import numpy as np
 
-    from sdrtrunk_tpu.protocol.bits import from_int
-    from sdrtrunk_tpu.protocol.p25p2 import P25P2FragmentAssembler
-    from sdrtrunk_tpu.protocol.p25p2.timeslot import (MacPduType,
+    from sdrtrunk_tpu_torch.protocol.bits import from_int
+    from sdrtrunk_tpu_torch.protocol.p25p2 import P25P2FragmentAssembler
+    from sdrtrunk_tpu_torch.protocol.p25p2.timeslot import (MacPduType,
                                                       sacch_encode,
                                                       voice4_encode)
 
@@ -345,9 +445,9 @@ def _lsm_tsbks():
     LSM scene)."""
     import numpy as np
 
-    from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-    from sdrtrunk_tpu.protocol.p25p1.framer import P25P1FrameAssembler
-    from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
+    from sdrtrunk_tpu_torch.protocol.p25p1.duid import DUID
+    from sdrtrunk_tpu_torch.protocol.p25p1.framer import P25P1FrameAssembler
+    from sdrtrunk_tpu_torch.protocol.p25p1.tsbk import tsbk_encode
 
     rng = np.random.default_rng(5)
     asm = P25P1FrameAssembler(nac=0x293)
@@ -470,6 +570,42 @@ def layer_times(orch, iq8) -> dict:
     return out
 
 
+def device_busy_ms(orch, iq8, chunks: int = 2) -> float:
+    """Device busy ms per chunk of the live step, from torch.profiler's
+    device-side events (every kernel, copy and memset the step puts on the
+    card, the ctypes-launched symbol kernel included) over `chunks` steps
+    on one chunk from a copy of the running state; the union of their
+    intervals, so nothing is counted twice. The chunk's upload and the
+    packed download are not in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdrtrunk_tpu_torch.convert import tree_map
+
+    state = tree_map(lambda a: a.clone(), orch.state)
+    x = torch.as_tensor(iq8, device="cuda")
+    plan = (torch.as_tensor(orch.bins, dtype=torch.long, device="cuda"),
+            torch.as_tensor(orch.steps, device="cuda"))
+    orch.step(x, state, *plan)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(chunks):
+            _, state = orch.step(x, state, *plan)
+        torch.cuda.synchronize()
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler saw no device activity")
+    busy = end = 0
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e6 / chunks
+
+
 def drive(orch, kernel: str, chunks: int, warmup: int) -> dict:
     """Run the live loop for `chunks` chunks (the first `warmup` untimed)
     with both kernels' launch counts set to 0 just before and read just
@@ -515,10 +651,20 @@ def drive(orch, kernel: str, chunks: int, warmup: int) -> dict:
     if devices != {"cuda"}:
         raise AssertionError(f"live step outputs on {devices}")
     return {"metrics": metrics, "launches": launches[kernel],
+            "wall_ms_per_chunk": elapsed * 1e3 / (chunks - warmup),
             "msps": timed / elapsed / 1e6,
             "realtime_factor": timed / elapsed / FS,
             "host_framing_ms_per_chunk":
                 framing["s"] * 1e3 / (chunks - warmup)}
+
+
+def _busy(orch, iq8, run) -> dict:
+    """Device busy ms per chunk and the device's idle share of the timed
+    run's wall time per chunk."""
+    busy = device_busy_ms(orch, iq8)
+    return {"device_busy_ms_per_chunk": busy,
+            "wall_ms_per_chunk": run["wall_ms_per_chunk"],
+            "device_idle_share": 1.0 - busy / run["wall_ms_per_chunk"]}
 
 
 def _coverage(orch, slot_hz):
@@ -532,8 +678,8 @@ def run_c4fm(card: str) -> dict:
     import numpy as np
     import torch
 
-    from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
-    from sdrtrunk_tpu.signal.generators import c4fm_modulate
+    from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
     from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
     from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
 
@@ -586,6 +732,7 @@ def run_c4fm(card: str) -> dict:
         "active_channels": run["metrics"].get("active_channels"),
         "kernel_launches": run["launches"],
         "device_ms_per_chunk": layer_times(orch, chunks[-1]),
+        **_busy(orch, chunks[-1], run),
         "host_framing_ms_per_chunk": run["host_framing_ms_per_chunk"],
         "synthesis_s": synth_s,
     }
@@ -604,8 +751,8 @@ def run_c4fm(card: str) -> dict:
 
 
 def run_p25p2(card: str) -> dict:
-    from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
-    from sdrtrunk_tpu.signal.generators import lsm_modulate
+    from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu_torch.signal.generators import lsm_modulate
     from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
     from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
 
@@ -651,6 +798,7 @@ def run_p25p2(card: str) -> dict:
         "active_channels": run["metrics"].get("active_channels"),
         "kernel_launches": run["launches"],
         "device_ms_per_chunk": layer_times(orch, chunks[-1]),
+        **_busy(orch, chunks[-1], run),
         "host_framing_ms_per_chunk": run["host_framing_ms_per_chunk"],
         "synthesis_s": synth_s,
     }
@@ -664,8 +812,8 @@ def run_p25p2(card: str) -> dict:
 
 
 def run_lsm(card: str) -> dict:
-    from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
-    from sdrtrunk_tpu.signal.generators import lsm_modulate
+    from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu_torch.signal.generators import lsm_modulate
     from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
     from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
 
@@ -702,8 +850,7 @@ def run_lsm(card: str) -> dict:
 
 
 def main() -> int:
-    if not (ROOT / "sdrtrunk_tpu_torch").is_dir() \
-            or not (ROOT / "sdrtrunk_tpu").is_dir():
+    if not (ROOT / "sdrtrunk_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -721,10 +868,8 @@ def main() -> int:
     print(card, flush=True)
 
     build_kernels()
-    dqpsk = check_dqpsk(card)
-    lsm_k = check_gardner(card, "gardner_lsm", 25000.0, 4800.0, 0.3, KERNEL_T)
-    p25p2_k = check_gardner(card, "gardner_p25p2", 50000.0, 6000.0, 0.1,
-                            2 * KERNEL_T)
+    check_edges(card)
+    dqpsk, p25p2_k, lsm_k = (check_kernel(card, *k) for k in KERNELS)
     dqpsk["launches"] = run_c4fm(card)["kernel_launches"]
     p25p2_k["launches"] = run_p25p2(card)["kernel_launches"]
     lsm_k["launches"] = run_lsm(card)["kernel_launches"]

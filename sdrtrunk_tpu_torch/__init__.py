@@ -5,15 +5,19 @@ The JAX package ``sdrtrunk_tpu`` stays the reference: this package keeps its
 file layout and public names (``sdrtrunk_tpu/dsp/psk.py`` has its
 counterpart at ``sdrtrunk_tpu_torch/dsp/psk.py``), keeps its state layouts
 at public functions, and is held against it by ``tests/test_torch_*.py``.
-It never imports jax, directly or through a jax-importing
-``sdrtrunk_tpu`` module; the framework-free host layer (``protocol``,
-``runtime`` state machines and bank processors, ``audio.mbe``,
-``signal.generators``, ``dsp.design``, ``dsp.interpolator``) is imported
-as it is.
+It imports nothing of ``sdrtrunk_tpu`` and never imports jax. The
+framework-free host layer it needs (``protocol``, the ``runtime`` state
+machines and bank processors, ``audio``, ``io.wave``,
+``signal.generators``, ``dsp.design``, ``dsp.interpolator``,
+``dsp.windows``) is a byte-for-byte copy at the same relative paths; the
+manifest in tests/test_torch_host_copy.py lists the copies and holds each
+equal to its original, so a fix to one must change both.
 
-Plain tensor code is PyTorch. The one Pallas kernel on the live P25 Phase 1
-path (``sdrtrunk_tpu/dsp/pallas_psk.py::_dqpsk_kernel``) is a CUDA C++
-kernel written by hand (``csrc/dqpsk.cu``), built with nvcc at first use.
+Plain tensor code is PyTorch. Each Pallas kernel of the reference
+(``sdrtrunk_tpu/dsp/pallas_psk.py::_dqpsk_kernel``,
+``sdrtrunk_tpu/dsp/pallas_gardner.py::_gardner_kernel``) is a CUDA C++
+kernel written by hand (``csrc/dqpsk.cu``, ``csrc/gardner.cu``), built
+with nvcc at first use.
 
 The device is explicit: every public constructor takes ``device``; the
 main path defaults to ``"cuda"`` and raises when CUDA is absent.

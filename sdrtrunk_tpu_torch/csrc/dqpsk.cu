@@ -6,19 +6,22 @@
 // use the same operations in the same order (psk_common.cuh), so on the
 // card they agree bit for bit.
 //
-// What bounds it: per-sample serial latency, not bytes. Each channel is a
-// feedback loop that must finish sample t before it can start t+1; at the
-// live bank's 1023 channels one thread per channel gives 32 warps on 132
-// SMs, so each SM issues one dependent chain and nothing hides its
-// latency. The design keeps that chain short and everything it touches
-// close: the delay line and the eight scalars live in registers, the
-// 129x8 interpolator bank in shared memory (lanes read different arms, so
-// __constant__ would serialize), the next input sample is loaded one
-// iteration ahead, and 32-thread blocks spread the warps over 32 SMs.
+// Per sample: PLL mix into the delay line; then, where a symbol is due, an
+// 8-tap interpolation at mu, the differential decode of it and of the
+// preceding sample, the quadrant decision, and the timing and PLL updates.
 //
-// Layout: x is the (T, C) complex64 stream read as float2 at [t*C + c], so
-// neighbouring threads read neighbouring addresses; out is (T, C) uint8
-// `dibit | valid << 2` (0 where no symbol is due). State is in the JAX
+// What bounds it: each channel's serial chain, not bytes (1023 x 10240
+// samples move 94 MB, 28 us at 3.35 TB/s). Per symbol the chain is the
+// run's mixes (float64 cos/sin) and the symbol step. The design is
+// gardner.cu's (psk_common.cuh's symbol_loop): the symbol path once per
+// symbol, a run's mixes spread over G lanes, G x 1023 threads over the
+// card's SMs, the delay line a ring in shared memory, each channel reading
+// its own row of the (C, T) stream a pass ahead. The 129x8 interpolator
+// bank sits in shared memory (lanes read different arms, so __constant__
+// would serialize).
+//
+// Layout: x is (C, T) complex64; out is (T, C) uint8 `dibit | valid << 2`,
+// written only at symbols (the caller zero-fills it). State is in the JAX
 // reference's layout: window (C, W) complex64, six (C,) leaves.
 #include "psk_common.cuh"
 
@@ -48,82 +51,83 @@ struct StateOut {
   float2* pc;
 };
 
+// The symbol step (DQPSKDecisionDirectedSymbolEvaluator), with the
+// channel's last preceding and current points.
 template <int W>
+struct DqpskStep {
+  const float* bank;
+  Loop k;
+  float2 pp, pc;
+
+  __device__ __forceinline__ uint8_t operator()(const Ring<W>& r, float sp1,
+                                                float phase, Timing& tm) {
+    // --- interpolate at mu: arm by index, 8 taps left to right ---
+    const float* taps = bank + arm(clip(sp1, 0.0f, 1.0f)) * kNTaps;
+    float wr[kNTaps], wi[kNTaps];
+#pragma unroll
+    for (int j = 0; j < kNTaps; ++j) {
+      const float2 v = r.at(j);
+      wr[j] = v.x;
+      wi[j] = v.y;
+    }
+    const float2 cur = make_float2(interp8(taps, wr), interp8(taps, wi));
+    const float2 prec = make_float2(wr[kCenter], wi[kCenter]);
+
+    // --- differential decode + normalize, quadrant decision ---
+    const float pqn = diff_norm(prec, pp).y;
+    const float2 cn = diff_norm(cur, pc);
+    const Decision d = decide(cn.x, cn.y);
+    const float polarity =
+        (d.i_pos ? (pqn > cn.y) : (pqn < cn.y)) ? 1.0f : -1.0f;
+    update(d.err * polarity, d.err, sp1, phase, k, tm);
+    pp = prec;
+    pc = cur;
+    return d.byte;
+  }
+};
+
+// G lanes a channel, K mixes a lane per pass: G * K covers a run (5 or 6
+// samples at 5.21 samples a symbol).
+template <int W, int G, int K>
 __global__ void __launch_bounds__(kBlock)
 dqpsk_kernel(const float2* __restrict__ x, int T, int C,
              const float* __restrict__ bank_g, State in, StateOut st,
              uint8_t* __restrict__ out, Loop k) {
+  constexpr int kGroups = kBlock / G;
   __shared__ float bank[(kNSteps + 1) * kNTaps];
+  __shared__ float ring_re[kGroups][kRing + 1], ring_im[kGroups][kRing + 1];
   load_bank(bank, bank_g);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int group = threadIdx.x / G, lane = threadIdx.x % G;
+  const int c = blockIdx.x * kGroups + group;
   if (c >= C) return;
+  const unsigned gmask = group_mask<G>();
 
-  float wr[W], wi[W];                 // delay line, oldest first
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    const float2 v = in.win[static_cast<size_t>(c) * W + j];
-    wr[j] = v.x;
-    wi[j] = v.y;
+  Ring<W> ring = load_ring<W, G>(ring_re[group], ring_im[group],
+                                 in.win + static_cast<size_t>(c) * W, lane,
+                                 gmask);
+  Timing tm{in.sp[c], in.dsps[c], in.ph[c], in.fr[c]};
+  DqpskStep<W> step{bank, k, in.pp[c], in.pc[c]};
+  symbol_loop<W, G, K>(x + static_cast<size_t>(c) * T, T, ring, lane, gmask,
+                       tm, step, out + c, C);
+
+  store_ring<W, G>(ring, st.win + static_cast<size_t>(c) * W, lane);
+  if (lane == 0) {
+    st.sp[c] = tm.sp;
+    st.dsps[c] = tm.dsps;
+    st.ph[c] = tm.ph;
+    st.fr[c] = tm.fr;
+    st.pp[c] = step.pp;
+    st.pc[c] = step.pc;
   }
-  float sp = in.sp[c], dsps = in.dsps[c], ph = in.ph[c], fr = in.fr[c];
-  float2 pp = in.pp[c], pc = in.pc[c];
-
-  float2 xn = T > 0 ? x[c] : make_float2(0.f, 0.f);
-  for (int t = 0; t < T; ++t) {
-    const float2 xv = xn;
-    if (t + 1 < T) xn = x[static_cast<size_t>(t + 1) * C + c];
-
-    const float phase = wrap(ph + fr);
-    const float2 m = mix(xv, phase);
-#pragma unroll
-    for (int j = 0; j < W - 1; ++j) {
-      wr[j] = wr[j + 1];
-      wi[j] = wi[j + 1];
-    }
-    wr[W - 1] = m.x;
-    wi[W - 1] = m.y;
-    const float sp1 = sp - 1.0f;
-    uint8_t o = 0;
-    if (sp1 < 1.0f) {
-      // --- interpolate at mu: arm by index, 8 taps left to right ---
-      const float* taps = bank + arm(clip(sp1, 0.0f, 1.0f)) * kNTaps;
-      const float2 cur = make_float2(interp8(taps, wr), interp8(taps, wi));
-      const float2 prec = make_float2(wr[kCenter], wi[kCenter]);
-
-      // --- differential decode + normalize, quadrant decision ---
-      const float pqn = diff_norm(prec, pp).y;
-      const float2 cn = diff_norm(cur, pc);
-      const Decision d = decide(cn.x, cn.y);
-      o = d.byte;
-      const float polarity =
-          (d.i_pos ? (pqn > cn.y) : (pqn < cn.y)) ? 1.0f : -1.0f;
-      update(d.err * polarity, d.err, sp1, phase, k, sp, dsps, ph, fr);
-      pp = prec;
-      pc = cur;
-    } else {
-      sp = sp1;
-      ph = phase;
-    }
-    out[static_cast<size_t>(t) * C + c] = o;
-  }
-
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    st.win[static_cast<size_t>(c) * W + j] = make_float2(wr[j], wi[j]);
-  }
-  st.sp[c] = sp;
-  st.dsps[c] = dsps;
-  st.ph[c] = ph;
-  st.fr[c] = fr;
-  st.pp[c] = pp;
-  st.pc[c] = pc;
 }
 
-template <int W>
+template <int W, int G, int K>
 void launch(const float2* x, int T, int C, const float* bank, State in,
             StateOut st, uint8_t* out, Loop k, cudaStream_t stream) {
-  const int grid = (C + kBlock - 1) / kBlock;
-  dqpsk_kernel<W><<<grid, kBlock, 0, stream>>>(x, T, C, bank, in, st, out, k);
+  constexpr int kGroups = kBlock / G;
+  const int grid = (C + kGroups - 1) / kGroups;
+  dqpsk_kernel<W, G, K><<<grid, kBlock, 0, stream>>>(x, T, C, bank, in, st,
+                                                     out, k);
 }
 
 }  // namespace
@@ -157,11 +161,11 @@ extern "C" int dqpsk_launch(
   auto* op = static_cast<uint8_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 8: launch<8>(xp, T, C, bp, in, st, op, k, s); break;
-    case 9: launch<9>(xp, T, C, bp, in, st, op, k, s); break;
-    case 10: launch<10>(xp, T, C, bp, in, st, op, k, s); break;
-    case 11: launch<11>(xp, T, C, bp, in, st, op, k, s); break;
-    case 12: launch<12>(xp, T, C, bp, in, st, op, k, s); break;
+    case 8: launch<8, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
+    case 9: launch<9, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
+    case 10: launch<10, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
+    case 11: launch<11, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
+    case 12: launch<12, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

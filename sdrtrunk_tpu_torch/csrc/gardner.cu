@@ -7,7 +7,7 @@
 // .scan_packed; the two use the same operations in the same order
 // (psk_common.cuh), so on the card they agree bit for bit.
 //
-// Per sample: PLL mix and delay-line shift; then, where a symbol is due,
+// Per sample: PLL mix into the delay line; then, where a symbol is due,
 // two 8-tap interpolations, the Gardner mid point at mu = clip(sp, 0, 1)
 // and the symbol point at detected_sps / 2, each at its own integer base
 // into the window; each point differentially decoded against its own
@@ -15,21 +15,25 @@
 // clipped to +/-0.3 drives timing, the quadrant decision's de-rotated
 // quadrature drives the PLL.
 //
-// What bounds it: per-sample serial latency, as in dqpsk.cu, whose layout
-// it keeps: one thread per channel, the W-sample delay line and the ten
-// scalars in registers, the 129x8 bank in shared memory, (T, C) float2
-// input read coalesced and loaded one step ahead, (T, C) uint8 output,
-// 32-thread blocks, channels masked with c < C. The integer base of each
-// point varies per channel at run time; indexing the register window with
-// it would push the window to local memory, so the fetch is unrolled over
-// every base 0..W-8 with a compile-time index and a select, and reads only
-// where the base lies in the point's feasible range [lo, hi] (the
-// reference's static base sets, GardnerDQPSKDemodulator.mid_bases /
-// cur_bases); the point is 0 otherwise, as in the reference.
+// What bounds it: each channel's serial chain, not bytes (1023 x 20480
+// samples move 189 MB, 56 us at 3.35 TB/s). Per symbol the chain is the
+// run's mixes (float64 cos/sin) and the symbol step (two interpolations,
+// two float64 normalizations, the updates). The design (psk_common.cuh's
+// symbol_loop) takes the symbol path once per symbol, not at nearly every
+// sample of a warp; spreads a run's mixes over G lanes, so a run costs one
+// mix's latency; and puts G x 1023 threads on the card's SMs instead of 32
+// warps on 32 of them. The delay line is a ring in shared memory, so each
+// point is one 8-tap read at its computed base (clipped to [0, W-8]; the
+// point is 0 where the base lies outside the reference's static base set
+// [lo, hi], GardnerDQPSKDemodulator.mid_bases / cur_bases), where the
+// register window needed a guarded read at every possible base. Each
+// channel reads its own row of the (C, T) stream, a pass's samples loaded
+// during the symbol step before it.
 //
-// Layout: out is `dibit | valid << 2` (0 where no symbol is due). State is
-// in the JAX reference's layout: window (C, W) complex64, four (C,) float32
-// leaves and three (C,) complex64 leaves.
+// Layout: x is (C, T) complex64; out is (T, C) uint8 `dibit | valid << 2`,
+// written only at symbols (the caller zero-fills it). State is in the JAX
+// reference's layout: window (C, W) complex64, four (C,) float32 leaves
+// and three (C,) complex64 leaves.
 #include "psk_common.cuh"
 
 namespace {
@@ -62,112 +66,101 @@ struct Bases {
   int mid_lo, mid_hi, cur_lo, cur_hi;
 };
 
-// 8-tap interpolation at a fractional offset into the window: the integer
-// part picks the base (clipped to [0, W-8], read only inside [lo, hi]),
-// the fraction the arm.
+// The symbol step (DQPSKGardnerSymbolEvaluator), with the channel's last
+// raw points and symbol.
 template <int W>
-__device__ __forceinline__ float2 interp_at(const float (&wr)[W],
-                                            const float (&wi)[W],
-                                            const float* bank, float offset,
-                                            int lo, int hi) {
-  const float k = floorf(offset);
-  const float* taps = bank + arm(offset - k) * kNTaps;
-  int base = static_cast<int>(k);
-  base = base < 0 ? 0 : (base > W - 8 ? W - 8 : base);
-  float2 s = make_float2(0.0f, 0.0f);
-#pragma unroll
-  for (int b = 0; b <= W - 8; ++b) {
-    if (b == base && b >= lo && b <= hi) {
-      s = make_float2(interp8(taps, wr + b), interp8(taps, wi + b));
-    }
-  }
-  return s;
-}
+struct GardnerStep {
+  const float* bank;
+  Loop k;
+  Bases bs;
+  float2 pm, pc, ps;
 
-template <int W>
+  // 8-tap interpolation at a fractional offset into the window: the
+  // integer part picks the base, the fraction the arm.
+  __device__ __forceinline__ float2 point(const Ring<W>& r, float offset,
+                                          int lo, int hi) const {
+    const float kf = floorf(offset);
+    const float* taps = bank + arm(offset - kf) * kNTaps;
+    int base = static_cast<int>(kf);
+    base = base < 0 ? 0 : (base > W - 8 ? W - 8 : base);
+    float wr[kNTaps], wi[kNTaps];
+#pragma unroll
+    for (int j = 0; j < kNTaps; ++j) {
+      const float2 v = r.at(base + j);
+      wr[j] = v.x;
+      wi[j] = v.y;
+    }
+    const float2 s = make_float2(interp8(taps, wr), interp8(taps, wi));
+    return base >= lo && base <= hi ? s : make_float2(0.0f, 0.0f);
+  }
+
+  __device__ __forceinline__ uint8_t operator()(const Ring<W>& r, float sp1,
+                                                float phase, Timing& tm) {
+    // --- the two points, each decoded against its previous sample ---
+    const float2 mid = point(r, clip(sp1, 0.0f, 1.0f), bs.mid_lo, bs.mid_hi);
+    const float2 cur = point(r, tm.dsps * 0.5f, bs.cur_lo, bs.cur_hi);
+    const float2 ms = diff_norm(mid, pm);
+    const float2 cs = diff_norm(cur, pc);
+
+    // --- Gardner TED (DQPSKGardnerSymbolEvaluator.setSymbols) ---
+    const float d_re = ps.x - cs.x, d_im = ps.y - cs.y;
+    float terr = fma_f64(d_re, ms.x, d_im * ms.y);
+    if (isnan(terr)) terr = 0.0f;
+    terr = clip(terr, -0.3f, 0.3f);
+
+    const Decision d = decide(cs.x, cs.y);
+    update(terr, d.err, sp1, phase, k, tm);
+    pm = mid;
+    pc = cur;
+    ps = cs;
+    return d.byte;
+  }
+};
+
+// G lanes a channel, K mixes a lane per pass: G * K covers a run (8 or 9
+// samples at P25 Phase 2's 8.33 samples a symbol, 5 or 6 at 5.21).
+template <int W, int G, int K>
 __global__ void __launch_bounds__(kBlock)
 gardner_kernel(const float2* __restrict__ x, int T, int C,
                const float* __restrict__ bank_g, State in, StateOut st,
                uint8_t* __restrict__ out, Loop k, Bases bs) {
+  constexpr int kGroups = kBlock / G;
   __shared__ float bank[(kNSteps + 1) * kNTaps];
+  __shared__ float ring_re[kGroups][kRing + 1], ring_im[kGroups][kRing + 1];
   load_bank(bank, bank_g);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int group = threadIdx.x / G, lane = threadIdx.x % G;
+  const int c = blockIdx.x * kGroups + group;
   if (c >= C) return;
+  const unsigned gmask = group_mask<G>();
 
-  float wr[W], wi[W];                 // delay line, oldest first
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    const float2 v = in.win[static_cast<size_t>(c) * W + j];
-    wr[j] = v.x;
-    wi[j] = v.y;
+  Ring<W> ring = load_ring<W, G>(ring_re[group], ring_im[group],
+                                 in.win + static_cast<size_t>(c) * W, lane,
+                                 gmask);
+  Timing tm{in.sp[c], in.dsps[c], in.ph[c], in.fr[c]};
+  GardnerStep<W> step{bank, k, bs, in.pm[c], in.pc[c], in.ps[c]};
+  symbol_loop<W, G, K>(x + static_cast<size_t>(c) * T, T, ring, lane, gmask,
+                       tm, step, out + c, C);
+
+  store_ring<W, G>(ring, st.win + static_cast<size_t>(c) * W, lane);
+  if (lane == 0) {
+    st.sp[c] = tm.sp;
+    st.dsps[c] = tm.dsps;
+    st.ph[c] = tm.ph;
+    st.fr[c] = tm.fr;
+    st.pm[c] = step.pm;
+    st.pc[c] = step.pc;
+    st.ps[c] = step.ps;
   }
-  float sp = in.sp[c], dsps = in.dsps[c], ph = in.ph[c], fr = in.fr[c];
-  float2 pm = in.pm[c], pc = in.pc[c], ps = in.ps[c];
-
-  float2 xn = T > 0 ? x[c] : make_float2(0.f, 0.f);
-  for (int t = 0; t < T; ++t) {
-    const float2 xv = xn;
-    if (t + 1 < T) xn = x[static_cast<size_t>(t + 1) * C + c];
-
-    const float phase = wrap(ph + fr);
-    const float2 m = mix(xv, phase);
-#pragma unroll
-    for (int j = 0; j < W - 1; ++j) {
-      wr[j] = wr[j + 1];
-      wi[j] = wi[j + 1];
-    }
-    wr[W - 1] = m.x;
-    wi[W - 1] = m.y;
-    const float sp1 = sp - 1.0f;
-    uint8_t o = 0;
-    if (sp1 < 1.0f) {
-      // --- the two points, each decoded against its previous sample ---
-      const float2 mid = interp_at<W>(wr, wi, bank, clip(sp1, 0.0f, 1.0f),
-                                      bs.mid_lo, bs.mid_hi);
-      const float2 cur = interp_at<W>(wr, wi, bank, dsps * 0.5f,
-                                      bs.cur_lo, bs.cur_hi);
-      const float2 ms = diff_norm(mid, pm);
-      const float2 cs = diff_norm(cur, pc);
-
-      // --- Gardner TED (DQPSKGardnerSymbolEvaluator.setSymbols) ---
-      const float d_re = ps.x - cs.x, d_im = ps.y - cs.y;
-      float terr = fma_f64(d_re, ms.x, d_im * ms.y);
-      if (isnan(terr)) terr = 0.0f;
-      terr = clip(terr, -0.3f, 0.3f);
-
-      const Decision d = decide(cs.x, cs.y);
-      o = d.byte;
-      update(terr, d.err, sp1, phase, k, sp, dsps, ph, fr);
-      pm = mid;
-      pc = cur;
-      ps = cs;
-    } else {
-      sp = sp1;
-      ph = phase;
-    }
-    out[static_cast<size_t>(t) * C + c] = o;
-  }
-
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    st.win[static_cast<size_t>(c) * W + j] = make_float2(wr[j], wi[j]);
-  }
-  st.sp[c] = sp;
-  st.dsps[c] = dsps;
-  st.ph[c] = ph;
-  st.fr[c] = fr;
-  st.pm[c] = pm;
-  st.pc[c] = pc;
-  st.ps[c] = ps;
 }
 
-template <int W>
+template <int W, int G, int K>
 void launch(const float2* x, int T, int C, const float* bank, State in,
             StateOut st, uint8_t* out, Loop k, Bases bs,
             cudaStream_t stream) {
-  const int grid = (C + kBlock - 1) / kBlock;
-  gardner_kernel<W><<<grid, kBlock, 0, stream>>>(x, T, C, bank, in, st, out,
-                                                 k, bs);
+  constexpr int kGroups = kBlock / G;
+  const int grid = (C + kGroups - 1) / kGroups;
+  gardner_kernel<W, G, K><<<grid, kBlock, 0, stream>>>(x, T, C, bank, in, st,
+                                                       out, k, bs);
 }
 
 }  // namespace
@@ -205,8 +198,8 @@ extern "C" int gardner_launch(
   auto* op = static_cast<uint8_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 11: launch<11>(xp, T, C, bp, in, st, op, k, bs, s); break;
-    case 16: launch<16>(xp, T, C, bp, in, st, op, k, bs, s); break;
+    case 11: launch<11, 8, 1>(xp, T, C, bp, in, st, op, k, bs, s); break;
+    case 16: launch<16, 16, 1>(xp, T, C, bp, in, st, op, k, bs, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,7 @@
-// Steps shared by the DQPSK symbol-recovery kernels (dqpsk.cu, gardner.cu).
+// Steps and the loop skeleton shared by the DQPSK symbol-recovery kernels
+// (dqpsk.cu, gardner.cu).
 //
-// Each mirrors one helper of the plain PyTorch loops in
+// Each step mirrors one helper of the plain PyTorch loops in
 // sdrtrunk_tpu_torch/dsp/psk.py (class _Loop), operation for operation, so
 // that with --fmad=false each kernel and its plain loop agree bit for bit.
 //
@@ -14,6 +15,19 @@
 //   jnp.clip, then the error's NaN is zeroed as the reference does;
 // * the frequency clamp follows the phase update that used the
 //   unclamped frequency (psk.py:245-247, :483-485).
+//
+// The loop (symbol_loop) is symbol-major. The per-sample recurrence only
+// changes sp -= 1 and ph = wrap(ph + fr) between symbols, and fr is fixed
+// there, so the run of samples up to the next symbol is known from two
+// cheap float chains: its length n (sp iterated down to < 1, exactly as the
+// per-sample loop does) and its n phases. The run's n mixes (float64
+// cos/sin, the costly part of a sample) do not depend on each other: G
+// lanes serve one channel and each mixes K of them, so a run costs about
+// one mix's latency, not n. Every lane of the group then takes the symbol
+// step on identical state, so no lane has to broadcast it. A warp's groups
+// all take one symbol per pass, so the symbol path no longer runs at
+// nearly every sample, as it did when the 32 lanes of a warp were 32
+// channels at independent symbol phases.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,7 +37,8 @@ namespace psk {
 
 constexpr int kNSteps = 128;          // interpolator arms - 1
 constexpr int kNTaps = 8;
-constexpr int kBlock = 32;
+constexpr int kBlock = 32;            // one warp a block: blocks spread over SMs
+constexpr int kRing = 16;             // delay-line ring, samples (>= W, >= G*K)
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kSqrtHalf = 0.70710678118654752440f;
 
@@ -92,23 +107,27 @@ __device__ __forceinline__ Decision decide(float cin, float cqn) {
   return {i_pos, static_cast<uint8_t>(dibit | 4), err};
 }
 
+// A channel's carried timing and PLL scalars.
+struct Timing {
+  float sp, dsps, ph, fr;
+};
+
 // Timing and PLL updates (InterpolatingSampleBuffer.resetAndAdjust,
 // CostasLoop.adjust) for a channel with a symbol due.
 __device__ __forceinline__ void update(float timing_error, float err,
                                        float sp1, float phase, const Loop& k,
-                                       float& sp, float& dsps, float& ph,
-                                       float& fr) {
+                                       Timing& tm) {
   const float detected =
-      clip(fma_f64(timing_error, k.dsps_gain, dsps), k.sps_min, k.sps_max);
+      clip(fma_f64(timing_error, k.dsps_gain, tm.dsps), k.sps_min, k.sps_max);
   const float sp_new = fma_f64(timing_error, k.g, sp1 + detected);
   const float perr = clip(-err, -0.5f, 0.5f);
-  float freq = fma_f64(perr, k.beta, fr);
+  float freq = fma_f64(perr, k.beta, tm.fr);
   const float phase2 = wrap(fma_f64(perr, k.alpha, phase + freq));
   freq = clip(freq, -k.max_pll_freq, k.max_pll_freq);
-  sp = sp_new;
-  dsps = detected;
-  ph = phase2;
-  fr = freq;
+  tm.sp = sp_new;
+  tm.dsps = detected;
+  tm.ph = phase2;
+  tm.fr = freq;
 }
 
 // Copies the 129 x 8 interpolator bank into shared memory.
@@ -123,6 +142,128 @@ __device__ __forceinline__ void load_bank(float* bank, const float* bank_g) {
 __device__ __forceinline__ int arm(float mu) {
   const int idx = static_cast<int>(mu * static_cast<float>(kNSteps));
   return idx < 0 ? 0 : (idx > kNSteps ? kNSteps : idx);
+}
+
+// A channel's delay line: a ring of kRing samples in shared memory, re and
+// im in rows of kRing + 1 words, so that the rows of a warp's channels fall
+// on different banks. `head` counts the samples pushed; the W-sample window
+// (oldest first) is the W samples before it.
+template <int W>
+struct Ring {
+  static_assert(W <= kRing, "the window must fit the ring");
+  float* re;
+  float* im;
+  int head;
+
+  __device__ __forceinline__ float2 at(int j) const {     // window[j]
+    const int i = (head - W + j) & (kRing - 1);
+    return make_float2(re[i], im[i]);
+  }
+  __device__ __forceinline__ void put(int j, float2 v) {  // sample head + j
+    const int i = (head + j) & (kRing - 1);
+    re[i] = v.x;
+    im[i] = v.y;
+  }
+};
+
+// The lanes of the calling thread's group of G in its warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32) {
+    return 0xffffffffu;
+  } else {
+    const int first = (threadIdx.x & 31) / G * G;
+    return ((1u << G) - 1u) << first;
+  }
+}
+
+// The ring of a window read from the (C, W) state row, lane `lane` of G
+// copying entries lane, lane + G, ...
+template <int W, int G>
+__device__ __forceinline__ Ring<W> load_ring(float* re, float* im,
+                                             const float2* win, int lane,
+                                             unsigned gmask) {
+  Ring<W> r{re, im, W};
+  for (int j = lane; j < W; j += G) r.put(j - W, win[j]);
+  __syncwarp(gmask);
+  return r;
+}
+
+template <int W, int G>
+__device__ __forceinline__ void store_ring(const Ring<W>& r, float2* win,
+                                           int lane) {
+  for (int j = lane; j < W; j += G) win[j] = r.at(j);
+}
+
+// The samples a lane mixes in the pass that starts at sample t.
+template <int G, int K>
+__device__ __forceinline__ void load_pass(const float2* __restrict__ xc,
+                                          int t, int T, int lane,
+                                          float2 (&xb)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = t + lane + G * k;
+    xb[k] = i < T ? xc[i] : make_float2(0.0f, 0.0f);
+  }
+}
+
+// One channel's loop over its T samples xc (a row of the (C, T) stream),
+// in passes of up to G*K samples, each ending at a symbol, at G*K samples
+// or at T. G lanes serve the channel; lane `lane` mixes samples lane,
+// lane + G, ... of each pass. Every lane runs each symbol step, `step(ring,
+// sp1, phase, tm)`, which returns the packed byte; lane 0 writes it at the
+// symbol's sample of out_c (a column of the (T, C) output, stride C). The
+// pass stops at T exactly where the per-sample loop would, so carried
+// state is per-sample exact across calls; out_c is written only at
+// symbols (the caller zero-fills it).
+template <int W, int G, int K, class Step>
+__device__ __forceinline__ void symbol_loop(const float2* __restrict__ xc,
+                                            int T, Ring<W>& ring, int lane,
+                                            unsigned gmask, Timing& tm,
+                                            Step& step,
+                                            uint8_t* __restrict__ out_c,
+                                            int C) {
+  static_assert(G * K <= kRing, "a pass must fit the ring");
+  float2 xb[K];
+  load_pass<G, K>(xc, 0, T, lane, xb);
+  int t = 0;
+  while (t < T) {
+    // --- the run: its length n and its phases, as the per-sample loop ---
+    float phs[K] = {};
+    float sp = tm.sp, ph = tm.ph, sp1 = 0.0f, phase = 0.0f;
+    int n = 0;
+    bool due = false;
+#pragma unroll
+    for (int i = 0; i < G * K; ++i) {
+      if (due || t + i >= T) break;
+      phase = wrap(ph + tm.fr);
+      sp1 = sp - 1.0f;
+      if (i % G == lane) phs[i / G] = phase;
+      n = i + 1;
+      due = sp1 < 1.0f;
+      if (!due) {
+        sp = sp1;
+        ph = phase;
+      }
+    }
+    // --- its mixes, K per lane, independent of each other ---
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (lane + G * k < n) ring.put(lane + G * k, mix(xb[k], phs[k]));
+    }
+    __syncwarp(gmask);
+    ring.head += n;
+    t += n;
+    load_pass<G, K>(xc, t, T, lane, xb);      // in flight during the step
+    if (due) {
+      const uint8_t o = step(ring, sp1, phase, tm);
+      if (lane == 0) out_c[static_cast<size_t>(t - 1) * C] = o;
+      __syncwarp(gmask);                      // reads done before the pass
+    } else {
+      tm.sp = sp;
+      tm.ph = ph;
+    }
+  }
 }
 
 }  // namespace psk

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sdrtrunk_tpu.dsp import design
+from ..dsp import design
 
 from .. import resolve_device
 from ..dsp.psk import GardnerDQPSKDemodulator

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from sdrtrunk_tpu.dsp import design
+from . import design
 
 from .. import resolve_device
 

@@ -30,22 +30,24 @@ def dqpsk_cuda(demod, x: torch.Tensor, state):
 
     Returns ((T, C) uint8 ``dibit | valid << 2``, new DQPSKState). The
     state is in the reference layout (window (C, W)); outputs are new
-    tensors from ``torch.empty``. Raises on a build failure, on a tensor
-    the kernel does not take, and on a nonzero launch status.
+    tensors (``out`` zero-filled, the state from ``torch.empty``). Raises
+    on a build failure, on a tensor the kernel does not take, and on a
+    nonzero launch status.
     """
     from .psk import DQPSKState
 
     lib = build()
-    xt = check_inputs("dqpsk_cuda", demod, x, state)
-    t, c = xt.shape
+    x = check_inputs("dqpsk_cuda", demod, x, state)
+    c, t = x.shape
     w = demod.window_len
-    out = torch.empty((t, c), dtype=torch.uint8, device=x.device)
+    # the kernel writes only the bytes of symbols
+    out = torch.zeros((t, c), dtype=torch.uint8, device=x.device)
     new = DQPSKState(*[torch.empty_like(a) for a in state])
     k = demod.loop_constants()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.dqpsk_launch(
-            xt.data_ptr(), t, c, w, demod.bank.data_ptr(),
+            x.data_ptr(), t, c, w, demod.bank.data_ptr(),
             *[a.data_ptr() for a in state], out.data_ptr(),
             *[a.data_ptr() for a in new],
             k["sps_min"], k["sps_max"], k["g"], k["dsps_gain"], k["alpha"],

@@ -34,9 +34,9 @@ def gardner_cuda(demod, x: torch.Tensor, state):
 
     Returns ((T, C) uint8 ``dibit | valid << 2``, new GardnerState). The
     state is in the reference layout (window (C, W)); outputs are new
-    tensors from ``torch.empty``. Raises on a build failure, on a window
-    length without an instantiation, on a tensor the kernel does not take,
-    and on a nonzero launch status.
+    tensors (``out`` zero-filled, the state from ``torch.empty``). Raises
+    on a build failure, on a window length without an instantiation, on a
+    tensor the kernel does not take, and on a nonzero launch status.
     """
     from .psk import GardnerState
 
@@ -47,15 +47,16 @@ def gardner_cuda(demod, x: torch.Tensor, state):
             f"{demod.sample_rate}, {demod.symbol_rate} Bd) has no kernel "
             f"instantiation; gardner.cu instantiates W in {WINDOWS}")
     lib = build()
-    xt = check_inputs("gardner_cuda", demod, x, state)
-    t, c = xt.shape
-    out = torch.empty((t, c), dtype=torch.uint8, device=x.device)
+    x = check_inputs("gardner_cuda", demod, x, state)
+    c, t = x.shape
+    # the kernel writes only the bytes of symbols
+    out = torch.zeros((t, c), dtype=torch.uint8, device=x.device)
     new = GardnerState(*[torch.empty_like(a) for a in state])
     k = demod.loop_constants()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.gardner_launch(
-            xt.data_ptr(), t, c, w, demod.bank.data_ptr(),
+            x.data_ptr(), t, c, w, demod.bank.data_ptr(),
             *[a.data_ptr() for a in state], out.data_ptr(),
             *[a.data_ptr() for a in new],
             k["sps_min"], k["sps_max"], k["g"], k["dsps_gain"], k["alpha"],

@@ -9,7 +9,7 @@ reports each kernel's registers, shared memory and spills (``-Xptxas -v``);
 the report is kept beside the library as ``lib<name>_<key>.log``.
 
 The symbol-loop kernels (dqpsk.cu, gardner.cu) take the same inputs: a
-(T, C) complex64 stream, the (129, 8) interpolator bank and the state in
+(C, T) complex64 stream, the (129, 8) interpolator bank and the state in
 the reference layout; ``check_inputs`` refuses anything else.
 """
 from __future__ import annotations
@@ -106,19 +106,20 @@ def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype: torch.dtype,
 def check_inputs(kernel: str, demod, x: torch.Tensor, state) -> torch.Tensor:
     """Check x, the bank and the state (window (C, W) complex64, then four
     (C,) float32 and the rest (C,) complex64 leaves) against what a symbol
-    loop kernel takes; returns x as the (T, C) stream the kernel reads."""
+    loop kernel takes; returns x as the contiguous (C, T) stream the kernel
+    reads, one row a channel."""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel}: x must be on a CUDA device, got {x.device}")
     if x.dim() != 2:
         raise ValueError(f"{kernel}: x must be (C, T), got {tuple(x.shape)}")
     dev = x.device
     c, t = x.shape
-    xt = x.T.contiguous()
-    check_tensor(kernel, "x", xt, torch.complex64, (t, c), dev)
+    x = x.contiguous()
+    check_tensor(kernel, "x", x, torch.complex64, (c, t), dev)
     check_tensor(kernel, "bank", demod.bank, torch.float32, (129, 8), dev)
     check_tensor(kernel, "window", state.window, torch.complex64,
                  (c, demod.window_len), dev)
     for i, name in enumerate(state._fields[1:]):
         check_tensor(kernel, name, getattr(state, name),
                      torch.float32 if i < 4 else torch.complex64, (c,), dev)
-    return xt
+    return x

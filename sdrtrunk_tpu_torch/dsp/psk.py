@@ -42,7 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from sdrtrunk_tpu.dsp.interpolator import CENTER, NSTEPS, NTAPS, interpolator_bank
+from .interpolator import CENTER, NSTEPS, NTAPS, interpolator_bank
 
 from .. import resolve_device
 

@@ -12,8 +12,9 @@ and stops traffic slots mid-stream. "Starting a channel" is a write of
 (bin, mixer step) into the slot plan plus an in-place reset of that
 slot's device state.
 
-The host layer is the JAX package's own (``sdrtrunk_tpu.runtime``,
-``sdrtrunk_tpu.audio.mbe``, ``sdrtrunk_tpu.protocol``), imported as it is.
+The host layer (``runtime`` bank processors, decoder states and traffic,
+``audio.mbe``, ``protocol``) is the port's byte-for-byte copy of the JAX
+package's (tests/test_torch_host_copy.py holds the copies equal).
 Time is the sample clock (samples processed / sample rate), so runs are
 deterministic and replayable.
 """
@@ -27,18 +28,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sdrtrunk_tpu.audio.mbe import FakeMBECodec, MBECodec
-from sdrtrunk_tpu.protocol.p25p1.bankframer import SYNC_DIBIT_PATTERNS
-from sdrtrunk_tpu.protocol.p25p2.bankframer import P25P2_SYNC_DIBITS
-from sdrtrunk_tpu.runtime.bank_processor import (P25P1BankProcessor,
-                                                 P25P2BankProcessor)
-from sdrtrunk_tpu.runtime.events import DecodeEvent
-from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
-from sdrtrunk_tpu.runtime.metrics import FrequencyErrorMonitor
-from sdrtrunk_tpu.runtime.traffic import TrafficChannelManager
-
 from .. import resolve_device
+from ..audio.mbe import FakeMBECodec, MBECodec
+from ..protocol.p25p1.bankframer import SYNC_DIBIT_PATTERNS
+from ..protocol.p25p2.bankframer import P25P2_SYNC_DIBITS
 from ..receiver import WidebandReceiver
+from .bank_processor import P25P1BankProcessor, P25P2BankProcessor
+from .events import DecodeEvent
+from .identifiers import IdentifierCollection
+from .metrics import FrequencyErrorMonitor
+from .traffic import TrafficChannelManager
 
 __all__ = ["ChannelSlot", "Orchestrator", "compact_and_correlate", "ingest",
            "sync_patterns"]
@@ -224,7 +223,7 @@ class Orchestrator:
         self.correction_ppm = 0.0
         self.event_logger = None
         if event_log_path is not None:
-            from sdrtrunk_tpu.runtime.eventlog import DecodeEventLogger
+            from .eventlog import DecodeEventLogger
             self.event_logger = DecodeEventLogger(event_log_path)
         self.traffic = TrafficChannelManager(
             _PROTOCOL_LABELS[decoder],
@@ -244,7 +243,7 @@ class Orchestrator:
             self._tune(slot.index, off)
         self.rotation = None
         if control_rotation:
-            from sdrtrunk_tpu.runtime.rotation import ChannelRotationMonitor
+            from .rotation import ChannelRotationMonitor
             self.rotation = ChannelRotationMonitor(
                 control_rotation, self._rotate_control,
                 rotation_delay=rotation_delay)

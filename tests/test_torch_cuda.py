@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from sdrtrunk_tpu.signal.generators import (awgn, c4fm_modulate, lsm_modulate,
+from sdrtrunk_tpu_torch.signal.generators import (awgn, c4fm_modulate, lsm_modulate,
                                             random_dibits)
 from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda
 from sdrtrunk_tpu_torch.dsp.psk import (DQPSKDemodulator, DQPSKState,
@@ -129,3 +129,53 @@ def test_gardner_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="instantiation"):
         odd.batched(torch.zeros((2, 16), dtype=torch.complex64, device=card),
                     _gstate(odd, 2))
+
+
+# (kernel, sample rate, baud, timing gain): C4FM, LSM, P25 Phase 2
+_LOOPS = {"dqpsk": ("dqpsk", 25000.0, 4800.0, 0.3),
+          "lsm": ("gardner", 25000.0, 4800.0, 0.3),
+          "p25p2": ("gardner", 50000.0, 6000.0, 0.1)}
+
+
+def _spread_block(kind, c, t, rate, baud, seed):
+    """(c, t) complex64 at 30 dB; channels 0-31 at symbol rates spread
+    over +/-2%, the rest at the nominal rate."""
+    rows = []
+    for i in range(c):
+        b = baud * (1.0 + 0.02 * (2.0 * i / 31 - 1.0)) if i < 32 else baud
+        dib = random_dibits(int(t * b / rate) + 16, seed=seed + i)
+        x = (c4fm_modulate(dib, rate, b) if kind == "dqpsk"
+             else lsm_modulate(dib, sample_rate=rate, symbol_rate=b))
+        rows.append(awgn(x[:t], snr_db=30.0,
+                         rng=np.random.default_rng(seed + 100 + i)))
+    return np.stack(rows).astype(np.complex64)
+
+
+def _assert_same(got, want):
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    for a, b in zip(got[2], want[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", list(_LOOPS))
+def test_symbol_major_edge_cases_on_card(card, loop):
+    """The cases the symbol-major loop creates, bit for bit against the
+    plain loop: 37 channels (not a multiple of a warp) whose symbol rates
+    drift apart, T = 997 (no run length divides it) and T = 1, a symbol
+    due at t = 0, and two calls with carried state."""
+    kind, rate, baud, gain = _LOOPS[loop]
+    cls = DQPSKDemodulator if kind == "dqpsk" else GardnerDQPSKDemodulator
+    demod = cls(rate, baud, gain, device=card)
+    c, t = 37, 997
+    x = torch.as_tensor(_spread_block(kind, c, t, rate, baud, 9), device=card)
+    s0 = _state(demod, c) if kind == "dqpsk" else _gstate(demod, c)
+    s0.sampling_point[::3] = 1.5
+    want = demod.scan_batched(x, s0)
+    assert bool(want[1][::3, 0].all())                 # due at t = 0
+    _assert_same(demod.batched(x, s0), want)
+    _assert_same(demod.batched(x[:, :1], s0), demod.scan_batched(x[:, :1], s0))
+    d1, v1, s1 = demod.batched(x[:, :400], s0)
+    d2, v2, s2 = demod.batched(x[:, 400:], s1)
+    _assert_same((torch.cat([d1, d2], 1), torch.cat([v1, v2], 1), s2), want)

@@ -90,7 +90,8 @@ def runs():
 
 
 def _events(orch):
-    return [(e.event_type, e.frequency_hz, round(e.time_start, 6),
+    # by name: the port's DecodeEventType is its own copy of the enum
+    return [(e.event_type.name, e.frequency_hz, round(e.time_start, 6),
              e.details) for e in orch.events]
 
 
@@ -117,7 +118,7 @@ def test_voice_becomes_one_audio_segment(runs):
     assert segs[0].duration == pytest.approx(18 * 0.020)
     assert segs[0].duration == ref[0].duration
     tgs = [i.value for i in segs[0].identifiers.all()
-           if i.role == IdentifierRole.TO]
+           if i.role.name == IdentifierRole.TO.name]
     assert to.GROUP in tgs
 
 
