@@ -21,8 +21,9 @@ failure (the exit code is then not 0):
    beside its bound (bytes over the memory rate or operations over the
    float64 rate), with the share of (sample, warp) pairs on which a warp
    of 32 channels has a symbol due: the DQPSK kernel at the C4FM bank's
-   1023 channels x 10240 samples, the Gardner kernel at W = 16 (P25 Phase
-   2, 50 kHz, 1023 x 20480) and W = 11 (LSM, 25 kHz, 1023 x 10240);
+   1023 channels x 10240 samples, at timing gain 0.3 (C4FM) and 0.4
+   (DMR), the Gardner kernel at W = 16 (P25 Phase 2, 50 kHz, 1023 x
+   20480) and W = 11 (LSM, 25 kHz, 1023 x 10240);
 5. the live P25P1 C4FM loop at the product's full width: 12.8 MS/s of
    int8 IQ, 1024 bins, 1023 slots (a P25 control channel granting a
    traffic channel, one free slot for the grant, 1021 voice slots),
@@ -39,7 +40,30 @@ failure (the exit code is then not 0):
 7. the live LSM bank at a smaller depth: 64 slots of P25 Phase 1 TSBK
    control streams, LSM-modulated, through Orchestrator(decoder="lsm") for
    3 chunks, with frames on >= 99% of the slots and one Gardner launch per
-   chunk.
+   chunk;
+8. the live DMR loop at full width: 1023 slots, a TSCC control channel
+   sending an aloha and Tier III group-voice grants (CSBK 0x31) for a
+   channel of the band plan set with traffic.update_band, whose slot is
+   left free for the grant, and 1021 voice slots carrying bench.py's DMR
+   call cycle (voice header, 4 voice superframes with embedded LC,
+   terminator) at random phases, through Orchestrator(decoder="dmr") for
+   3 + 4 chunks. It must follow the grant, decode frames on >= 99% of the
+   voice slots, produce AudioSegments and launch the DQPSK kernel (timing
+   gain 0.4) once per chunk;
+9. the live NBFM loop at full width: 1023 slots of NBFM voice (a 700 Hz
+   tone at 0.7 from random starts), chunks of 1024 x 6400 samples (K =
+   12800, a multiple of the resampler's 25), 2 + 4 chunks of mu-law PCM.
+   Slots with an AudioSegment (open or completed) longer than 1 s must be
+   >= 99%, the audio's dominant frequency on 16 sampled slots 700 +/- 50
+   Hz, and no symbol kernel may launch;
+10. the live AM loop at a smaller depth: 64 slots 16 bins apart, each a 1
+   kHz tone at 50% AM depth, 3 chunks of 1024 x 6400; segments on >= 99%
+   of the slots, each with its tone.
+
+Every live loop prints its realtime factor, wall and host ms a chunk (the
+host layer: the bank framer's ``frame_chunk`` for the digital kinds,
+``route_audio`` for the analog ones), its device layers, and the device's
+busy ms and idle share.
 
 The script imports nothing of the JAX package: its signals and protocol
 encoders are the port's own copies (sdrtrunk_tpu_torch.signal,
@@ -73,6 +97,10 @@ KERNEL_C, KERNEL_T = 1023, 10240
 NOISE_CHANNELS = 8
 P25P2_KEY = (0xA4BC3, 0x123, 0x29A)            # WACN, system, NAC
 LSM_SLOTS, LSM_CHUNKS = 64, 3
+ANALOG_BLOCKS = 6400             # K = 12800 channel samples (bench.py:697)
+NBFM_WARMUP, NBFM_TIMED = 2, 4
+NBFM_TONE_HZ, AM_TONE_HZ = 700.0, 1000.0
+AM_SLOTS, AM_CHUNKS = 64, 3
 
 
 def _card() -> str:
@@ -146,7 +174,8 @@ def build_kernels() -> dict:
 # (name, kernel, sample rate, baud, timing gain, T)
 KERNELS = (("dqpsk", "dqpsk", 25000.0, 4800.0, 0.3, KERNEL_T),
            ("gardner_p25p2", "gardner", 50000.0, 6000.0, 0.1, 2 * KERNEL_T),
-           ("gardner_lsm", "gardner", 25000.0, 4800.0, 0.3, KERNEL_T))
+           ("gardner_lsm", "gardner", 25000.0, 4800.0, 0.3, KERNEL_T),
+           ("dqpsk_dmr", "dqpsk", 25000.0, 4800.0, 0.4, KERNEL_T))
 _SOURCES = {"dqpsk": ("sdrtrunk_tpu_torch/csrc/dqpsk.cu",
                       "sdrtrunk_tpu/dsp/pallas_psk.py:48"),
             "gardner": ("sdrtrunk_tpu_torch/csrc/gardner.cu",
@@ -335,8 +364,8 @@ def check_edges(card: str) -> None:
         if not bool(plain[1][::3, 0].all()):
             raise AssertionError(f"{name}: no symbol at t = 0 where one was "
                                  "due")
-    print(f"[edges] {card}: dqpsk, gardner W=16 and W=11 identical to their "
-          f"plain loops at C={EDGE_C} with symbol rates spread +/-2%, "
+    print(f"[edges] {card}: {', '.join(k[0] for k in KERNELS)} identical to "
+          f"their plain loops at C={EDGE_C} with symbol rates spread +/-2%, "
           f"T={EDGE_T} and T=1, a symbol due at t=0, and two calls "
           f"({EDGE_SPLIT} + {EDGE_T - EDGE_SPLIT}) with carried state",
           flush=True)
@@ -474,16 +503,18 @@ def _tiled_streams(cycle, modulate, sps: float, slots: int, n_ch: int,
                 + torch.arange(n_ch, device="cuda")[None, :]]
 
 
-def synthesize_chunks(ch, streams, offsets, total_chunks: int) -> list:
-    """int8 (n, 2) wideband chunks of per-slot channel streams (slots,
-    n_ch), synthesized on the card by the port's synthesis bank with filter
-    state carried across chunks (each chunk re-synthesizes the previous
-    one's last 2T blocks, which equals one-shot synthesis)."""
+def synthesize_chunks(ch, streams, offsets, total_chunks: int,
+                      blocks: int = CHUNK_BLOCKS) -> list:
+    """int8 (n, 2) wideband chunks of M * blocks samples of per-slot
+    channel streams (slots, n_ch), synthesized on the card by the port's
+    synthesis bank with filter state carried across chunks (each chunk
+    re-synthesizes the previous one's last 2T blocks, which equals one-shot
+    synthesis)."""
     import torch
 
     from sdrtrunk_tpu_torch.dsp.synthesizer import synthesize_bank
 
-    chunk = M * CHUNK_BLOCKS
+    chunk = M * blocks
     k = 2 * chunk // M
     bins = torch.as_tensor([ch.channel_for_frequency(o) for o in offsets],
                            device="cuda")
@@ -503,7 +534,7 @@ def synthesize_chunks(ch, streams, offsets, total_chunks: int) -> list:
 
 
 def _source(chunks):
-    chunk = M * CHUNK_BLOCKS
+    chunk = len(chunks[0])
     pos = 0
 
     def read(num):
@@ -522,7 +553,12 @@ _KERNEL_LAYER = {"DQPSKDemodulator": "dqpsk_kernel",
 
 def layer_times(orch, iq8) -> dict:
     """Per-chunk device ms of each layer of the live step, on one chunk,
-    from a copy of the running state (CUDA events)."""
+    from a copy of the running state (CUDA events). A DQPSK chain: ingest
+    + channelize, select + mix, front end (FIR, power, AGC), the symbol
+    kernel, tail (compaction, sync, packing). An analog chain: the same
+    first two, the analog front at the channel rate (FIR, squelch, FM
+    discriminator and de-emphasis, or envelope and DC removal), the
+    resampler to 8 kHz, and the PCM + gate packing."""
     import torch
 
     from sdrtrunk_tpu_torch.convert import tree_map
@@ -530,10 +566,10 @@ def layer_times(orch, iq8) -> dict:
     from sdrtrunk_tpu_torch.dsp.psk import unpack_symbols
     from sdrtrunk_tpu_torch.receiver import dynamic_select_mix
     from sdrtrunk_tpu_torch.runtime.orchestrator import (
-        compact_and_correlate, ingest, sync_patterns)
+        compact_and_correlate, ingest, pack_audio, sync_patterns)
 
     rx = orch.rx
-    demod = rx.decoder.demod
+    dec = rx.decoder
     state = tree_map(lambda a: a.clone(), orch.state)
     bins, steps = (torch.as_tensor(orch.bins, dtype=torch.long,
                                    device="cuda"),
@@ -551,20 +587,35 @@ def layer_times(orch, iq8) -> dict:
             r["y"], state["rot"], state["mixer_phase"], bins, steps, rx.rot4)
 
     def front():
-        (r["leveled"], _), _ = rx.decoder._front(r["streams"], state["dec"])
+        (r["leveled"], _), _ = dec._front(r["streams"], state["dec"])
 
     def kernel():
-        r["packed"], _ = demod._kernel(r["leveled"], state["dec"]["psk"])
+        r["packed"], _ = dec.demod._kernel(r["leveled"], state["dec"]["psk"])
 
     def tail():
         compact_and_correlate(*unpack_symbols(r["packed"]), orch._bank_cap,
                               *sync_patterns(orch.decoder_name))
 
+    def analog_front():
+        r["audio"], r["gate"], _, _ = dec._front(r["streams"], state["dec"])
+
+    def resample():
+        r["audio8k"], r["gate8k"] = dec._resample(r["audio"], r["gate"],
+                                                  state["dec"]["resamp"])
+
+    def pack():
+        pack_audio(r["audio8k"], r["gate8k"], orch.audio_format)
+
+    if orch.bank_analog:
+        layers = (("analog_front", analog_front), ("resample", resample),
+                  ("pack", pack))
+    else:
+        layers = (("front_end", front),
+                  (_KERNEL_LAYER[type(dec.demod).__name__], kernel),
+                  ("tail", tail))
     out = {}
     for name, fn in (("ingest_channelize", chan), ("select_mix", select),
-                     ("front_end", front),
-                     (_KERNEL_LAYER[type(demod).__name__], kernel),
-                     ("tail", tail)):
+                     *layers):
         fn()
         out[name] = _cuda_ms(fn, reps=3)
     return out
@@ -606,11 +657,14 @@ def device_busy_ms(orch, iq8, chunks: int = 2) -> float:
     return busy / 1e6 / chunks
 
 
-def drive(orch, kernel: str, chunks: int, warmup: int) -> dict:
+def drive(orch, kernel: str | None, chunks: int, warmup: int) -> dict:
     """Run the live loop for `chunks` chunks (the first `warmup` untimed)
     with both kernels' launch counts set to 0 just before and read just
     after. Checks that every live-step output lay on the card and that
-    only `kernel` launched, once per chunk. Returns timing and counts."""
+    only `kernel` launched, once per chunk; with kernel None (an analog
+    bank) that no symbol kernel launched. The host layer is timed: the
+    bank framer's ``frame_chunk`` for a digital bank, ``route_audio`` for
+    an analog one. Returns timing and counts."""
     import torch
 
     counters = _launch_counters()
@@ -622,49 +676,59 @@ def drive(orch, kernel: str, chunks: int, warmup: int) -> dict:
         devices.update(v.device.type for v in out.values())
         return out, st
     orch.step = spy_step
-    framing = {"s": 0.0}
-    frame_chunk = orch.bank_proc.frame_chunk
+    host = {"s": 0.0}
+    host_layer = "frame_chunk" if kernel is not None else "route_audio"
+    host_fn = getattr(orch.bank_proc, host_layer)
 
-    def timed_frame_chunk(*args):
+    def timed_host(*args):
         f0 = time.perf_counter()
         try:
-            return frame_chunk(*args)
+            return host_fn(*args)
         finally:
-            framing["s"] += time.perf_counter() - f0
-    orch.bank_proc.frame_chunk = timed_frame_chunk
+            host["s"] += time.perf_counter() - f0
+    setattr(orch.bank_proc, host_layer, timed_host)
 
     for fn in counters.values():               # count the main path only
         fn.launches = 0
     orch.run(max_chunks=warmup)
     torch.cuda.synchronize()
-    framing["s"] = 0.0
+    host["s"] = 0.0
     t0 = time.perf_counter()
     metrics = orch.run(max_chunks=chunks - warmup)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
 
-    timed = M * CHUNK_BLOCKS * (chunks - warmup)
-    if launches[kernel] != chunks or sum(launches.values()) != chunks:
+    timed = orch.chunk_samples * (chunks - warmup)
+    want = {name: chunks if name == kernel else 0 for name in counters}
+    if launches != want:
         raise AssertionError(f"kernel launches {launches} for {chunks} "
-                             f"chunks (expected {kernel} once per chunk)")
+                             f"chunks (expected {want})")
     if devices != {"cuda"}:
         raise AssertionError(f"live step outputs on {devices}")
-    return {"metrics": metrics, "launches": launches[kernel],
+    return {"metrics": metrics,
+            "launches": launches[kernel] if kernel is not None else 0,
             "wall_ms_per_chunk": elapsed * 1e3 / (chunks - warmup),
             "msps": timed / elapsed / 1e6,
             "realtime_factor": timed / elapsed / FS,
-            "host_framing_ms_per_chunk":
-                framing["s"] * 1e3 / (chunks - warmup)}
+            "host_layer": host_layer,
+            "host_ms_per_chunk": host["s"] * 1e3 / (chunks - warmup)}
 
 
-def _busy(orch, iq8, run) -> dict:
-    """Device busy ms per chunk and the device's idle share of the timed
-    run's wall time per chunk."""
+def _loop_record(orch, iq8, run) -> dict:
+    """What every live loop prints: its realtime factor and MS/s, wall and
+    host ms a chunk of the timed run, its device layers (on the chunk
+    iq8), and the device's busy ms a chunk and idle share of the wall
+    time."""
     busy = device_busy_ms(orch, iq8)
-    return {"device_busy_ms_per_chunk": busy,
+    return {"msps": run["msps"], "realtime_factor": run["realtime_factor"],
             "wall_ms_per_chunk": run["wall_ms_per_chunk"],
-            "device_idle_share": 1.0 - busy / run["wall_ms_per_chunk"]}
+            "host_layer": run["host_layer"],
+            "host_ms_per_chunk": run["host_ms_per_chunk"],
+            "device_ms_per_chunk": layer_times(orch, iq8),
+            "device_busy_ms_per_chunk": busy,
+            "device_idle_share": 1.0 - busy / run["wall_ms_per_chunk"],
+            "kernel_launches": run["launches"]}
 
 
 def _coverage(orch, slot_hz):
@@ -721,8 +785,7 @@ def run_c4fm(card: str) -> dict:
     result = {
         "card": card, "decoder": "c4fm", "slots": SLOTS,
         "wideband_msps": FS / 1e6, "chunk_samples": chunk,
-        "timed_chunks": TIMED, "msps": run["msps"],
-        "realtime_factor": run["realtime_factor"],
+        "timed_chunks": TIMED,
         "frames": int(sum(s["frames"] for s in status.values())),
         "voice_slots_with_frames": int((voice_frames > 0).sum()),
         "voice_slots": len(voice_hz),
@@ -730,10 +793,7 @@ def run_c4fm(card: str) -> dict:
         "events": len(orch.events), "audio_segments": len(segs),
         "skipped_grants": len(orch.skipped_grants),
         "active_channels": run["metrics"].get("active_channels"),
-        "kernel_launches": run["launches"],
-        "device_ms_per_chunk": layer_times(orch, chunks[-1]),
-        **_busy(orch, chunks[-1], run),
-        "host_framing_ms_per_chunk": run["host_framing_ms_per_chunk"],
+        **_loop_record(orch, chunks[-1], run),
         "synthesis_s": synth_s,
     }
     print("[live c4fm] " + json.dumps(result), flush=True)
@@ -790,16 +850,12 @@ def run_p25p2(card: str) -> dict:
     result = {
         "card": card, "decoder": "p25p2", "slots": SLOTS,
         "timeslots": 2 * SLOTS, "wideband_msps": FS / 1e6,
-        "chunk_samples": chunk, "timed_chunks": TIMED, "msps": run["msps"],
-        "realtime_factor": run["realtime_factor"],
+        "chunk_samples": chunk, "timed_chunks": TIMED,
         "fragments": int(sum(s["frames"] for s in orch.channel_status())),
         "voice_slots_with_fragments": int((voice_frames > 0).sum()),
         "voice_slots": len(voice_hz), "audio_segments": len(segs),
         "active_channels": run["metrics"].get("active_channels"),
-        "kernel_launches": run["launches"],
-        "device_ms_per_chunk": layer_times(orch, chunks[-1]),
-        **_busy(orch, chunks[-1], run),
-        "host_framing_ms_per_chunk": run["host_framing_ms_per_chunk"],
+        **_loop_record(orch, chunks[-1], run),
         "synthesis_s": synth_s,
     }
     print("[live p25p2] " + json.dumps(result), flush=True)
@@ -840,13 +896,279 @@ def run_lsm(card: str) -> dict:
               "chunks": LSM_CHUNKS, "frames": int(frames.sum()),
               "control_frames": int(frames[0]),
               "slots_with_frames": int((frames > 0).sum()),
-              "kernel_launches": run["launches"],
-              "realtime_factor": run["realtime_factor"]}
+              **_loop_record(orch, chunks[-1], run)}
     print("[live lsm] " + json.dumps(result), flush=True)
     if not frames[0] or (frames > 0).mean() < 0.99:
         raise AssertionError(f"LSM frames on {(frames > 0).sum()} of "
                              f"{LSM_SLOTS} slots (control {frames[0]})")
     return result
+
+
+
+def _dmr_streams(total_dibits: int):
+    """(control, traffic, call cycle) DMR dibit streams. The control
+    channel (tests/test_orchestrator_bank.py's TSCC) sends an aloha, then a
+    Tier III group-voice grant (CSBK 0x31) for channel TRAFFIC_INDEX every
+    632 dibits; the traffic channel carries one call cycle after the
+    grant's latency; the cycle is bench.py's: voice header, 4 voice
+    superframes (burst A with sync, B-F with EMB, embedded LC on B-E),
+    terminator."""
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.protocol.bits import from_int
+    from sdrtrunk_tpu_torch.protocol.dmr.csbk import csbk_encode
+    from sdrtrunk_tpu_torch.protocol.dmr.framer import (DataType,
+                                                        DMRBurstAssembler,
+                                                        VOICE_FRAME_ORDER)
+    from sdrtrunk_tpu_torch.protocol.dmr.lc import (MASK_TERMINATOR,
+                                                    MASK_VOICE_HEADER,
+                                                    embedded_lc_encode,
+                                                    full_lc_encode,
+                                                    lc_build_group_voice)
+    from sdrtrunk_tpu_torch.protocol.dmr.sync import DMRSyncPattern
+    from sdrtrunk_tpu_torch.protocol.edac.bptc import bptc_196_96_encode
+
+    rng = np.random.default_rng(31)
+    asm = DMRBurstAssembler(color_code=1)
+    lc = lc_build_group_voice(group=GROUP, source=SOURCE)
+    vh = bptc_196_96_encode(full_lc_encode(lc, MASK_VOICE_HEADER))
+    tlc = bptc_196_96_encode(full_lc_encode(lc, MASK_TERMINATOR))
+    frags = embedded_lc_encode(lc)
+    cycle = [asm.data_burst(DMRSyncPattern.BASE_STATION_DATA,
+                            DataType.VOICE_HEADER, vh)]
+    for _ in range(4):
+        ambe = rng.integers(0, 2, (3, 72)).astype(np.uint8)
+        cycle.append(asm.voice_burst(DMRSyncPattern.BASE_STATION_VOICE,
+                                     ambe))
+        for i, vf in enumerate(VOICE_FRAME_ORDER):
+            cycle.append(asm.voice_burst(
+                vf, ambe, emb_lcss=[1, 3, 3, 2, 0][i],
+                lc_fragment=frags[i] if i < 4 else None))
+    cycle.append(asm.data_burst(DMRSyncPattern.BASE_STATION_DATA,
+                                DataType.TLC, tlc))
+    call = DMRBurstAssembler.to_dibits(cycle)
+
+    grant_bits = np.zeros(64, np.uint8)
+    grant_bits[0:12] = from_int(TRAFFIC_INDEX, 12)     # Tier III channel
+    grant_bits[16:40] = from_int(GROUP, 24)
+    grant_bits[40:64] = from_int(SOURCE, 24)
+    grant = DMRBurstAssembler.to_dibits([asm.data_burst(
+        DMRSyncPattern.BASE_STATION_DATA, DataType.CSBK,
+        csbk_encode(0x31, grant_bits))])
+    aloha = DMRBurstAssembler.to_dibits([asm.data_burst(
+        DMRSyncPattern.BASE_STATION_DATA, DataType.CSBK,
+        csbk_encode(0x19, np.zeros(64, np.uint8)))])
+    parts = [rng.integers(0, 4, 140).astype(np.uint8), aloha]
+    while sum(len(p) for p in parts) < total_dibits:
+        parts += [grant, rng.integers(0, 4, 500).astype(np.uint8)]
+    control = np.concatenate(parts)[:total_dibits]
+    start = int(1.3 * 4800)                    # after the grant's latency
+    traffic = np.concatenate([rng.integers(0, 4, start).astype(np.uint8),
+                              call])
+    traffic = np.concatenate([traffic, rng.integers(
+        0, 4, max(total_dibits - len(traffic), 0)).astype(np.uint8)])
+    return control, traffic[:total_dibits], call
+
+
+def run_dmr(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+    from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+    from sdrtrunk_tpu_torch.runtime.traffic import FrequencyBand
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    chunk = M * CHUNK_BLOCKS
+    ch = Channelizer.design(FS, 12500.0, device="cuda")
+    offsets = [(i - M // 2 + 1) * 12500.0 for i in range(SLOTS)]
+    t0 = time.perf_counter()
+    rate = ch.channel_sample_rate
+    n_ch = (WARMUP + TIMED + 1) * (2 * chunk // M)
+    control, traffic, call = _dmr_streams(int(n_ch / rate * 4800) + 64)
+    streams = _tiled_streams(call, lambda d: c4fm_modulate(d, rate),
+                             rate / 4800.0, SLOTS, n_ch, seed=0)
+    for row, dib in ((0, control), (TRAFFIC_INDEX, traffic)):
+        streams[row] = torch.as_tensor(
+            c4fm_modulate(dib, rate)[:n_ch].astype(np.complex64),
+            device="cuda")
+    chunks = synthesize_chunks(ch, streams, offsets, WARMUP + TIMED)
+    synth_s = time.perf_counter() - t0
+
+    orch = Orchestrator(_source(chunks), FS, CENTER_HZ, [offsets[0]],
+                        slots=SLOTS, decoder="dmr", chunk_samples=chunk,
+                        idle_teardown_seconds=1e9, ppm_correction=False,
+                        bank_mode=True, device="cuda")
+    # the band plan maps the grant's channel n to control + n * 12.5 kHz
+    orch.traffic.update_band(FrequencyBand(
+        identifier=0, base_frequency_hz=CENTER_HZ + offsets[0],
+        channel_spacing_hz=12500.0))
+    traffic_hz = CENTER_HZ + offsets[TRAFFIC_INDEX]
+    voice_hz = [CENTER_HZ + o for i, o in enumerate(offsets)
+                if i not in (0, TRAFFIC_INDEX)]
+    for f in voice_hz:
+        orch._activate(f, IdentifierCollection())
+    if sum(s.active for s in orch.slots) != SLOTS - 1:
+        raise AssertionError("voice slots did not all activate")
+
+    run = drive(orch, "dqpsk", WARMUP + TIMED, WARMUP)
+    voice_frames = _coverage(orch, voice_hz)
+    status = {s["frequency_hz"]: s for s in orch.channel_status()}
+    granted = status.get(traffic_hz)
+    segs = [s for s in orch.audio_segments if s.duration > 0]
+    result = {
+        "card": card, "decoder": "dmr", "slots": SLOTS,
+        "timeslots": 2 * SLOTS, "wideband_msps": FS / 1e6,
+        "chunk_samples": chunk, "bank_cap": orch._bank_cap,
+        "timed_chunks": TIMED,
+        "frames": int(sum(s["frames"] for s in status.values())),
+        "voice_slots_with_frames": int((voice_frames > 0).sum()),
+        "voice_slots": len(voice_hz),
+        "traffic_frames": None if granted is None else granted["frames"],
+        "events": len(orch.events), "audio_segments": len(segs),
+        "skipped_grants": len(orch.skipped_grants),
+        "active_channels": run["metrics"].get("active_channels"),
+        **_loop_record(orch, chunks[-1], run),
+        "synthesis_s": synth_s,
+    }
+    print("[live dmr] " + json.dumps(result), flush=True)
+    if granted is None or not any(s.active and s.frequency_hz == traffic_hz
+                                  for s in orch.slots):
+        raise AssertionError("the grant did not activate the traffic slot")
+    if not granted["frames"]:
+        raise AssertionError("no frames decoded on the granted slot")
+    if (voice_frames > 0).mean() < 0.99:
+        raise AssertionError(f"frames on only {(voice_frames > 0).sum()} of "
+                             f"{len(voice_hz)} voice slots")
+    if not segs:
+        raise AssertionError("no AudioSegment")
+    return result
+
+
+def _dominant_hz(samples) -> float:
+    """The strongest frequency of 8 kHz audio, its first 0.1 s left out
+    (the squelch and de-emphasis settling)."""
+    import numpy as np
+    x = np.asarray(samples[800:], np.float64)
+    spec = np.abs(np.fft.rfft(x - x.mean()))
+    return float(np.fft.rfftfreq(len(x), 1 / 8000.0)[int(np.argmax(spec))])
+
+
+def _analog_loop(card: str, decoder: str, streams, offsets, warmup: int,
+                 chunks_total: int, tone_hz: float, sampled) -> dict:
+    """An analog bank live loop: every slot activated, `chunks_total`
+    chunks of M x ANALOG_BLOCKS (the first `warmup` untimed), no symbol
+    kernel launched. Returns the loop's record with, per slot, whether it
+    had an AudioSegment (open, or completed and drained) longer than 1 s,
+    and the dominant frequency of the open segment of each sampled slot."""
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+    from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+
+    chunk = M * ANALOG_BLOCKS
+    ch = Channelizer.design(FS, 12500.0, device="cuda")
+    t0 = time.perf_counter()
+    chunks = synthesize_chunks(ch, streams, offsets, chunks_total,
+                               ANALOG_BLOCKS)
+    synth_s = time.perf_counter() - t0
+    slots = len(offsets)
+    orch = Orchestrator(_source(chunks), FS, CENTER_HZ, [offsets[0]],
+                        slots=slots, decoder=decoder, chunk_samples=chunk,
+                        idle_teardown_seconds=1e9, ppm_correction=False,
+                        bank_mode=True, device="cuda")
+    for o in offsets[1:]:
+        orch._activate(CENTER_HZ + o, IdentifierCollection())
+    if sum(s.active for s in orch.slots) != slots:
+        raise AssertionError("slots did not all activate")
+    long_done = set()
+    drain = orch.bank_proc.drain_audio
+
+    def drain_long(slot):
+        segs = drain(slot)
+        if any(s.duration > 1.0 for s in segs):
+            long_done.add(slot)
+        return segs
+    orch.bank_proc.drain_audio = drain_long
+
+    run = drive(orch, None, chunks_total, warmup)
+    modules = orch.bank_proc.modules
+    long_audio = np.array([
+        s in long_done or (modules[s].segment is not None
+                           and modules[s].segment.duration > 1.0)
+        for s in range(slots)])
+    tones = [_dominant_hz(modules[s].segment.samples)
+             if modules[s].segment is not None else 0.0 for s in sampled]
+    result = {
+        "card": card, "decoder": decoder, "slots": slots,
+        "wideband_msps": FS / 1e6, "chunk_samples": chunk,
+        "audio_samples_per_chunk": orch._bank_ka,
+        "audio_format": orch.audio_format, "chunks": chunks_total,
+        "timed_chunks": chunks_total - warmup,
+        "slots_with_audio_over_1s": int(long_audio.sum()),
+        "audio_segments": len(orch.audio_segments),
+        "sampled_slots": list(map(int, sampled)), "dominant_hz": tones,
+        **_loop_record(orch, chunks[-1], run),
+        "synthesis_s": synth_s,
+    }
+    print(f"[live {decoder}] " + json.dumps(result), flush=True)
+    if long_audio.mean() < 0.99:
+        raise AssertionError(f"{decoder}: audio over 1 s on only "
+                             f"{long_audio.sum()} of {slots} slots")
+    off = [f for f in tones if abs(f - tone_hz) > 50.0]
+    if off:
+        raise AssertionError(f"{decoder}: dominant frequencies {tones}, "
+                             f"expected {tone_hz} +/- 50 Hz")
+    return result
+
+
+def run_nbfm(card: str) -> dict:
+    """bench.py's NBFM bank: 1023 slots, each NBFM voice (a 700 Hz tone
+    at 0.7, modulated at the 25 kHz channel rate) from a random start."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.signal.generators import nbfm_modulate
+
+    total = NBFM_WARMUP + NBFM_TIMED
+    rate = 25000.0
+    n_ch = (total + 1) * (2 * ANALOG_BLOCKS)
+    rng = np.random.default_rng(0)
+    audio = 0.7 * np.sin(2 * np.pi * NBFM_TONE_HZ
+                         * np.arange(int((n_ch + 25000) / rate * 8000.0)
+                                     + 8000) / 8000.0)
+    base = torch.as_tensor(nbfm_modulate(audio, 8000.0, rate)
+                           .astype(np.complex64), device="cuda")
+    starts = torch.as_tensor(rng.integers(0, 25000, SLOTS), device="cuda")
+    streams = base[starts[:, None]
+                   + torch.arange(n_ch, device="cuda")[None, :]]
+    offsets = [(i - M // 2 + 1) * 12500.0 for i in range(SLOTS)]
+    sampled = np.sort(rng.choice(SLOTS, 16, replace=False))
+    return _analog_loop(card, "nbfm", streams, offsets, NBFM_WARMUP, total,
+                        NBFM_TONE_HZ, sampled)
+
+
+def run_am(card: str) -> dict:
+    """64 slots 16 bins apart, each a carrier at a random phase with a 1
+    kHz tone at 50% AM depth (the tone's phase random per slot)."""
+    import numpy as np
+    import torch
+
+    rate = 25000.0
+    n_ch = (AM_CHUNKS + 1) * (2 * ANALOG_BLOCKS)
+    rng = np.random.default_rng(4)
+    t = torch.arange(n_ch, device="cuda", dtype=torch.float64) / rate
+    tone = torch.as_tensor(rng.uniform(0, 2 * np.pi, AM_SLOTS),
+                           device="cuda")[:, None]
+    carrier = torch.as_tensor(rng.uniform(0, 2 * np.pi, AM_SLOTS),
+                              device="cuda")[:, None]
+    env = 1.0 + 0.5 * torch.sin(2 * np.pi * AM_TONE_HZ * t[None, :] + tone)
+    streams = torch.polar(env, carrier.expand_as(env)).to(torch.complex64)
+    offsets = [(16 * i - M // 2 + 8) * 12500.0 for i in range(AM_SLOTS)]
+    return _analog_loop(card, "am", streams, offsets, 1, AM_CHUNKS,
+                        AM_TONE_HZ, np.arange(AM_SLOTS))
 
 
 def main() -> int:
@@ -869,13 +1191,17 @@ def main() -> int:
 
     build_kernels()
     check_edges(card)
-    dqpsk, p25p2_k, lsm_k = (check_kernel(card, *k) for k in KERNELS)
+    dqpsk, p25p2_k, lsm_k, dmr_k = (check_kernel(card, *k) for k in KERNELS)
     dqpsk["launches"] = run_c4fm(card)["kernel_launches"]
     p25p2_k["launches"] = run_p25p2(card)["kernel_launches"]
     lsm_k["launches"] = run_lsm(card)["kernel_launches"]
+    dmr_k["launches"] = run_dmr(card)["kernel_launches"]
+    run_nbfm(card)
+    run_am(card)
     print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    print(json.dumps({"kernels": [dqpsk, p25p2_k, lsm_k]}), flush=True)
+    print(json.dumps({"kernels": [dqpsk, p25p2_k, lsm_k, dmr_k]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

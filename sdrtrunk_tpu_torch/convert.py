@@ -2,7 +2,8 @@
 
 The system has no learned weights: what stands in for them is the design
 arrays (the channelizer's polyphase branches, the baseband FIR taps, the
-interpolator bank) and the carried receiver state. Both cross as NumPy.
+interpolator bank, the audio resampler's prototype) and the carried
+receiver state. Both cross as NumPy.
 """
 from __future__ import annotations
 
@@ -19,37 +20,42 @@ _PSK_STATES = {cls._fields: cls for cls in (DQPSKState, GardnerState)}
 
 
 def tree_map(fn, tree, *rest):
-    """Map fn over the leaves of nested dicts / DQPSKStates / GardnerStates
-    (the receiver state's structure); ``rest`` are trees of the same
-    structure."""
+    """Map fn over the leaves of nested dicts, tuples and named tuples
+    (DQPSKState, GardnerState): the receiver state's structure for every
+    decoder kind; ``rest`` are trees of the same structure."""
     if isinstance(tree, dict):
         return {key: tree_map(fn, tree[key], *[r[key] for r in rest])
                 for key in tree}
-    if isinstance(tree, (DQPSKState, GardnerState)):
-        return type(tree)(*[tree_map(fn, *leaves)
-                            for leaves in zip(tree, *rest)])
+    if isinstance(tree, tuple):
+        leaves = [tree_map(fn, *leaves) for leaves in zip(tree, *rest)]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") \
+            else tuple(leaves)
     return fn(tree, *rest)
+
+
+def _from_numpy(tree, device):
+    """A NumPy tree -> tensors on device; a named tuple becomes the port's
+    state type with the same field names."""
+    if isinstance(tree, dict):
+        return {key: _from_numpy(v, device) for key, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        leaves = [_from_numpy(v, device) for v in tree]
+        fields = getattr(tree, "_fields", None)
+        return _PSK_STATES[fields](*leaves) if fields else tuple(leaves)
+    return torch.as_tensor(np.array(tree), device=device)
 
 
 def receiver_state_from_numpy(tree: dict, device) -> dict:
     """The JAX receiver state as NumPy (``jax.tree.map(np.asarray, state)``
     of ``WidebandReceiver.init_state()``'s structure: chan, mixer_phase,
-    rot, dec = {fir, agc, power, psk}) -> the port's tensors on device.
-    The psk leaf becomes the state type with the same field names (a
-    DQPSKState or a GardnerState)."""
-    def leaf(a):
-        return torch.as_tensor(np.array(a), device=device)
-
-    dec = tree["dec"]
-    psk = dec["psk"]
-    return {
-        "chan": leaf(tree["chan"]),
-        "mixer_phase": leaf(tree["mixer_phase"]),
-        "rot": leaf(np.asarray(tree["rot"], np.int32)),
-        "dec": {"fir": leaf(dec["fir"]), "agc": leaf(dec["agc"]),
-                "power": leaf(dec["power"]),
-                "psk": _PSK_STATES[psk._fields](*[leaf(a) for a in psk])},
-    }
+    rot, dec) -> the port's tensors on device. ``dec`` is any decoder's
+    state tree ({fir, agc, power, psk} for the DQPSK chains, {fir, prev,
+    power, deemph, resamp} for NBFM, {fir, power, dc, resamp} for AM);
+    a psk leaf becomes the state type with the same field names (a
+    DQPSKState or a GardnerState) and a plain tuple stays a tuple."""
+    state = _from_numpy(tree, device)
+    state["rot"] = state["rot"].to(torch.int32)
+    return state
 
 
 def receiver_state_to_numpy(state: dict) -> dict:
@@ -58,14 +64,20 @@ def receiver_state_to_numpy(state: dict) -> dict:
     return tree_map(lambda t: t.detach().cpu().numpy(), state)
 
 
-def params_from_numpy(hmat, baseband_taps, interp_bank) -> dict:
-    """Design arrays of the JAX objects (``Channelizer.hmat``, the DQPSK
-    chain decoder's ``baseband_taps`` — C4FM, LSM or P25P2 — and its
-    demodulator's interpolator ``bank``) as a state dict for
-    ``WidebandReceiver.load_state_dict``."""
+def params_from_numpy(hmat, baseband_taps, interp_bank=None,
+                      resampler_taps=None) -> dict:
+    """Design arrays of the JAX objects as a state dict for
+    ``WidebandReceiver.load_state_dict``: ``Channelizer.hmat``, the
+    decoder's ``baseband_taps``, and either the DQPSK chain demodulator's
+    interpolator ``bank`` (C4FM, DMR, LSM, P25P2) or the analog decoder's
+    ``resampler_taps`` (NBFM, AM)."""
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32))
 
-    return {"channelizer.hmat": f32(hmat),
-            "decoder.baseband_taps": f32(baseband_taps),
-            "decoder.demod.bank": f32(interp_bank)}
+    params = {"channelizer.hmat": f32(hmat),
+              "decoder.baseband_taps": f32(baseband_taps)}
+    if interp_bank is not None:
+        params["decoder.demod.bank"] = f32(interp_bank)
+    if resampler_taps is not None:
+        params["decoder.resampler_taps"] = f32(resampler_taps)
+    return params

@@ -1,4 +1,4 @@
-"""First-order IIR as blocked matmuls (port of sdrtrunk_tpu/dsp/iir.py:32-86).
+"""First-order IIR as blocked matmuls (port of sdrtrunk_tpu/dsp/iir.py:32-137).
 
 y[t] = a*y[t-1] + b[t] with a constant pole has the closed form
 y[t] = a^(t+1)*y0 + sum_j a^(t-j) b[j], which blocks into a lower-
@@ -8,10 +8,13 @@ These are plain ``torch.matmul``s (TF32 is off, so float32 on the card).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-__all__ = ["single_pole", "single_pole_apply"]
+__all__ = ["single_pole", "single_pole_apply", "dc_removal",
+           "deemphasis_alpha", "deemphasis_makeup_gain", "deemphasis"]
 
 
 def _tri_powers(a: float, size: int) -> np.ndarray:
@@ -59,3 +62,46 @@ def single_pole_apply(x: torch.Tensor, alpha: float, state: torch.Tensor
     """Streaming single-pole IIR; ``state`` (C,) is the previous output."""
     y = single_pole(x, alpha, state)
     return y, y[:, -1]
+
+
+def dc_removal(x: torch.Tensor, ratio: float,
+               state: tuple[torch.Tensor, torch.Tensor]
+               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """DC-blocking filter y[t] = x[t] - x[t-1] + ratio*y[t-1] over (C, T)
+    real x; ``state`` is (x_prev (C,), y_prev (C,))."""
+    x_prev, y_prev = state
+    diffs = x - torch.cat([x_prev.to(x.dtype)[:, None], x[:, :-1]], dim=1)
+    y = _linrec(float(ratio), diffs, y_prev)
+    return y, (x[:, -1], y[:, -1])
+
+
+def deemphasis_alpha(sample_rate: float, tau: float = 750e-6) -> float:
+    """One-pole de-emphasis coefficient for time constant tau (750 us,
+    the land-mobile standard)."""
+    return 1.0 - math.exp(-1.0 / (sample_rate * tau))
+
+
+def deemphasis_makeup_gain(sample_rate: float, tau: float = 750e-6,
+                           reference_hz: float = 1000.0) -> float:
+    """Gain restoring unity response at ``reference_hz`` after
+    de-emphasis (|H| of y[t] = (1-alpha) y[t-1] + alpha x[t])."""
+    alpha = deemphasis_alpha(sample_rate, tau)
+    w = 2.0 * math.pi * reference_hz / sample_rate
+    re = 1.0 - (1.0 - alpha) * math.cos(w)
+    im = (1.0 - alpha) * math.sin(w)
+    return math.hypot(re, im) / alpha
+
+
+def deemphasis(x: torch.Tensor, sample_rate: float, tau: float = 750e-6,
+               state: torch.Tensor | None = None, gain: float | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """FM de-emphasis over (C, T) real x: single pole, then the makeup
+    gain (unity at 1 kHz by default), then a clip at +/-0.95. Returns
+    (audio, new state (C,)); the state is the filter output before the
+    gain."""
+    if state is None:
+        state = torch.zeros(x.shape[:1], dtype=x.dtype, device=x.device)
+    y = single_pole(x, deemphasis_alpha(sample_rate, tau), state)
+    if gain is None:
+        gain = deemphasis_makeup_gain(sample_rate, tau)
+    return torch.clamp(y * gain, -0.95, 0.95), y[:, -1]

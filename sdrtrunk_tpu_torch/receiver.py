@@ -1,10 +1,11 @@
-"""WidebandReceiver slot bank (port of sdrtrunk_tpu/receiver.py:59-82, :171-331).
+"""WidebandReceiver slot bank (port of sdrtrunk_tpu/receiver.py:26-82,
+:171-331).
 
 Wideband IQ -> polyphase channelize (all M bins) -> per-slot bin select,
 two-bin join and residual mix -> batched decoder chain. Only the parts the
 live bank step uses are ported: ``init_state``, ``build_dynamic`` and
 ``reset_slot``, for the DQPSK chain decoders (P25 Phase 1 C4FM and LSM,
-P25 Phase 2).
+P25 Phase 2, DMR) and the analog ones (NBFM, AM).
 """
 from __future__ import annotations
 
@@ -23,11 +24,23 @@ __all__ = ["WidebandReceiver", "make_channel_decoder", "dynamic_select_mix"]
 _TWO_PI = 2.0 * math.pi
 
 
-def make_channel_decoder(kind: str, sample_rate: float, device="cuda"):
+def make_channel_decoder(kind: str, sample_rate: float,
+                         channel_bandwidth: float = 12500.0, device="cuda"):
     """Per-channel decoder for a channelizer output stream."""
+    if kind == "nbfm":
+        from .decoders.nbfm import NBFMConfig, NBFMDecoder
+        return NBFMDecoder(NBFMConfig(sample_rate=sample_rate,
+                                      bandwidth=channel_bandwidth),
+                           device=device)
+    if kind == "am":
+        from .decoders.am import AMConfig, AMDecoder
+        return AMDecoder(AMConfig(sample_rate=sample_rate), device=device)
     if kind in ("c4fm", "p25p1"):
         from .decoders.c4fm import C4FMConfig, C4FMDecoder
         return C4FMDecoder(C4FMConfig(sample_rate=sample_rate), device=device)
+    if kind == "dmr":
+        from .decoders.dmr import DMRConfig, DMRDecoder
+        return DMRDecoder(DMRConfig(sample_rate=sample_rate), device=device)
     if kind in ("lsm", "p25p1-lsm"):
         from .decoders.lsm import LSMConfig, LSMDecoder
         return LSMDecoder(LSMConfig(sample_rate=sample_rate), device=device)
@@ -36,8 +49,8 @@ def make_channel_decoder(kind: str, sample_rate: float, device="cuda"):
         return P25P2Decoder(P25P2Config(sample_rate=sample_rate),
                             device=device)
     raise NotImplementedError(
-        f"decoder kind {kind!r} is not ported yet: DMR is ROADMAP Queue 1 "
-        "item 10, NBFM/AM item 12, the analog trunking kinds item 13")
+        f"decoder kind {kind!r} is not ported yet: the analog trunking "
+        "kinds are ROADMAP Queue 1 item 13")
 
 
 def dynamic_select_mix(y: torch.Tensor, rot: torch.Tensor,
@@ -66,10 +79,12 @@ class WidebandReceiver(nn.Module):
     """Channelize + demodulate C slots from wideband IQ.
 
     Buffers: ``channelizer.hmat``, ``decoder.baseband_taps`` and
-    ``decoder.demod.bank``; ``.to(device)`` moves them. State is a dict in
-    the reference's layout: ``chan`` (T*M,) complex64, ``mixer_phase``
-    (C,), ``rot`` () int32, ``dec`` = {fir, agc, power, psk} with a
-    leading C axis.
+    ``decoder.demod.bank`` (DQPSK chains) or ``decoder.resampler_taps``
+    (analog); ``.to(device)`` moves them. State is a dict in the
+    reference's layout: ``chan`` (T*M,) complex64, ``mixer_phase`` (C,),
+    ``rot`` () int32, ``dec`` = the decoder's state tree ({fir, agc,
+    power, psk}; NBFM {fir, prev, power, deemph, resamp}; AM {fir, power,
+    dc, resamp}) with a leading C axis.
     """
 
     def __init__(self, sample_rate: float, channel_offsets,
@@ -82,7 +97,8 @@ class WidebandReceiver(nn.Module):
             sample_rate, channel_bandwidth, taps_per_channel, device=device)
         self.num_channels = len(channel_offsets)
         self.decoder = make_channel_decoder(
-            decoder, self.channelizer.channel_sample_rate, device=device)
+            decoder, self.channelizer.channel_sample_rate,
+            channel_bandwidth, device=device)
         self.register_buffer("rot4", rot4(device), persistent=False)
 
     @property

@@ -1,16 +1,19 @@
 """Live bank-mode orchestrator (port of sdrtrunk_tpu/runtime/orchestrator.py).
 
 The continuous ring -> decode -> events -> traffic-following loop for one
-digital decoder kind (P25 Phase 1 C4FM or LSM, P25 Phase 2), in bank mode:
-one slot-bank step on the device demodulates every slot of a chunk, then
-compacts the symbol streams, correlates them against the protocol's sync
-patterns and packs the result into one flat uint8 transfer; the host
-frames the whole bank with the protocol's bank processor
-(``P25P1BankProcessor``, ``P25P2BankProcessor``) and routes messages into
-per-slot decoder states and the ``TrafficChannelManager``, which starts
-and stops traffic slots mid-stream. "Starting a channel" is a write of
-(bin, mixer step) into the slot plan plus an in-place reset of that
-slot's device state.
+decoder kind, in bank mode: one slot-bank step on the device demodulates
+every slot of a chunk. For a digital kind (P25 Phase 1 C4FM or LSM, P25
+Phase 2, DMR) the step then compacts the symbol streams, correlates them
+against the protocol's sync patterns and packs the result into one flat
+uint8 transfer; the host frames the whole bank with the protocol's bank
+processor (``P25P1BankProcessor``, ``P25P2BankProcessor``,
+``DMRBankProcessor``) and routes messages into per-slot decoder states and
+the ``TrafficChannelManager``, which starts and stops traffic slots
+mid-stream. For an analog kind (NBFM, AM) the step packs companded 8-bit
+(or int16) PCM and the squelch gate bits into the transfer, and
+``AnalogBankProcessor`` assembles each slot's AudioSegments. "Starting a
+channel" is a write of (bin, mixer step) into the slot plan plus an
+in-place reset of that slot's device state.
 
 The host layer (``runtime`` bank processors, decoder states and traffic,
 ``audio.mbe``, ``protocol``) is the port's byte-for-byte copy of the JAX
@@ -30,17 +33,20 @@ import torch
 
 from .. import resolve_device
 from ..audio.mbe import FakeMBECodec, MBECodec
+from ..protocol.dmr.bankframer import DMR_SYNC_DIBIT_PATTERNS
+from ..protocol.dmr.framer import MAX_SYNC_BIT_ERRORS as _DMR_SYNC_MAX_ERRORS
 from ..protocol.p25p1.bankframer import SYNC_DIBIT_PATTERNS
 from ..protocol.p25p2.bankframer import P25P2_SYNC_DIBITS
 from ..receiver import WidebandReceiver
-from .bank_processor import P25P1BankProcessor, P25P2BankProcessor
+from .bank_processor import (AnalogBankProcessor, DMRBankProcessor,
+                             P25P1BankProcessor, P25P2BankProcessor)
 from .events import DecodeEvent
 from .identifiers import IdentifierCollection
 from .metrics import FrequencyErrorMonitor
 from .traffic import TrafficChannelManager
 
 __all__ = ["ChannelSlot", "Orchestrator", "compact_and_correlate", "ingest",
-           "sync_patterns"]
+           "pack_audio", "sync_patterns"]
 
 _P25P1_SYNC_MAX_ERRORS = 9          # bit errors over the 24-dibit sync
 _P25P2_SYNC_MAX_ERRORS = 4          # over the 20-dibit sync (P25P2SyncPattern)
@@ -48,7 +54,9 @@ _P25P2_SYNC_MAX_ERRORS = 4          # over the 20-dibit sync (P25P2SyncPattern)
 # decoder kind -> traffic-manager protocol label, for the kinds ported
 # (reference orchestrator.py:42-47)
 _PROTOCOL_LABELS = {"c4fm": "APCO25", "p25p1": "APCO25", "lsm": "APCO25",
-                    "p25p1-lsm": "APCO25", "p25p2": "APCO25-P2"}
+                    "p25p1-lsm": "APCO25", "dmr": "DMR", "p25p2": "APCO25-P2",
+                    "nbfm": "NBFM", "am": "AM"}
+_ANALOG_KINDS = ("nbfm", "am")
 
 
 @dataclass
@@ -72,9 +80,12 @@ def ingest(x: torch.Tensor) -> torch.Tensor:
 def sync_patterns(decoder: str) -> tuple[np.ndarray, int]:
     """(dibit patterns, max bit errors) the tail correlates for a decoder
     kind: P25P1 (C4FM, LSM) its 4 rotation images of the 24-dibit sync at
-    <= 9 bit errors; P25P2 its one 20-dibit pattern at <= 4."""
+    <= 9 bit errors; P25P2 its one 20-dibit pattern at <= 4; DMR its 7
+    24-dibit patterns at <= 4 (the DMRSyncDetector threshold)."""
     if decoder == "p25p2":
         return P25P2_SYNC_DIBITS[None, :], _P25P2_SYNC_MAX_ERRORS
+    if decoder == "dmr":
+        return DMR_SYNC_DIBIT_PATTERNS, _DMR_SYNC_MAX_ERRORS
     return SYNC_DIBIT_PATTERNS, _P25P1_SYNC_MAX_ERRORS
 
 
@@ -85,11 +96,20 @@ def compact_and_correlate(dib: torch.Tensor, valid: torch.Tensor, cap: int,
     dib (C, K) dibits, valid (C, K) bool. Valid dibits are compacted to
     the front of a (C, cap) row by cumsum + scatter. Entries at or beyond
     counts[c] are zero here, where the reference's sort leaves the dibits
-    of samples with no symbol; neither bank framer reads them: P25P1's
-    reads dibits below counts and hits at lags below counts - 23
+    of samples with no symbol; no bank framer reads them: P25P1's reads
+    dibits below counts and hits at lags below counts - 23
     (protocol/p25p1/bankframer.py:149-175), P25P2's dibits below counts
     and hits at lags below counts - 19 (protocol/p25p2/bankframer.py:
-    154-170), so a sync window that reaches past counts is never used.
+    154-170), and DMR's hits at lags below counts - 23 (protocol/dmr/
+    bankframer.py:138), bursts only where they end below counts (:235,
+    :255; its batched EMB pre-decode, :287-316, may read further, but a
+    decode is used only behind those checks) and its carried tail below
+    counts (:279-280), so a sync window that reaches past counts is
+    never used. The P25P1 and DMR framers also rescan the 23 lags that
+    straddle the chunk boundary in their own window (p25p1 :189-193, dmr
+    :141-145), which reads the first 23 compacted dibits: below counts
+    whenever a slot has 23 symbols in the chunk (a live chunk of K
+    channel samples has about K / 5.2).
     Each compact lag is tested against every pattern (``sync_patterns``)
     by XOR-popcount; a hit is a lag whose best pattern has <= max_errors
     bit errors. Returns (dib4 (C, cap/4) uint8,
@@ -116,11 +136,42 @@ def compact_and_correlate(dib: torch.Tensor, valid: torch.Tensor, cap: int,
         err += (diff & 1) + (diff >> 1)
     hits = torch.zeros((c, cap), dtype=torch.uint8, device=dev)
     hits[:, :lags] = err.amin(dim=1) <= max_errors
-    h8 = hits.reshape(c, cap // 8, 8)
-    hbits = h8[..., 0] << 7
+    return dib4, counts, _packbits(hits)
+
+
+def _packbits(bits: torch.Tensor) -> torch.Tensor:
+    """(C, 8n) uint8 0/1 -> (C, n) uint8, 8 a byte, MSB first (the order
+    of np.packbits and np.unpackbits)."""
+    b8 = bits.reshape(bits.shape[0], -1, 8)
+    out = b8[..., 0] << 7
     for i in range(1, 8):
-        hbits = hbits | (h8[..., i] << (7 - i))
-    return dib4, counts, hbits
+        out = out | (b8[..., i] << (7 - i))
+    return out
+
+
+def pack_audio(audio: torch.Tensor, gate: torch.Tensor,
+               audio_format: str) -> torch.Tensor:
+    """On-device packing of the analog bank: (C, Ka) float audio and
+    (C, Ka) bool gate -> ONE flat uint8 tensor, PCM | gate bits.
+
+    The audio is clipped to [-1, 1]. ``int16`` is a * 32767 truncated,
+    little-endian; ``mulaw8`` is the level clip(int(log1p(255|a|) /
+    log(256) * 127 + 0.5), 0, 127), plus 128 when a < 0. The gate is
+    packed 8 samples a byte, MSB first (np.unpackbits order), each row
+    zero-padded to a whole byte."""
+    a = torch.clamp(audio, -1.0, 1.0)
+    ka = a.shape[1]
+    if audio_format == "int16":
+        pcm = torch.clamp(a * 32767.0, -32768, 32767).to(torch.int16)
+        pcm_bytes = pcm.reshape(-1).view(torch.uint8)
+    else:
+        comp = torch.log1p(255.0 * torch.abs(a)) * (1.0 / np.log(256.0))
+        level = torch.clamp((comp * 127.0 + 0.5).to(torch.int32), 0, 127)
+        pcm_bytes = (torch.where(a < 0, 128, 0) + level).to(
+            torch.uint8).reshape(-1)
+    gbits = _packbits(torch.nn.functional.pad(gate.to(torch.uint8),
+                                              (0, (-ka) % 8)))
+    return torch.cat([pcm_bytes, gbits.reshape(-1)])
 
 
 class Orchestrator:
@@ -131,7 +182,14 @@ class Orchestrator:
     center_frequency_hz: RF frequency at baseband 0.
     control_offsets_hz: baseband offsets of the control channel(s); each
             gets a pinned slot whose TrafficChannelManager activates and
-            tears down the remaining slots.
+            tears down the remaining slots (an analog bank's pinned slot
+            has no control channel: its slots are activated directly).
+    chunk_samples: wideband samples a chunk, a multiple of the bin count
+            M; for nbfm and am, K = 2 * chunk_samples / M must also be a
+            multiple of the resampler's ``down`` (25 at a 25 kHz channel
+            rate). The default is 16 * M, or the smallest such chunk for
+            the analog kinds.
+    audio_format: the analog bank's PCM transfer, "mulaw8" or "int16".
     device: where the slot bank runs ("cuda" by default; no fallback).
     """
 
@@ -163,9 +221,8 @@ class Orchestrator:
                 "item 14, slice F)")
         if decoder not in _PROTOCOL_LABELS:
             raise NotImplementedError(
-                f"decoder {decoder!r} is not ported yet: DMR is ROADMAP "
-                "Queue 1 item 10, the analog bank item 12, the mixed "
-                "analog-trunking bank item 13")
+                f"decoder {decoder!r} is not ported yet: the mixed "
+                "analog-trunking bank is ROADMAP Queue 1 item 13")
         if ingest_format == "int4":
             raise NotImplementedError(
                 "the int4 wire format is not ported: it was a slow-link "
@@ -194,6 +251,7 @@ class Orchestrator:
         self.sample_rate = float(sample_rate)
         self.center_frequency_hz = float(center_frequency_hz)
         self.decoder_name = decoder
+        self.audio_format = audio_format
         self.codec = codec if codec is not None else FakeMBECodec()
         self.metrics_sink = metrics_sink
 
@@ -201,16 +259,30 @@ class Orchestrator:
                                    channel_bandwidth=channel_bandwidth,
                                    decoder=decoder, device=self.device)
         m = self.rx.channelizer.channels
+        self.bank_analog = decoder in _ANALOG_KINDS
         self.chunk_samples = (chunk_samples if chunk_samples is not None
-                              else 16 * m)
+                              else self._default_chunk(m))
         if self.chunk_samples % m != 0:
             raise ValueError(f"chunk_samples must be a multiple of {m}")
-        # symbols per slot per chunk at the fastest tracked timing, plus
-        # margin, rounded to the packing granule
-        k = 2 * self.chunk_samples // m * self.rx.decoder.upsample
-        demod = self.rx.decoder.demod
-        sps_min = demod.samples_per_symbol * (1.0 - demod.max_deviation)
-        self._bank_cap = int(np.ceil((k / sps_min + 8) / 64)) * 64
+        self._bank_cap = None
+        self._bank_ka = None
+        if self.bank_analog:
+            # 8 kHz audio samples per slot per chunk; the resampler's
+            # phase pattern must repeat whole within a chunk
+            k = 2 * self.chunk_samples // m
+            up, down = self.rx.decoder.up, self.rx.decoder.down
+            if (k * up) % down:
+                raise ValueError(
+                    f"chunk gives non-integral audio length: per-channel "
+                    f"block {k} must be a multiple of {down}")
+            self._bank_ka = k * up // down
+        else:
+            # symbols per slot per chunk at the fastest tracked timing,
+            # plus margin, rounded to the packing granule
+            k = 2 * self.chunk_samples // m * self.rx.decoder.upsample
+            demod = self.rx.decoder.demod
+            sps_min = demod.samples_per_symbol * (1.0 - demod.max_deviation)
+            self._bank_cap = int(np.ceil((k / sps_min + 8) / 64)) * 64
 
         self.step = self._build_live_step()
         self.state = self.rx.init_state()
@@ -231,11 +303,15 @@ class Orchestrator:
             on_activate=self._activate, on_teardown=self._teardown)
         if self.event_logger is not None:
             self.traffic.event_sink = self.event_logger.receive
-        bank_cls = (P25P2BankProcessor if decoder == "p25p2"
-                    else P25P1BankProcessor)
-        self.bank_proc = bank_cls(
-            slots, control_slots=set(range(len(control_offsets_hz))),
-            traffic=self.traffic, codec=self.codec)
+        if self.bank_analog:
+            self.bank_proc = AnalogBankProcessor(slots)
+        else:
+            bank_cls = {"dmr": DMRBankProcessor,
+                        "p25p2": P25P2BankProcessor}.get(decoder,
+                                                         P25P1BankProcessor)
+            self.bank_proc = bank_cls(
+                slots, control_slots=set(range(len(control_offsets_hz))),
+                traffic=self.traffic, codec=self.codec)
         for slot, off in zip(self.slots, control_offsets_hz):
             slot.is_control = True
             slot.active = True
@@ -266,11 +342,30 @@ class Orchestrator:
 
     # --- control plane -------------------------------------------------
 
+    def _default_chunk(self, m: int) -> int:
+        """Default wideband chunk: 16 * M, and for the analog kinds the
+        smallest chunk whose per-channel block K = 2 * chunk / M is a
+        multiple of the resampler's ``down``."""
+        if self.bank_analog:
+            down = self.rx.decoder.down
+            return m * down if down % 2 else m * down // 2
+        return 16 * m
+
     def _build_live_step(self):
-        """Live step = the receiver's dynamic step + on-device compaction,
-        sync correlation and packing into ONE flat uint8 tensor:
-        dib4 | hits | counts (le int32) | pll (le f32 of slot 0)."""
+        """Live step = the receiver's dynamic step + on-device packing
+        into ONE flat uint8 tensor. Digital kinds: compaction and sync
+        correlation, then dib4 | hits | counts (le int32) | pll (le f32
+        of slot 0). Analog kinds: PCM | gate bits (``pack_audio``)."""
         base = self.rx.build_dynamic()
+        if self.bank_analog:
+            audio_format = self.audio_format
+
+            def fused_audio(x, state, bins, steps):
+                out, st = base(ingest(x), state, bins, steps)
+                return {"packed_audio": pack_audio(
+                    out["audio"], out["audio_gate"], audio_format)}, st
+
+            return fused_audio
         cap = self._bank_cap
         sync = sync_patterns(self.decoder_name)
 
@@ -480,9 +575,43 @@ class Orchestrator:
         pll_raw = float(buf[-4:].view(np.float32)[0])
         return dib4, hits, counts, pll_raw
 
+    # mu-law expansion LUT for the analog bank transfer (the inverse of
+    # pack_audio's companding; 256 entries)
+    _MULAW_LUT = None
+
+    @classmethod
+    def _mulaw_lut(cls) -> np.ndarray:
+        if cls._MULAW_LUT is None:
+            level = np.arange(128, dtype=np.float32)
+            mag = (np.power(256.0, level / 127.0) - 1.0) / 255.0
+            cls._MULAW_LUT = np.concatenate([mag, -mag]).astype(np.float32)
+        return cls._MULAW_LUT
+
+    def _split_packed_audio(self, buf: np.ndarray):
+        """Parse the analog bank transfer (PCM | packed gate)."""
+        c = len(self.slots)
+        ka = self._bank_ka
+        if self.audio_format == "int16":
+            n = c * ka * 2
+            audio = (buf[:n].view("<i2").astype(np.float32)
+                     / 32767.0).reshape(c, ka)
+            rest = buf[n:]
+        else:
+            audio = self._mulaw_lut()[buf[: c * ka]].reshape(c, ka)
+            rest = buf[c * ka:]
+        nb = (ka + 7) // 8
+        gate = np.unpackbits(rest.reshape(c, nb),
+                             axis=1)[:, :ka].astype(bool)
+        return audio, gate
+
     def _pull_bank(self, out: dict, now: float) -> dict:
-        """Download-worker half of a chunk: transfer + unpack + bank-frame
-        (stateful; strictly in chunk order on the one download thread)."""
+        """Download-worker half of a chunk: transfer + unpack (+ bank-frame
+        for the digital kinds; stateful, strictly in chunk order on the one
+        download thread)."""
+        if self.bank_analog:
+            audio, gate = self._split_packed_audio(
+                out["packed_audio"].cpu().numpy())
+            return {"bank_audio": audio, "bank_gate": gate}
         dib4, hits, counts, pll_raw = self._split_packed(
             out["packed"].cpu().numpy())
         msgs = self.bank_proc.frame_chunk(dib4, counts, hits)
@@ -490,13 +619,12 @@ class Orchestrator:
 
     def _process(self, out: dict, now: float) -> dict:
         self.now = now
-        if "packed" in out:
+        if "packed" in out or "packed_audio" in out:
             out = self._pull_bank(out, now)        # un-pipelined path
-        bank_msgs, counts = out["bank_msgs"], out["counts"]
-        pll_raw = out["pll_raw"]
+        pll_raw = out.get("pll_raw")
 
         pll_err_hz = None
-        if self.ppm_monitor is not None:
+        if self.ppm_monitor is not None and pll_raw is not None:
             # loop freq (rad/sample at channel rate) -> Hz; positive loop
             # freq means the PLL mixes UP for a signal below expectation
             rate = self.rx.channelizer.channel_sample_rate
@@ -504,7 +632,12 @@ class Orchestrator:
             self.ppm_monitor.update(pll_err_hz, self.now)
 
         active = np.array([s.active for s in self.slots])
-        per_slot = self.bank_proc.route(bank_msgs, counts, active, self.now)
+        if self.bank_analog:
+            per_slot = self.bank_proc.route_audio(
+                out["bank_audio"], out["bank_gate"], active, self.now)
+        else:
+            per_slot = self.bank_proc.route(out["bank_msgs"], out["counts"],
+                                            active, self.now)
         frames = int(per_slot.sum())
         for slot in self.slots:
             if not slot.active:
@@ -534,14 +667,15 @@ class Orchestrator:
             metrics["upload_ms"] = round(dt * 1e3, 1)
             if dt > 0:
                 metrics["upload_mbps"] = round(nbytes / dt / 1e6, 1)
-        framer = self.bank_proc.framer
-        for key in ("deferred_hard_bch", "expired_pending",
-                    "dropped_hard_rs"):
-            v = getattr(framer, key, 0)
-            if v:
-                metrics[key] = int(v)
-        if framer.pending:
-            metrics["pending_frames"] = len(framer.pending)
+        framer = getattr(self.bank_proc, "framer", None)
+        if framer is not None:
+            for key in ("deferred_hard_bch", "expired_pending",
+                        "dropped_hard_rs"):
+                v = getattr(framer, key, 0)
+                if v:
+                    metrics[key] = int(v)
+            if framer.pending:
+                metrics["pending_frames"] = len(framer.pending)
         unk = sum(m.unknown_opcodes for m in self.bank_proc.metrics)
         if unk:
             metrics["unknown_opcodes"] = int(unk)

@@ -1,5 +1,5 @@
-"""Tests of the CUDA kernels (DQPSK and Gardner DQPSK); they need a card and
-skip without one.
+"""Tests of the CUDA kernels (DQPSK and Gardner DQPSK) and of the analog
+chain on the card; they need a card and skip without one.
 
 The file imports no JAX, so that it runs on a machine with a card and no
 JAX installed. tests/conftest.py imports JAX, so run it there with
@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from sdrtrunk_tpu_torch.signal.generators import (awgn, c4fm_modulate, lsm_modulate,
-                                            random_dibits)
+from sdrtrunk_tpu_torch.signal.generators import (awgn, c4fm_modulate,
+                                                  lsm_modulate, nbfm_modulate,
+                                                  random_dibits)
+from sdrtrunk_tpu_torch.decoders.nbfm import NBFMDecoder
 from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda
 from sdrtrunk_tpu_torch.dsp.psk import (DQPSKDemodulator, DQPSKState,
                                         GardnerDQPSKDemodulator, GardnerState)
@@ -131,8 +133,9 @@ def test_gardner_kernel_rejects_what_it_does_not_take(card):
                     _gstate(odd, 2))
 
 
-# (kernel, sample rate, baud, timing gain): C4FM, LSM, P25 Phase 2
+# (kernel, sample rate, baud, timing gain): C4FM, DMR, LSM, P25 Phase 2
 _LOOPS = {"dqpsk": ("dqpsk", 25000.0, 4800.0, 0.3),
+          "dmr": ("dqpsk", 25000.0, 4800.0, 0.4),
           "lsm": ("gardner", 25000.0, 4800.0, 0.3),
           "p25p2": ("gardner", 50000.0, 6000.0, 0.1)}
 
@@ -179,3 +182,38 @@ def test_symbol_major_edge_cases_on_card(card, loop):
     d1, v1, s1 = demod.batched(x[:, :400], s0)
     d2, v2, s2 = demod.batched(x[:, 400:], s1)
     _assert_same((torch.cat([d1, d2], 1), torch.cat([v1, v2], 1), s2), want)
+
+
+@pytest.mark.cuda
+def test_nbfm_decoder_on_card_matches_cpu(card):
+    """NBFMDecoder.batched_call on the card against the same call on the
+    CPU, two chunks with carried state: audio within 1e-4 (TF32 is off, so
+    the convolutions and matmuls run in float32 on both), the gate
+    exactly. Every row carries a tone, so the FM discriminator's phase
+    steps stay far from +/-pi."""
+    c, t = 16, 5000
+    rng = np.random.default_rng(7)
+    rows = []
+    for i in range(c):
+        audio = 0.7 * np.sin(2 * np.pi * (400.0 + 50.0 * i)
+                             * np.arange(t // 3 + 80) / 8000.0)
+        iq = nbfm_modulate(audio, 8000.0, 25000.0)[:t] * (0.05 + 0.05 * i)
+        rows.append(iq * np.exp(1j * rng.uniform(0, 2 * np.pi)))
+    x = np.stack(rows).astype(np.complex64)
+    out = {}
+    for dev in ("cpu", card):
+        dec = NBFMDecoder(device=dev)
+        state = {k: v.expand((c,) + v.shape).clone()
+                 for k, v in dec.init_state().items()}
+        chunks = []
+        for part in (x[:, :2500], x[:, 2500:]):
+            o, state = dec.batched_call(torch.as_tensor(part, device=dev),
+                                        state)
+            chunks.append({k: v.cpu() for k, v in o.items()})
+        out[str(dev)] = chunks
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got["audio"].shape == want["audio"].shape == (c, 800)
+        assert float((got["audio"] - want["audio"]).abs().max()) <= 1e-4
+        assert float((got["power_db"] - want["power_db"]).abs().max()) <= 1e-4
+        assert torch.equal(got["audio_gate"], want["audio_gate"])
+    assert float(out["cpu"][1]["audio"].abs().max()) > 0.3

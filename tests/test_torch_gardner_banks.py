@@ -147,13 +147,14 @@ def _source(wide):
 
 
 def _recording(orch, packed):
-    """Wrap orch.step so that each chunk's packed bank bytes and slot plan
-    are kept."""
+    """Wrap orch.step so that each chunk's packed bank bytes (the one flat
+    transfer: "packed", or "packed_audio" for an analog bank) and slot
+    plan are kept."""
     step = orch.step
 
     def spy(x, state, bins, steps):
         out, st = step(x, state, bins, steps)
-        buf = out["packed"]
+        (buf,) = out.values()
         packed.append((buf.numpy() if isinstance(buf, torch.Tensor)
                        else np.asarray(buf), np.array(bins)))
         return out, st
@@ -161,11 +162,12 @@ def _recording(orch, packed):
     orch.step = spy
 
 
-def _run_pair(wide, fs, center_hz, control_off, **kw):
+def _run_pair(wide, fs, center_hz, control_off, prepare=None, **kw):
     """The JAX and the port's orchestrators on one capture, from one state:
     the JAX design arrays and its (float-pair packed) receiver state after
-    the control slot was tuned. Returns (jorch, its metrics lines, its
-    packed chunks, orch, lines, packed chunks)."""
+    the control slot was tuned. ``prepare(orch)``, when given, runs on
+    each orchestrator before its run. Returns (jorch, its metrics lines,
+    its packed chunks, orch, lines, packed chunks)."""
     j_lines, t_lines, j_packed, t_packed = [], [], [], []
     jorch = JOrchestrator(_source(wide), fs, center_hz, [control_off],
                           metrics_sink=j_lines.append, bank_mode=True, **kw)
@@ -173,9 +175,11 @@ def _run_pair(wide, fs, center_hz, control_off, **kw):
                         metrics_sink=t_lines.append, bank_mode=True,
                         device="cpu", **kw)
     jrx = jorch.rx
+    demod = getattr(jrx.decoder, "demod", None)
     orch.rx.load_state_dict(params_from_numpy(
         jrx.channelizer.hmat, jrx.decoder.baseband_taps,
-        jrx.decoder.demod.bank))
+        interp_bank=None if demod is None else demod.bank,
+        resampler_taps=getattr(jrx.decoder, "resampler_taps", None)))
     flags = complex_flags(jrx.init_state())
     tree = jax.tree.map(np.asarray, unpack_tree(jorch.state, flags))
     orch.state = receiver_state_from_numpy(tree, device="cpu")
@@ -183,6 +187,9 @@ def _run_pair(wide, fs, center_hz, control_off, **kw):
     np.testing.assert_array_equal(orch.steps, jorch.steps)
     _recording(jorch, j_packed)
     _recording(orch, t_packed)
+    if prepare is not None:
+        prepare(jorch)
+        prepare(orch)
     jorch.run()
     orch.run()
     return jorch, j_lines, j_packed, orch, t_lines, t_packed

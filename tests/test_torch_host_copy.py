@@ -102,6 +102,7 @@ MANIFEST = (
     "runtime/metrics.py",
     "runtime/p25_state.py",
     "runtime/p25p2_state.py",
+    "runtime/processors.py",
     "runtime/rotation.py",
     "runtime/state.py",
     "runtime/traffic.py",

@@ -9,7 +9,8 @@ and its kernel path never falls back.
   the host layer it needs: tests/test_torch_host_copy.py).
 * A fresh interpreter imports every port module and chip_smoke, then
   drives the port's CPU Orchestrator for one chunk at a tiny width for
-  c4fm, p25p2 and lsm (the bank processors' lazy imports run there);
+  c4fm, p25p2, lsm, dmr, nbfm and am (the bank processors' lazy imports
+  run there);
   neither 'jax' nor any sdrtrunk_tpu module is in sys.modules after.
 * batched() on a non-CPU tensor goes to the CUDA kernel; when its build
   fails, the call raises and the plain loop is never run. The shared nvcc
@@ -94,12 +95,15 @@ _DRIVE = """
 import sys
 import numpy as np
 from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
-for kind in ("c4fm", "p25p2", "lsm"):
+for kind in ("c4fm", "p25p2", "lsm", "dmr", "nbfm", "am"):
+    # the analog kinds resample 25 kHz to 8 kHz: K = 2 * chunk / M must
+    # be a multiple of 25
+    chunk = 64 * 25 * 2 if kind in ("nbfm", "am") else 64 * 64
     orch = Orchestrator(lambda n: None, 64 * 12500.0, 460e6, [25000.0],
-                        slots=4, decoder=kind, chunk_samples=64 * 64,
+                        slots=4, decoder=kind, chunk_samples=chunk,
                         bank_mode=True, ppm_correction=False, device="cpu")
-    m = orch.run_chunk(np.zeros((64 * 64, 2), np.int8))
-    assert m["samples"] == 64 * 64, m
+    m = orch.run_chunk(np.zeros((chunk, 2), np.int8))
+    assert m["samples"] == chunk, m
 """
 
 

@@ -172,7 +172,7 @@ def test_run_chunk_processes_one_chunk():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"decoder": "dmr"}, {"decoder": "nbfm"}, {"decoder": "am"},
+    {"decoder": "ltr"}, {"decoder": "passport"}, {"decoder": "mpt1327"},
     {"banks": [("c4fm", 4)]}, {"host_process": True},
     {"ingest_format": "int4"}, {"bank_mode": False}])
 def test_unported_options_raise(kwargs):
