@@ -8,8 +8,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which raises on
 failure (the exit code is then not 0):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: both kernels, sdrtrunk_tpu_torch/csrc/dqpsk.cu and gardner.cu,
-   one nvcc each, started together; ptxas's registers and spills;
+2. build: the three kernels, sdrtrunk_tpu_torch/csrc/dqpsk.cu, gardner.cu
+   and bit_timing.cu, one nvcc each, started together; ptxas's registers
+   and spills;
 3. edge cases of the kernels' symbol-major loop, each kernel held bit for
    bit against its plain loop: 37 channels (not a multiple of a warp), 32
    of them at symbol rates spread over +/-2%, T = 997 (no run length
@@ -23,7 +24,14 @@ failure (the exit code is then not 0):
    of 32 channels has a symbol due: the DQPSK kernel at the C4FM bank's
    1023 channels x 10240 samples, at timing gain 0.3 (C4FM) and 0.4
    (DMR), the Gardner kernel at W = 16 (P25 Phase 2, 50 kHz, 1023 x
-   20480) and W = 11 (LSM, 25 kHz, 1023 x 10240);
+   20480) and W = 11 (LSM, 25 kHz, 1023 x 10240); and the bit-timing
+   kernel, reached through the demodulators' public call, against its
+   plain loop (valid, bits, window, sampling point) at 1023 x 4000 with
+   the LTR geometry on FSK audio and at 1023 x 3600 with the AFSK geometry
+   on correlator output, and on its edge cases: 37 channels, T = 997 and
+   T = 1, a symbol due at t = 0, two calls with carried state, an all-zero
+   channel, and windows with exactly one crossing, exactly two, and two at
+   equal distance from the ideal;
 5. the live P25P1 C4FM loop at the product's full width: 12.8 MS/s of
    int8 IQ, 1024 bins, 1023 slots (a P25 control channel granting a
    traffic channel, one free slot for the grant, 1021 voice slots),
@@ -58,18 +66,32 @@ failure (the exit code is then not 0):
    Hz, and no symbol kernel may launch;
 10. the live AM loop at a smaller depth: 64 slots 16 bins apart, each a 1
    kHz tone at 50% AM depth, 3 chunks of 1024 x 6400; segments on >= 99%
-   of the slots, each with its tone.
+   of the slots, each with its tone;
+11. the live LTR loop at full width: 1023 slots, each an NBFM carrier with
+   an 800 Hz voice tone plus sub-audible LTR CALL words of its own
+   talkgroup (home, group) from a random start, chunks of 1024 x 6250
+   samples (K = 12500, 4000 audio samples), 2 + 4 chunks, through
+   Orchestrator(decoder="ltr"). CALL words with the slot's home and group
+   on >= 99% of the slots, an AudioSegment longer than 1 s on every slot,
+   and one bit-timing launch per chunk;
+12. the live MPT1327 loop at the same width and chunks with a channel
+   map: a control slot of AFSK codewords (ALH and GTC) whose GTC grants a
+   channel whose slot is left free, FM voice there and on the other 1021
+   slots, 2 + 3 chunks. ALH and GTC must be decoded on the control slot,
+   the grant followed, audio produced on the granted slot, and the
+   bit-timing kernel launched once per chunk.
 
 Every live loop prints its realtime factor, wall and host ms a chunk (the
 host layer: the bank framer's ``frame_chunk`` for the digital kinds,
-``route_audio`` for the analog ones), its device layers, and the device's
-busy ms and idle share.
+``route_audio`` for the analog ones, ``route_mixed`` for the
+analog-trunking ones), its device layers, and the device's busy ms and
+idle share.
 
 The script imports nothing of the JAX package: its signals and protocol
 encoders are the port's own copies (sdrtrunk_tpu_torch.signal,
 sdrtrunk_tpu_torch.protocol).
 
-Each live loop resets both kernels' launch counts just before it runs and
+Each live loop resets every kernel's launch count just before it runs and
 reads them just after. At the end the script prints its own run time, then
 the kernels' JSON record on the line before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -101,6 +123,12 @@ ANALOG_BLOCKS = 6400             # K = 12800 channel samples (bench.py:697)
 NBFM_WARMUP, NBFM_TIMED = 2, 4
 NBFM_TONE_HZ, AM_TONE_HZ = 700.0, 1000.0
 AM_SLOTS, AM_CHUNKS = 64, 3
+MIXED_BLOCKS = 6250              # K = 12500 channel samples, Ka = 4000
+LTR_WARMUP, LTR_TIMED = 2, 4
+MPT_WARMUP, MPT_TIMED = 2, 3
+MPT_TRAFFIC_INDEX = 300          # a GTC channel number is below 512
+VOICE_TONE_HZ = 800.0
+BIT_T = {"ltr": 4000, "afsk": 3600}    # a live chunk's samples a slot
 
 
 def _card() -> str:
@@ -122,36 +150,68 @@ def _cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _kernel_device_ms(fn, key: str, reps: int = 20) -> float:
+    """Mean device ms of the kernels whose name holds `key`, over `reps`
+    calls of fn, from torch.profiler's device-side events: a kernel's own
+    time, where a call through its wrapper is bound by the host's enqueue
+    (a few hundred us of Python) and CUDA events would time that. The
+    tracer may drop an activity record (19 of 20 launches were seen in one
+    run on an H100), so the mean is over the launches it reported: fewer
+    than half of the calls, or more than were made, fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if key in e.key]
+    count = sum(e.count for e in events)
+    if not reps // 2 <= count <= reps:
+        raise AssertionError(f"the profiler saw {count} launches of a "
+                             f"{key} kernel in {reps} calls")
+    return sum(e.device_time_total for e in events) / count / 1e3
+
+
 def _launch_counters():
+    from sdrtrunk_tpu_torch.dsp.bit_timing_cuda import bit_timing_cuda
     from sdrtrunk_tpu_torch.dsp.dqpsk_cuda import dqpsk_cuda
     from sdrtrunk_tpu_torch.dsp.gardner_cuda import gardner_cuda
-    return {"dqpsk": dqpsk_cuda, "gardner": gardner_cuda}
+    return {"dqpsk": dqpsk_cuda, "gardner": gardner_cuda,
+            "bit_timing": bit_timing_cuda}
 
 
 # --- phase 2: build -------------------------------------------------------
 
 def build_kernels() -> dict:
-    """Build both kernel libraries in parallel; returns ptxas's registers
+    """Build the kernel libraries in parallel; returns ptxas's registers
     and spills per kernel instantiation."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda, nvcc
+    from sdrtrunk_tpu_torch.dsp import (bit_timing_cuda, dqpsk_cuda,
+                                        gardner_cuda, nvcc)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        futures = [pool.submit(m.build) for m in (dqpsk_cuda, gardner_cuda)]
+    with ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(m.build)
+                   for m in (dqpsk_cuda, gardner_cuda, bit_timing_cuda)]
         for f in futures:
             f.result()
-    print(f"[build] dqpsk and gardner kernels built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] dqpsk, gardner and bit_timing kernels built and loaded "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
     regs = {}
-    for name in ("dqpsk", "gardner"):
+    for name in ("dqpsk", "gardner", "bit_timing"):
         entry = None
         for line in nvcc.ptxas_report(name).splitlines():
             m = re.search(r"Compiling entry function '.*?(dqpsk|gardner)"
                           r"_kernelILi(\d+)E", line)
             if m:
                 entry = f"{m.group(1)}<W={m.group(2)}>"
+            if re.search(r"Compiling entry function '.*?bit_timing_kernel",
+                         line):
+                entry = "bit_timing"
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m and entry:
@@ -371,6 +431,272 @@ def check_edges(card: str) -> None:
           flush=True)
 
 
+# --- the bit-timing kernel against its plain loop -------------------------
+
+# peak float32 rate outside the tensor cores (NVIDIA's data sheet): the
+# loop's compares, counts and the counter update
+FP32_OPS_PER_S = 67e12
+BIT_OPS_PER_SAMPLE, BIT_OPS_PER_SYMBOL = 6, 24       # from bit_timing.cu
+BIT_SOURCE = "sdrtrunk_tpu_torch/csrc/bit_timing.cu"
+
+
+def _bit_demod(which: str):
+    """The demodulator whose public call reaches the kernel, and the line
+    of the reference scan it replaces."""
+    from sdrtrunk_tpu_torch.dsp.afsk import AFSK1200Demodulator
+    from sdrtrunk_tpu_torch.dsp.fsk import LTRFSKDemodulator
+    if which == "ltr":
+        return (LTRFSKDemodulator(device="cuda"),
+                "sdrtrunk_tpu/dsp/fsk.py:108")
+    return AFSK1200Demodulator(device="cuda"), "sdrtrunk_tpu/dsp/afsk.py:129"
+
+
+def _square_fsk(bits, n: int, sps: float, start):
+    """(C, n) float32 on the card: +/-1 by the bits (C, B) at sps samples a
+    bit, read from sample offset start (C,) and wrapped around."""
+    import torch
+    idx = ((torch.arange(n, device="cuda")[None, :] + start[:, None])
+           .double() / sps).long() % bits.shape[1]
+    return torch.gather(bits, 1, idx).float() * 2.0 - 1.0
+
+
+def _bit_audio(which: str, c: int, t_out: int):
+    """(c, T) 8 kHz audio on the card whose demodulator front gives t_out
+    samples to the timing loop: LTR, sub-audible square FSK at 300 baud
+    (+/-0.35) under an 800 Hz tone and noise; AFSK, phase-continuous 1200
+    / 1800 Hz tones at 1200 baud with noise. The last 8 channels are noise
+    only and the one before them all zero."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    t = t_out if which == "ltr" else t_out * 10 // 9
+    bits = torch.as_tensor(rng.integers(0, 2, (c, 997)), device="cuda")
+    start = torch.as_tensor(rng.integers(0, 8000, c), device="cuda")
+    n = torch.arange(t, device="cuda", dtype=torch.float64)[None, :]
+    if which == "ltr":
+        data = 0.35 * _square_fsk(bits, t, 8000.0 / 300.0, start)
+        tone = 0.5 * torch.sin(2 * np.pi * VOICE_TONE_HZ / 8000.0 * n
+                               + start[:, None])
+        x = data + tone.float()
+    else:
+        mark = _square_fsk(bits, t, 8000.0 / 1200.0, start) > 0
+        freq = torch.where(mark, 1200.0, 1800.0).double()
+        x = 0.5 * torch.sin(2 * np.pi / 8000.0 * torch.cumsum(freq, 1)
+                            ).float()
+    x = x + 0.02 * torch.randn((c, t), device="cuda", generator=gen)
+    x[c - NOISE_CHANNELS - 1] = 0.0
+    x[c - NOISE_CHANNELS:] = 0.2 * torch.randn(
+        (NOISE_CHANNELS, t), device="cuda", generator=gen)
+    return x
+
+
+def _hold_bits(name: str, got, want) -> float:
+    """Kernel against plain, bit for bit on every channel: bits, valid,
+    window and sampling point. Returns the sampling point's max error
+    (0.0)."""
+    import torch
+    for what, a, b in zip(("bits", "valid", "window", "sampling_point"),
+                          got, want):
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(a.shape[0], -1).any(1).nonzero()
+            raise AssertionError(f"{name}: kernel {what} differs from the "
+                                 f"plain loop on channels "
+                                 f"{bad.flatten().tolist()[:10]}")
+    return float((got[3] - want[3]).abs().max())
+
+
+def check_bit_timing(card: str, which: str) -> dict:
+    """The bit-timing kernel at a live chunk's shape (1023, T): reached
+    through the demodulator's public call, held bit for bit against the
+    plain loop on the same slicer input, and timed beside its bound."""
+    import torch
+
+    from sdrtrunk_tpu_torch.convert import tree_map
+    from sdrtrunk_tpu_torch.dsp.bit_timing import bit_timing_plain
+    from sdrtrunk_tpu_torch.dsp.bit_timing_cuda import bit_timing_cuda
+
+    c, t = KERNEL_C, BIT_T[which]
+    demod, replaces = _bit_demod(which)
+    geom, invert = demod.geometry, getattr(demod, "invert", False)
+    s0 = tree_map(lambda a: a.expand((c,) + a.shape).clone(),
+                  demod.init_state())
+    audio = _bit_audio(which, c, t)
+    before = bit_timing_cuda.launches
+    bits, valid, s1 = demod.batched(audio, s0)
+    if bit_timing_cuda.launches != before + 1:
+        raise AssertionError(f"bit_timing {which}: the demodulator's call "
+                             "did not launch the kernel once")
+    x = demod.front(audio, s0)[0].contiguous()
+    if tuple(x.shape) != (c, t):
+        raise AssertionError(f"slicer input {tuple(x.shape)}, not {(c, t)}")
+    plain = {}
+
+    def run_plain():
+        plain["out"] = bit_timing_plain(geom, x, s0.window,
+                                        s0.sampling_point, invert)
+    plain_ms = _cuda_ms(run_plain)
+
+    def run_kernel():
+        bit_timing_cuda(geom, x, s0.window, s0.sampling_point, invert)
+    # a call through the wrapper (two zero-fills, the launch, the host's
+    # enqueue) by CUDA events, as check_kernel times the others; the
+    # kernel's own device time beside it
+    kernel_ms = _cuda_ms(run_kernel, reps=20)
+    device_ms = _kernel_device_ms(run_kernel, "bit_timing_kernel")
+    name = f"bit_timing_{which}"
+    err = _hold_bits(name, (bits, valid, s1.window, s1.sampling_point),
+                     plain["out"])
+    symbols = int(valid.sum())
+    live = valid[:c - NOISE_CHANNELS - 1].sum(1)
+    nominal = t / geom.sps
+    if int(live.min()) < 0.9 * nominal or int(live.max()) > 1.1 * nominal:
+        raise AssertionError(f"{name}: {int(live.min())}-{int(live.max())} "
+                             f"symbols a channel, nominal {nominal:.0f}")
+    nbytes = (x.numel() * 4 + 2 * c * t
+              + 2 * (s0.window.numel() + 4 * c))
+    ops = c * t * BIT_OPS_PER_SAMPLE + symbols * BIT_OPS_PER_SYMBOL
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = ((by_bytes, "bytes") if by_bytes >= by_ops
+                          else (by_ops, "operations"))
+    print(f"[kernel] {card}: {name} W={geom.window_len} C={c} T={t}: "
+          f"identical to the plain loop on all {c} channels (bits, valid, "
+          f"window, sampling point; max err {err}), {symbols} symbols; "
+          f"kernel {kernel_ms:.4f} ms a call through the wrapper (CUDA "
+          f"events; {device_ms:.4f} ms of it the kernel on the device, "
+          f"profiler) against a {bound_ms:.4f} ms {bound_by} bound "
+          f"({100 * bound_ms / kernel_ms:.2f}% of it), plain "
+          f"{plain_ms:.1f} ms", flush=True)
+    return {"name": name, "route": "cuda", "source": BIT_SOURCE,
+            "replaces": replaces, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": [c, t], "plain_shape": [c, t],
+            "symbols": symbols, "device_ms": device_ms}
+
+
+def _window_with_crossings(w: int, zc_len: int, crossings):
+    """(line (w,) int8, next decision): a delay line and the decision
+    shifted in after it, so that the newest zc_len decisions zc then hold
+    exactly the given crossings (crossing i lies between zc[i] and
+    zc[i + 1]): the line's newest zc_len - 1 decisions are zc[:-1] and the
+    next decision is zc[-1]."""
+    import torch
+    zc = torch.zeros(zc_len, dtype=torch.int8)
+    level = 0
+    for i in range(zc_len):
+        zc[i] = level
+        if i in crossings:
+            level ^= 1
+    line = torch.zeros(w, dtype=torch.int8)
+    line[w - (zc_len - 1):] = zc[:-1]
+    line[:w - (zc_len - 1)] = zc[0]
+    return line, int(zc[-1])
+
+
+def check_bit_timing_edges(card: str) -> None:
+    """The loop's edge cases, the kernel held bit for bit against the plain
+    loop, for the LTR geometry, the AFSK geometry (also inverted) and the
+    AFSK geometry with the two-crossing rule (where two crossings can lie
+    at equal distance from the ideal): 37 channels, T = 997 and T = 1, a
+    symbol due at t = 0 on every third channel, two calls with carried
+    state, an all-zero channel, and channels whose window at t = 0 holds
+    exactly one crossing, exactly two, and two at equal distance, whose
+    new sampling point is also held against the rule worked by hand."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.dsp.bit_timing import bit_timing, bit_timing_plain
+
+    ltr, afsk = _bit_demod("ltr")[0].geometry, _bit_demod("afsk")[0].geometry
+    tie = dataclasses.replace(afsk, two_crossings=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = []
+    for name, geom, invert in (("ltr", ltr, False), ("afsk", afsk, False),
+                               ("afsk inverted", afsk, True),
+                               ("afsk two-crossing rule", tie, False)):
+        w, zl = geom.window_len, geom.zc_len
+        # slow square waves of per-channel period with noise: crossings
+        # come and go in the window
+        period = torch.linspace(0.7, 1.6, EDGE_C, device="cuda")[:, None] \
+            * 2.0 * geom.sps
+        n = torch.arange(EDGE_T, device="cuda")[None, :]
+        x = torch.sign(torch.sin(2 * np.pi * n / period + 0.3)) \
+            + 0.3 * torch.randn((EDGE_C, EDGE_T), device="cuda",
+                                generator=gen)
+        x[5] = 0.0              # all-zero channel: its decisions never change
+        window = (torch.rand((EDGE_C, w), device="cuda", generator=gen)
+                  > 0.5).to(torch.int8)
+        window[5] = int(invert)
+        sp = torch.full((EDGE_C,), float(np.float32(geom.sps * 1.5)),
+                        device="cuda")
+        sp[::3] = 1.5
+        # crafted windows, a symbol due at t = 0: one crossing, two (the
+        # first nearer, then the last nearer), and two at equal distance
+        mid = int(geom.zc_ideal)
+        crafted = {0: [mid + 1], 3: [1, mid], 6: [mid, zl - 2],
+                   9: [mid - 2, mid + 1]}
+        want_sp = {}
+        for ch, crossings in crafted.items():
+            line, nxt = _window_with_crossings(w, zl, crossings)
+            window[ch] = line.to("cuda")
+            x[ch, 0] = 1.0 if nxt else -1.0
+            k = geom.constants()
+            errs = [np.float32(np.float32(i + 0.5) - np.float32(k["zc_ideal"]))
+                    for i in crossings]
+            if len(errs) == 1:
+                e = errs[0]
+            elif geom.two_crossings:
+                e = errs[0] if abs(errs[0]) < abs(errs[1]) else errs[1]
+            else:
+                e = np.float32(0.0)
+            base = np.float32(np.float32(0.5) + np.float32(k["sps"]))
+            want_sp[ch] = np.float32(np.float64(e) * np.float64(k["gain"])
+                                     + np.float64(base))
+        if invert:                  # the line holds decisions as inverted
+            for ch in crafted:
+                x[ch, 0] = -x[ch, 0]
+        plain = bit_timing_plain(geom, x, window, sp, invert)
+        _hold_bits(f"{name} C={EDGE_C} T={EDGE_T}",
+                   bit_timing(geom, x, window, sp, invert), plain)
+        one = bit_timing(geom, x[:, :1], window, sp, invert)
+        _hold_bits(f"{name} T=1", one,
+                   bit_timing_plain(geom, x[:, :1], window, sp, invert))
+        b1, v1, w1, sp1 = bit_timing(geom, x[:, :EDGE_SPLIT], window, sp,
+                                     invert)
+        b2, v2, w2, sp2 = bit_timing(geom, x[:, EDGE_SPLIT:], w1, sp1,
+                                     invert)
+        _hold_bits(f"{name} two calls", (torch.cat([b1, b2], 1),
+                                         torch.cat([v1, v2], 1), w2, sp2),
+                   plain)
+        if not bool(plain[1][::3, 0].all()):
+            raise AssertionError(f"{name}: no symbol at t = 0 where one "
+                                 "was due")
+        for ch, want in want_sp.items():
+            got = float(one[3][ch])
+            if got != float(want):
+                raise AssertionError(
+                    f"{name}: channel {ch} (crossings {crafted[ch]}) has "
+                    f"sampling point {got}, the rule gives {float(want)}")
+        # no crossing, error 0: a symbol every sps samples, all one bit
+        at = plain[1][5].nonzero().flatten()
+        steps = set((at[1:] - at[:-1]).tolist())
+        if not steps <= {int(geom.sps), int(np.ceil(geom.sps))} \
+                or not bool((plain[0][5][at] == int(invert)).all()):
+            raise AssertionError(f"{name}: the all-zero channel's symbols "
+                                 f"are {sorted(steps)} samples apart")
+        cases.append(name)
+    print(f"[edges] {card}: bit_timing identical to its plain loop for "
+          f"{', '.join(cases)} at C={EDGE_C}, T={EDGE_T} and T=1, a symbol "
+          f"due at t=0, two calls ({EDGE_SPLIT} + {EDGE_T - EDGE_SPLIT}) "
+          "with carried state, an all-zero channel, and windows with one "
+          "crossing, two, and two at equal distance from the ideal",
+          flush=True)
+
+
 # --- phases 5-7: the live loops -------------------------------------------
 
 def _p25_streams(total_dibits: int, base_hz: float):
@@ -558,15 +884,19 @@ def layer_times(orch, iq8) -> dict:
     kernel, tail (compaction, sync, packing). An analog chain: the same
     first two, the analog front at the channel rate (FIR, squelch, FM
     discriminator and de-emphasis, or envelope and DC removal), the
-    resampler to 8 kHz, and the PCM + gate packing."""
+    resampler to 8 kHz, and the PCM + gate packing. An analog-trunking
+    chain: the NBFM decoder's analog front and resampler, the slicer's
+    front (DC removal and low-pass, or the 9/10 resampler and the tone
+    correlators), the bit-timing kernel, and the mixed packing."""
     import torch
 
     from sdrtrunk_tpu_torch.convert import tree_map
     from sdrtrunk_tpu_torch.dsp.channelizer import channelize_core
     from sdrtrunk_tpu_torch.dsp.psk import unpack_symbols
     from sdrtrunk_tpu_torch.receiver import dynamic_select_mix
+    from sdrtrunk_tpu_torch.dsp.bit_timing import bit_timing
     from sdrtrunk_tpu_torch.runtime.orchestrator import (
-        compact_and_correlate, ingest, pack_audio, sync_patterns)
+        compact_and_correlate, ingest, pack_audio, pack_mixed, sync_patterns)
 
     rx = orch.rx
     dec = rx.decoder
@@ -606,7 +936,30 @@ def layer_times(orch, iq8) -> dict:
     def pack():
         pack_audio(r["audio8k"], r["gate8k"], orch.audio_format)
 
-    if orch.bank_analog:
+    if orch.bank_mixed:
+        slicer, key = dec, dec.slicer          # the nested NBFM chain first
+        dec = slicer.nbfm
+        state = {**state, "dec": state["dec"]["nbfm"]}
+        sstate = orch.state["dec"][key]
+        demod = getattr(slicer, key)
+
+        def slicer_front():
+            r["sliced"] = demod.front(slicer._slice(r["audio8k"]),
+                                      sstate)[0]
+
+        def timing():
+            r["bits"], r["valid"], _, _ = bit_timing(
+                demod.geometry, r["sliced"], sstate.window,
+                sstate.sampling_point, getattr(demod, "invert", False))
+
+        def pack_m():
+            pack_mixed(r["audio8k"], r["gate8k"], r["bits"], r["valid"],
+                       orch._bank_bit_cap)
+
+        layers = (("analog_front", analog_front), ("resample", resample),
+                  ("slicer_front", slicer_front),
+                  ("bit_timing_kernel", timing), ("pack", pack_m))
+    elif orch.bank_analog:
         layers = (("analog_front", analog_front), ("resample", resample),
                   ("pack", pack))
     else:
@@ -659,12 +1012,13 @@ def device_busy_ms(orch, iq8, chunks: int = 2) -> float:
 
 def drive(orch, kernel: str | None, chunks: int, warmup: int) -> dict:
     """Run the live loop for `chunks` chunks (the first `warmup` untimed)
-    with both kernels' launch counts set to 0 just before and read just
+    with every kernel's launch count set to 0 just before and read just
     after. Checks that every live-step output lay on the card and that
     only `kernel` launched, once per chunk; with kernel None (an analog
-    bank) that no symbol kernel launched. The host layer is timed: the
-    bank framer's ``frame_chunk`` for a digital bank, ``route_audio`` for
-    an analog one. Returns timing and counts."""
+    bank) that no kernel launched. The host layer is timed: the bank
+    framer's ``frame_chunk`` for a digital bank, ``route_audio`` for an
+    analog one, ``route_mixed`` for an analog-trunking one. Returns timing
+    and counts."""
     import torch
 
     counters = _launch_counters()
@@ -677,7 +1031,8 @@ def drive(orch, kernel: str | None, chunks: int, warmup: int) -> dict:
         return out, st
     orch.step = spy_step
     host = {"s": 0.0}
-    host_layer = "frame_chunk" if kernel is not None else "route_audio"
+    host_layer = ("route_mixed" if orch.bank_mixed else
+                  "route_audio" if orch.bank_analog else "frame_chunk")
     host_fn = getattr(orch.bank_proc, host_layer)
 
     def timed_host(*args):
@@ -1171,6 +1526,237 @@ def run_am(card: str) -> dict:
                         AM_TONE_HZ, np.arange(AM_SLOTS))
 
 
+def _fm_streams(message, rate: float, deviation_hz: float = 3000.0):
+    """(slots, n) complex64 on the card: each row of the real message
+    (slots, n) frequency-modulated at the channel rate, the phase
+    accumulated in float64."""
+    import numpy as np
+    import torch
+    phase = torch.cumsum(message.double(), 1) \
+        * (2 * np.pi * deviation_hz / rate)
+    return torch.polar(torch.ones_like(phase), phase).to(torch.complex64)
+
+
+def _voice(slots: int, n_ch: int, rate: float, rng, amplitude: float):
+    """(slots, n_ch) float64 on the card: the voice tone at a random phase
+    per slot."""
+    import numpy as np
+    import torch
+    n = torch.arange(n_ch, device="cuda", dtype=torch.float64)[None, :]
+    phase = torch.as_tensor(rng.uniform(0, 2 * np.pi, slots),
+                            device="cuda")[:, None]
+    return amplitude * torch.sin(2 * np.pi * VOICE_TONE_HZ / rate * n + phase)
+
+
+def _mixed_loop(card: str, decoder: str, streams, offsets, free: set,
+                warmup: int, chunks_total: int, **orch_kw):
+    """A mixed-bank live loop: `chunks_total` chunks of M x MIXED_BLOCKS
+    (the first `warmup` untimed) with every slot but those in `free`
+    activated, one bit-timing launch per chunk. Returns (orch, the run's
+    record, the slots that had an AudioSegment, open or completed and
+    drained, longer than 1 s, the last chunk, the synthesis time)."""
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+    from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+
+    chunk = M * MIXED_BLOCKS
+    ch = Channelizer.design(FS, 12500.0, device="cuda")
+    t0 = time.perf_counter()
+    chunks = synthesize_chunks(ch, streams, offsets, chunks_total,
+                               MIXED_BLOCKS)
+    synth_s = time.perf_counter() - t0
+    slots = len(offsets)
+    orch = Orchestrator(_source(chunks), FS, CENTER_HZ, [offsets[0]],
+                        slots=slots, decoder=decoder, chunk_samples=chunk,
+                        idle_teardown_seconds=1e9, ppm_correction=False,
+                        bank_mode=True, device="cuda", **orch_kw)
+    for i, o in enumerate(offsets):
+        if i and i not in free:
+            orch._activate(CENTER_HZ + o, IdentifierCollection())
+    if sum(s.active for s in orch.slots) != slots - len(free):
+        raise AssertionError("slots did not all activate")
+    long_done = set()
+    drain = orch.bank_proc.drain_audio
+
+    def drain_long(slot):
+        segs = drain(slot)
+        if any(s.duration > 1.0 for s in segs):
+            long_done.add(slot)
+        return segs
+    orch.bank_proc.drain_audio = drain_long
+
+    run = drive(orch, "bit_timing", chunks_total, warmup)
+    for s, proc in enumerate(orch.bank_proc.procs):
+        if proc is not None and proc.audio.segment is not None \
+                and proc.audio.segment.duration > 1.0:
+            long_done.add(s)
+    return orch, run, long_done, chunks[-1], synth_s
+
+
+def run_ltr(card: str) -> dict:
+    """1023 slots, each an NBFM carrier with the voice tone (0.5) plus
+    sub-audible square FSK (+/-0.35, 300 baud) of LTR CALL words for the
+    slot's own talkgroup (home 1-5, group 1-253), from a random start."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.protocol.ltr.messages import (LTRMessageType,
+                                                          ltr_encode_word)
+
+    total = LTR_WARMUP + LTR_TIMED
+    rate = 25000.0
+    n_ch = (total + 1) * (2 * MIXED_BLOCKS)
+    rng = np.random.default_rng(0)
+    ident = [(s // 253 + 1, s % 253 + 1) for s in range(SLOTS)]
+    words = np.stack([ltr_encode_word(0, home, home, group, home)
+                      for home, group in ident])           # (slots, 40)
+    bits = torch.as_tensor(words, device="cuda")
+    start = torch.as_tensor(rng.integers(0, 40 * 84, SLOTS), device="cuda")
+    data = 0.35 * _square_fsk(bits, n_ch, rate / 300.0, start)
+    streams = _fm_streams(data.double() + _voice(SLOTS, n_ch, rate, rng, 0.5),
+                          rate)
+    del data
+    offsets = [(i - M // 2 + 1) * 12500.0 for i in range(SLOTS)]
+    orch, run, long_audio, last, synth_s = _mixed_loop(
+        card, "ltr", streams, offsets, set(), LTR_WARMUP, total)
+
+    calls = np.zeros(SLOTS, np.int64)
+    wrong = 0
+    for s, proc in enumerate(orch.bank_proc.procs):
+        for m in proc.messages:
+            if m.message_type == LTRMessageType.CALL:
+                if (m.home, m.group) == ident[s]:
+                    calls[s] += 1
+                else:
+                    wrong += 1
+    result = {
+        "card": card, "decoder": "ltr", "slots": SLOTS,
+        "wideband_msps": FS / 1e6, "chunk_samples": orch.chunk_samples,
+        "audio_samples_per_chunk": orch._bank_ka,
+        "bit_cap": orch._bank_bit_cap, "chunks": total,
+        "timed_chunks": LTR_TIMED,
+        "slots_with_own_call_words": int((calls > 0).sum()),
+        "call_words": int(calls.sum()), "call_words_of_another_group": wrong,
+        "slots_with_audio_over_1s": len(long_audio),
+        "audio_segments": len(orch.audio_segments),
+        **_loop_record(orch, last, run),
+        "synthesis_s": synth_s,
+    }
+    print("[live ltr] " + json.dumps(result), flush=True)
+    if (calls > 0).mean() < 0.99:
+        raise AssertionError(f"ltr: CALL words of the slot's own group on "
+                             f"only {(calls > 0).sum()} of {SLOTS} slots")
+    if len(long_audio) != SLOTS:
+        raise AssertionError(f"ltr: audio over 1 s on only "
+                             f"{len(long_audio)} of {SLOTS} slots")
+    return result
+
+
+def run_mpt1327(card: str) -> dict:
+    """1023 slots with a channel map: slot 0 a control channel of AFSK
+    codewords (ALH, then GTC for channel MPT_TRAFFIC_INDEX, repeated), the
+    granted channel's slot left free for the grant, FM voice on it and on
+    the other 1021 slots."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.protocol.bits import from_int
+    from sdrtrunk_tpu_torch.protocol.mpt1327 import (MPT1327MessageType,
+                                                     SYNC_CONTROL,
+                                                     mpt_encode_codeword)
+    from sdrtrunk_tpu_torch.runtime.traffic import FrequencyBand
+    from sdrtrunk_tpu_torch.signal.generators import nbfm_modulate
+
+    total = MPT_WARMUP + MPT_TIMED
+    rate = 25000.0
+    n_ch = (total + 1) * (2 * MIXED_BLOCKS)
+    rng = np.random.default_rng(13)
+
+    def address_word(prefix, ident1):
+        d = np.zeros(48, np.uint8)
+        d[0] = 1
+        d[1:8] = from_int(prefix, 7)
+        d[8:21] = from_int(ident1, 13)
+        return d
+    alh = address_word(3, 88)
+    alh[21:30] = from_int(256, 9)
+    alh[44:48] = from_int(5, 4)
+    gtc = address_word(10, 1000)
+    gtc[21:31] = from_int(MPT_TRAFFIC_INDEX, 10)
+    gtc[35:48] = from_int(2000, 13)
+    frame = np.concatenate([
+        part for word in (alh, gtc) for part in (
+            rng.integers(0, 2, 24).astype(np.uint8), SYNC_CONTROL,
+            mpt_encode_codeword(word))])
+    # audio FSK at 8 kHz: 1 -> 1200 Hz, 0 -> 1800 Hz, phase-continuous
+    need = int(n_ch / rate * 8000.0) + 100
+    bits = np.tile(frame, int(need * 1200 / 8000) // len(frame) + 2)
+    sym = np.minimum((np.arange(need) * 1200 / 8000).astype(np.int64),
+                     len(bits) - 1)
+    tone = 2 * np.pi * np.cumsum(np.where(bits[sym] == 1, 1200.0, 1800.0))
+    control = nbfm_modulate(0.35 * np.sin(tone / 8000.0), 8000.0, rate)
+
+    streams = _fm_streams(_voice(SLOTS, n_ch, rate, rng, 0.6), rate)
+    streams[0] = torch.as_tensor(control[:n_ch].astype(np.complex64),
+                                 device="cuda")
+    offsets = [(i - M // 2 + 1) * 12500.0 for i in range(SLOTS)]
+    band = FrequencyBand(identifier=0,
+                         base_frequency_hz=CENTER_HZ + offsets[0],
+                         channel_spacing_hz=12500.0)
+    orch, run, long_audio, last, synth_s = _mixed_loop(
+        card, "mpt1327", streams, offsets, {MPT_TRAFFIC_INDEX}, MPT_WARMUP,
+        total, channel_map=band)
+
+    types = [m.message_type for m in orch.bank_proc.procs[0].messages]
+    gtcs = [m for m in orch.bank_proc.procs[0].messages
+            if m.message_type == MPT1327MessageType.GTC]
+    traffic_hz = CENTER_HZ + offsets[MPT_TRAFFIC_INDEX]
+    granted = next((s for s in orch.slots if s.active and not s.is_control
+                    and s.frequency_hz == traffic_hz), None)
+    granted_audio = 0.0
+    tone_hz = 0.0
+    if granted is not None:
+        seg = orch.bank_proc.procs[granted.index].audio.segment
+        if seg is not None:
+            granted_audio = float(seg.duration)
+            if len(seg.samples) > 1600:
+                tone_hz = _dominant_hz(seg.samples)
+    result = {
+        "card": card, "decoder": "mpt1327", "slots": SLOTS,
+        "wideband_msps": FS / 1e6, "chunk_samples": orch.chunk_samples,
+        "audio_samples_per_chunk": orch._bank_ka,
+        "bit_cap": orch._bank_bit_cap, "chunks": total,
+        "timed_chunks": MPT_TIMED,
+        "control_alh": types.count(MPT1327MessageType.ALH),
+        "control_gtc": len(gtcs),
+        "gtc_channel": gtcs[0].fields["channel"] if gtcs else None,
+        "grant_events": len([e for e in orch.events
+                             if e.frequency_hz == traffic_hz]),
+        "skipped_grants": len(orch.skipped_grants),
+        "granted_slot": None if granted is None else granted.index,
+        "granted_audio_s": granted_audio, "granted_dominant_hz": tone_hz,
+        "slots_with_audio_over_1s": len(long_audio),
+        "active_channels": run["metrics"].get("active_channels"),
+        **_loop_record(orch, last, run),
+        "synthesis_s": synth_s,
+    }
+    print("[live mpt1327] " + json.dumps(result), flush=True)
+    if not result["control_alh"] or not gtcs \
+            or gtcs[0].fields["channel"] != MPT_TRAFFIC_INDEX:
+        raise AssertionError(f"mpt1327: control slot decoded "
+                             f"{result['control_alh']} ALH, {len(gtcs)} GTC")
+    if granted is None or not result["grant_events"]:
+        raise AssertionError("mpt1327: the grant did not activate the "
+                             "traffic slot")
+    if granted_audio < 0.4 or abs(tone_hz - VOICE_TONE_HZ) > 50.0:
+        raise AssertionError(f"mpt1327: {granted_audio:.2f} s of audio at "
+                             f"{tone_hz:.0f} Hz on the granted slot")
+    if result["active_channels"] != SLOTS:
+        raise AssertionError("mpt1327: not every slot is active after the "
+                             "grant")
+    return result
+
+
 def main() -> int:
     if not (ROOT / "sdrtrunk_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository",
@@ -1191,6 +1777,8 @@ def main() -> int:
 
     build_kernels()
     check_edges(card)
+    check_bit_timing_edges(card)
+    bit_ltr, bit_afsk = (check_bit_timing(card, w) for w in ("ltr", "afsk"))
     dqpsk, p25p2_k, lsm_k, dmr_k = (check_kernel(card, *k) for k in KERNELS)
     dqpsk["launches"] = run_c4fm(card)["kernel_launches"]
     p25p2_k["launches"] = run_p25p2(card)["kernel_launches"]
@@ -1198,10 +1786,12 @@ def main() -> int:
     dmr_k["launches"] = run_dmr(card)["kernel_launches"]
     run_nbfm(card)
     run_am(card)
+    bit_ltr["launches"] = run_ltr(card)["kernel_launches"]
+    bit_afsk["launches"] = run_mpt1327(card)["kernel_launches"]
     print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    print(json.dumps({"kernels": [dqpsk, p25p2_k, lsm_k, dmr_k]}),
-          flush=True)
+    print(json.dumps({"kernels": [dqpsk, p25p2_k, lsm_k, dmr_k, bit_ltr,
+                                  bit_afsk]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

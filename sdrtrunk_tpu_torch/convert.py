@@ -10,19 +10,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dsp.afsk import AFSKState
+from .dsp.fsk import LTRFSKState
 from .dsp.psk import DQPSKState, GardnerState
 
 __all__ = ["tree_map", "receiver_state_from_numpy", "receiver_state_to_numpy",
            "params_from_numpy"]
 
 
-_PSK_STATES = {cls._fields: cls for cls in (DQPSKState, GardnerState)}
+_STATE_TYPES = {cls._fields: cls for cls in (DQPSKState, GardnerState,
+                                             LTRFSKState, AFSKState)}
 
 
 def tree_map(fn, tree, *rest):
     """Map fn over the leaves of nested dicts, tuples and named tuples
-    (DQPSKState, GardnerState): the receiver state's structure for every
-    decoder kind; ``rest`` are trees of the same structure."""
+    (DQPSKState, GardnerState, LTRFSKState, AFSKState): the receiver
+    state's structure for every decoder kind; ``rest`` are trees of the
+    same structure."""
     if isinstance(tree, dict):
         return {key: tree_map(fn, tree[key], *[r[key] for r in rest])
                 for key in tree}
@@ -41,7 +45,7 @@ def _from_numpy(tree, device):
     if isinstance(tree, (tuple, list)):
         leaves = [_from_numpy(v, device) for v in tree]
         fields = getattr(tree, "_fields", None)
-        return _PSK_STATES[fields](*leaves) if fields else tuple(leaves)
+        return _STATE_TYPES[fields](*leaves) if fields else tuple(leaves)
     return torch.as_tensor(np.array(tree), device=device)
 
 
@@ -50,34 +54,45 @@ def receiver_state_from_numpy(tree: dict, device) -> dict:
     of ``WidebandReceiver.init_state()``'s structure: chan, mixer_phase,
     rot, dec) -> the port's tensors on device. ``dec`` is any decoder's
     state tree ({fir, agc, power, psk} for the DQPSK chains, {fir, prev,
-    power, deemph, resamp} for NBFM, {fir, power, dc, resamp} for AM);
-    a psk leaf becomes the state type with the same field names (a
-    DQPSKState or a GardnerState) and a plain tuple stays a tuple."""
+    power, deemph, resamp} for NBFM, {fir, power, dc, resamp} for AM,
+    {nbfm, fsk} for the LTR family, {nbfm, afsk} for MPT1327); a named
+    tuple becomes the port's state type with the same field names (a
+    DQPSKState, GardnerState, LTRFSKState or AFSKState) and a plain tuple
+    stays a tuple."""
     state = _from_numpy(tree, device)
     state["rot"] = state["rot"].to(torch.int32)
     return state
 
 
 def receiver_state_to_numpy(state: dict) -> dict:
-    """The port's receiver state -> NumPy in the same structure (the psk
-    leaf stays a DQPSKState or GardnerState of arrays)."""
+    """The port's receiver state -> NumPy in the same structure (a named
+    tuple stays the port's state type, of arrays)."""
     return tree_map(lambda t: t.detach().cpu().numpy(), state)
 
 
 def params_from_numpy(hmat, baseband_taps, interp_bank=None,
-                      resampler_taps=None) -> dict:
+                      resampler_taps=None, nested=None,
+                      slicer_taps=None) -> dict:
     """Design arrays of the JAX objects as a state dict for
     ``WidebandReceiver.load_state_dict``: ``Channelizer.hmat``, the
     decoder's ``baseband_taps``, and either the DQPSK chain demodulator's
     interpolator ``bank`` (C4FM, DMR, LSM, P25P2) or the analog decoder's
-    ``resampler_taps`` (NBFM, AM)."""
+    ``resampler_taps`` (NBFM, AM). For a decoder that nests an NBFM
+    decoder beside a bit slicer with its own taps (LTRLiveDecoder,
+    MPT1327LiveDecoder), ``nested`` names the attribute that holds the
+    analog decoder ("nbfm") and ``slicer_taps`` maps the slicer's buffers
+    to their arrays ({"fsk.taps": ...}, or {"afsk.rtaps": ...,
+    "afsk.tone_taps": ..., "afsk.avg_taps": ...})."""
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32))
 
+    dec = "decoder." + (f"{nested}." if nested else "")
     params = {"channelizer.hmat": f32(hmat),
-              "decoder.baseband_taps": f32(baseband_taps)}
+              dec + "baseband_taps": f32(baseband_taps)}
     if interp_bank is not None:
-        params["decoder.demod.bank"] = f32(interp_bank)
+        params[dec + "demod.bank"] = f32(interp_bank)
     if resampler_taps is not None:
-        params["decoder.resampler_taps"] = f32(resampler_taps)
+        params[dec + "resampler_taps"] = f32(resampler_taps)
+    for name, taps in (slicer_taps or {}).items():
+        params["decoder." + name] = f32(taps)
     return params

@@ -8,6 +8,7 @@ The library is built at first use by ``dsp/nvcc.py``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,8 +21,10 @@ _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
              + [ctypes.c_void_p])
 
 
+@functools.cache
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash) and load the kernel library; a
+    loaded library is kept (a failed build is not, and raises again)."""
     return load_kernel("dqpsk", "dqpsk_launch", _ARGTYPES)
 
 

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fir_init", "fir_apply", "fir_filter", "fir_decimate",
+__all__ = ["fir_init", "fir_apply", "fir_filter", "fir_filter_bank",
+           "fir_decimate",
            "half_band_decimate", "decimation_cascade_taps",
            "decimate_by_power2", "resample_taps", "resample_init",
            "polyphase_resample"]
@@ -50,6 +51,12 @@ def fir_apply(x: torch.Tensor, taps: torch.Tensor, state: torch.Tensor
 def fir_filter(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """One-shot FIR with zero initial history."""
     return fir_decimate(x, taps, 1)[0]
+
+
+def fir_filter_bank(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """One-shot FIR of each row of (C, T) x with each of the O tap sets of
+    (O, K) ``taps``, from zero history: (C, O, T) in one ``conv1d``."""
+    return _conv_planes(F.pad(x, (taps.shape[1] - 1, 0)), taps.flip(1))
 
 
 def fir_decimate(x: torch.Tensor, taps: torch.Tensor, factor: int,

@@ -5,7 +5,8 @@ Wideband IQ -> polyphase channelize (all M bins) -> per-slot bin select,
 two-bin join and residual mix -> batched decoder chain. Only the parts the
 live bank step uses are ported: ``init_state``, ``build_dynamic`` and
 ``reset_slot``, for the DQPSK chain decoders (P25 Phase 1 C4FM and LSM,
-P25 Phase 2, DMR) and the analog ones (NBFM, AM).
+P25 Phase 2, DMR), the analog ones (NBFM, AM) and the analog-trunking ones
+(LTR, LTR-Net, Passport, MPT1327).
 """
 from __future__ import annotations
 
@@ -48,9 +49,14 @@ def make_channel_decoder(kind: str, sample_rate: float,
         from .decoders.p25p2 import P25P2Config, P25P2Decoder
         return P25P2Decoder(P25P2Config(sample_rate=sample_rate),
                             device=device)
-    raise NotImplementedError(
-        f"decoder kind {kind!r} is not ported yet: the analog trunking "
-        "kinds are ROADMAP Queue 1 item 13")
+    if kind in ("ltr", "ltrnet", "passport"):
+        from .decoders.ltr import LTRLiveDecoder
+        return LTRLiveDecoder(sample_rate, channel_bandwidth, device=device)
+    if kind == "mpt1327":
+        from .decoders.ltr import MPT1327LiveDecoder
+        return MPT1327LiveDecoder(sample_rate, channel_bandwidth,
+                                  device=device)
+    raise ValueError(f"unknown decoder kind {kind!r}")
 
 
 def dynamic_select_mix(y: torch.Tensor, rot: torch.Tensor,
@@ -80,11 +86,14 @@ class WidebandReceiver(nn.Module):
 
     Buffers: ``channelizer.hmat``, ``decoder.baseband_taps`` and
     ``decoder.demod.bank`` (DQPSK chains) or ``decoder.resampler_taps``
-    (analog); ``.to(device)`` moves them. State is a dict in the
-    reference's layout: ``chan`` (T*M,) complex64, ``mixer_phase`` (C,),
-    ``rot`` () int32, ``dec`` = the decoder's state tree ({fir, agc,
-    power, psk}; NBFM {fir, prev, power, deemph, resamp}; AM {fir, power,
-    dc, resamp}) with a leading C axis.
+    (analog; under ``decoder.nbfm`` for the analog-trunking decoders,
+    beside ``decoder.fsk.taps`` or ``decoder.afsk``'s ``rtaps``,
+    ``tone_taps`` and ``avg_taps``); ``.to(device)`` moves them. State is
+    a dict in the reference's layout: ``chan`` (T*M,) complex64,
+    ``mixer_phase`` (C,), ``rot`` () int32, ``dec`` = the decoder's state
+    tree ({fir, agc, power, psk}; NBFM {fir, prev, power, deemph, resamp};
+    AM {fir, power, dc, resamp}; LTR family {nbfm, fsk: LTRFSKState};
+    MPT1327 {nbfm, afsk: AFSKState}) with a leading C axis.
     """
 
     def __init__(self, sample_rate: float, channel_offsets,

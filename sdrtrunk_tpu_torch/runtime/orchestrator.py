@@ -11,9 +11,14 @@ processor (``P25P1BankProcessor``, ``P25P2BankProcessor``,
 the ``TrafficChannelManager``, which starts and stops traffic slots
 mid-stream. For an analog kind (NBFM, AM) the step packs companded 8-bit
 (or int16) PCM and the squelch gate bits into the transfer, and
-``AnalogBankProcessor`` assembles each slot's AudioSegments. "Starting a
-channel" is a write of (bin, mixer step) into the slot plan plus an
-in-place reset of that slot's device state.
+``AnalogBankProcessor`` assembles each slot's AudioSegments. For an
+analog-trunking kind (LTR, LTR-Net, Passport, MPT1327: the mixed bank) the
+step packs companded voice, gate bits and the compacted sub-audible or
+AFSK bit decisions, and ``MixedBankProcessor`` hands each slot's share to
+its per-slot processor (framer, decode events, AudioSegments; MPT1327's
+GTC grants drive the traffic manager through the ``channel_map``).
+"Starting a channel" is a write of (bin, mixer step) into the slot plan
+plus an in-place reset of that slot's device state.
 
 The host layer (``runtime`` bank processors, decoder states and traffic,
 ``audio.mbe``, ``protocol``) is the port's byte-for-byte copy of the JAX
@@ -39,24 +44,28 @@ from ..protocol.p25p1.bankframer import SYNC_DIBIT_PATTERNS
 from ..protocol.p25p2.bankframer import P25P2_SYNC_DIBITS
 from ..receiver import WidebandReceiver
 from .bank_processor import (AnalogBankProcessor, DMRBankProcessor,
-                             P25P1BankProcessor, P25P2BankProcessor)
+                             MixedBankProcessor, P25P1BankProcessor,
+                             P25P2BankProcessor)
 from .events import DecodeEvent
 from .identifiers import IdentifierCollection
 from .metrics import FrequencyErrorMonitor
 from .traffic import TrafficChannelManager
 
 __all__ = ["ChannelSlot", "Orchestrator", "compact_and_correlate", "ingest",
-           "pack_audio", "sync_patterns"]
+           "pack_audio", "pack_mixed", "sync_patterns"]
 
 _P25P1_SYNC_MAX_ERRORS = 9          # bit errors over the 24-dibit sync
 _P25P2_SYNC_MAX_ERRORS = 4          # over the 20-dibit sync (P25P2SyncPattern)
 
-# decoder kind -> traffic-manager protocol label, for the kinds ported
-# (reference orchestrator.py:42-47)
+# decoder kind -> traffic-manager protocol label (reference
+# orchestrator.py:42-47); every kind here runs in bank mode
 _PROTOCOL_LABELS = {"c4fm": "APCO25", "p25p1": "APCO25", "lsm": "APCO25",
                     "p25p1-lsm": "APCO25", "dmr": "DMR", "p25p2": "APCO25-P2",
-                    "nbfm": "NBFM", "am": "AM"}
+                    "nbfm": "NBFM", "am": "AM", "ltr": "LTR",
+                    "ltrnet": "LTR-Net", "passport": "Passport",
+                    "mpt1327": "MPT1327"}
 _ANALOG_KINDS = ("nbfm", "am")
+_MIXED_KINDS = ("ltr", "ltrnet", "passport", "mpt1327")
 
 
 @dataclass
@@ -116,14 +125,9 @@ def compact_and_correlate(dib: torch.Tensor, valid: torch.Tensor, cap: int,
     counts (C,) int32, hits (C, cap/8) uint8) in the bank processor's
     packing contract (runtime/bank_processor.py).
     """
-    c, k = dib.shape
+    c = dib.shape[0]
     dev = dib.device
-    counts = valid.sum(dim=1, dtype=torch.int32)
-    pos = torch.cumsum(valid, dim=1) - 1
-    idx = torch.where(valid, pos.clamp(max=cap), cap)       # cap = dump
-    sdib = torch.zeros((c, cap + 1), dtype=torch.uint8, device=dev)
-    sdib.scatter_(1, idx, dib.to(torch.uint8))
-    sdib = sdib[:, :cap]
+    sdib, counts = _compact(dib, valid, cap)
     d4 = sdib.reshape(c, cap // 4, 4)
     dib4 = d4[..., 0] | (d4[..., 1] << 2) | (d4[..., 2] << 4) | (d4[..., 3] << 6)
 
@@ -137,6 +141,20 @@ def compact_and_correlate(dib: torch.Tensor, valid: torch.Tensor, cap: int,
     hits = torch.zeros((c, cap), dtype=torch.uint8, device=dev)
     hits[:, :lags] = err.amin(dim=1) <= max_errors
     return dib4, counts, _packbits(hits)
+
+
+def _compact(values: torch.Tensor, valid: torch.Tensor, cap: int):
+    """The valid entries of each row of (C, K) values, in order, at the
+    front of a (C, cap) uint8 row, by cumsum + scatter (entries past cap
+    are dropped, those at or beyond a row's count are 0), and the rows'
+    counts (C,) int32 (not clipped to cap)."""
+    c = values.shape[0]
+    counts = valid.sum(dim=1, dtype=torch.int32)
+    pos = torch.cumsum(valid, dim=1) - 1
+    idx = torch.where(valid, pos.clamp(max=cap), cap)       # cap = dump
+    out = torch.zeros((c, cap + 1), dtype=torch.uint8, device=values.device)
+    out.scatter_(1, idx, values.to(torch.uint8))
+    return out[:, :cap], counts
 
 
 def _packbits(bits: torch.Tensor) -> torch.Tensor:
@@ -160,18 +178,46 @@ def pack_audio(audio: torch.Tensor, gate: torch.Tensor,
     packed 8 samples a byte, MSB first (np.unpackbits order), each row
     zero-padded to a whole byte."""
     a = torch.clamp(audio, -1.0, 1.0)
-    ka = a.shape[1]
     if audio_format == "int16":
         pcm = torch.clamp(a * 32767.0, -32768, 32767).to(torch.int16)
         pcm_bytes = pcm.reshape(-1).view(torch.uint8)
     else:
-        comp = torch.log1p(255.0 * torch.abs(a)) * (1.0 / np.log(256.0))
-        level = torch.clamp((comp * 127.0 + 0.5).to(torch.int32), 0, 127)
-        pcm_bytes = (torch.where(a < 0, 128, 0) + level).to(
-            torch.uint8).reshape(-1)
-    gbits = _packbits(torch.nn.functional.pad(gate.to(torch.uint8),
-                                              (0, (-ka) % 8)))
-    return torch.cat([pcm_bytes, gbits.reshape(-1)])
+        pcm_bytes = _mulaw8(a)
+    return torch.cat([pcm_bytes, _gate_bytes(gate)])
+
+
+def _mulaw8(a: torch.Tensor) -> torch.Tensor:
+    """(C, Ka) audio in [-1, 1] -> flat mu-law bytes (``pack_audio``)."""
+    comp = torch.log1p(255.0 * torch.abs(a)) * (1.0 / np.log(256.0))
+    level = torch.clamp((comp * 127.0 + 0.5).to(torch.int32), 0, 127)
+    return (torch.where(a < 0, 128, 0) + level).to(torch.uint8).reshape(-1)
+
+
+def _gate_bytes(gate: torch.Tensor) -> torch.Tensor:
+    """(C, Ka) bool gate -> flat bytes, 8 samples a byte MSB first, each
+    row zero-padded to a whole byte."""
+    return _packbits(torch.nn.functional.pad(
+        gate.to(torch.uint8), (0, (-gate.shape[1]) % 8))).reshape(-1)
+
+
+def pack_mixed(audio: torch.Tensor, gate: torch.Tensor, bits: torch.Tensor,
+               valid: torch.Tensor, cap: int) -> torch.Tensor:
+    """On-device packing of the mixed analog-trunking bank: (C, Ka) float
+    audio and bool gate, (C, Kb) bit decisions and their valid mask -> ONE
+    flat uint8 tensor, mu-law PCM | gate bits | compacted bits | counts.
+
+    PCM and gate as ``pack_audio``'s "mulaw8". The valid bits of each slot
+    are compacted in order to the front of a row of ``cap`` (a multiple of
+    8) and packed 8 a byte, MSB first; counts are the slots' valid bits,
+    clipped to cap, as little-endian int32. Entries at or beyond counts[c]
+    are 0 here, where the reference's sort leaves the votes of samples
+    with no symbol; the host reads bits[c][:counts[c]] only
+    (runtime/bank_processor.py ``MixedBankProcessor.route_mixed``)."""
+    sbits, counts = _compact(bits, valid, cap)
+    return torch.cat([
+        _mulaw8(torch.clamp(audio, -1.0, 1.0)), _gate_bytes(gate),
+        _packbits(sbits).reshape(-1),
+        counts.clamp(max=cap).view(torch.uint8)])
 
 
 class Orchestrator:
@@ -185,11 +231,18 @@ class Orchestrator:
             tears down the remaining slots (an analog bank's pinned slot
             has no control channel: its slots are activated directly).
     chunk_samples: wideband samples a chunk, a multiple of the bin count
-            M; for nbfm and am, K = 2 * chunk_samples / M must also be a
-            multiple of the resampler's ``down`` (25 at a 25 kHz channel
-            rate). The default is 16 * M, or the smallest such chunk for
-            the analog kinds.
-    audio_format: the analog bank's PCM transfer, "mulaw8" or "int16".
+            M; for nbfm, am and the analog-trunking kinds, K = 2 *
+            chunk_samples / M must also be a multiple of the resampler's
+            ``down`` (25 at a 25 kHz channel rate), and for mpt1327 the
+            audio length Ka = K * 8 / 25 a multiple of 10 (the AFSK
+            resampler's; the rest of a chunk's audio would be dropped).
+            The default is 16 * M, the smallest such chunk for nbfm and
+            am, and 125 * M (K = 250, Ka = 80) for the analog-trunking
+            kinds.
+    audio_format: the analog bank's PCM transfer, "mulaw8" or "int16"
+            (the mixed bank always sends mu-law).
+    channel_map: FrequencyBand that maps MPT1327 traffic channel numbers
+            to frequencies (the reference's user channel map).
     device: where the slot bank runs ("cuda" by default; no fallback).
     """
 
@@ -220,9 +273,7 @@ class Orchestrator:
                 "heterogeneous banks are not ported yet (ROADMAP Queue 1 "
                 "item 14, slice F)")
         if decoder not in _PROTOCOL_LABELS:
-            raise NotImplementedError(
-                f"decoder {decoder!r} is not ported yet: the mixed "
-                "analog-trunking bank is ROADMAP Queue 1 item 13")
+            raise ValueError(f"unknown decoder kind {decoder!r}")
         if ingest_format == "int4":
             raise NotImplementedError(
                 "the int4 wire format is not ported: it was a slow-link "
@@ -254,19 +305,23 @@ class Orchestrator:
         self.audio_format = audio_format
         self.codec = codec if codec is not None else FakeMBECodec()
         self.metrics_sink = metrics_sink
+        self.channel_map = channel_map
+        self.bank_mode = True
 
         self.rx = WidebandReceiver(sample_rate, [0.0] * slots,
                                    channel_bandwidth=channel_bandwidth,
                                    decoder=decoder, device=self.device)
         m = self.rx.channelizer.channels
         self.bank_analog = decoder in _ANALOG_KINDS
+        self.bank_mixed = decoder in _MIXED_KINDS
         self.chunk_samples = (chunk_samples if chunk_samples is not None
                               else self._default_chunk(m))
         if self.chunk_samples % m != 0:
             raise ValueError(f"chunk_samples must be a multiple of {m}")
         self._bank_cap = None
         self._bank_ka = None
-        if self.bank_analog:
+        self._bank_bit_cap = None
+        if self.bank_analog or self.bank_mixed:
             # 8 kHz audio samples per slot per chunk; the resampler's
             # phase pattern must repeat whole within a chunk
             k = 2 * self.chunk_samples // m
@@ -276,6 +331,14 @@ class Orchestrator:
                     f"chunk gives non-integral audio length: per-channel "
                     f"block {k} must be a multiple of {down}")
             self._bank_ka = k * up // down
+            if self.bank_mixed:
+                # sub-audible/AFSK bit budget per chunk: baud * chunk
+                # seconds + margin (the timing loop emits about one bit a
+                # symbol period, whatever the noise)
+                baud = 1200.0 if decoder == "mpt1327" else 300.0
+                secs = self.chunk_samples / self.sample_rate
+                self._bank_bit_cap = int(
+                    np.ceil((secs * baud * 1.25 + 16) / 32)) * 32
         else:
             # symbols per slot per chunk at the fastest tracked timing,
             # plus margin, rounded to the packing granule
@@ -303,7 +366,12 @@ class Orchestrator:
             on_activate=self._activate, on_teardown=self._teardown)
         if self.event_logger is not None:
             self.traffic.event_sink = self.event_logger.receive
-        if self.bank_analog:
+        if self.bank_mixed:
+            self.bank_proc = MixedBankProcessor(
+                slots, control_slots=set(range(len(control_offsets_hz))),
+                traffic=self.traffic, kind=decoder,
+                channel_map=self.channel_map)
+        elif self.bank_analog:
             self.bank_proc = AnalogBankProcessor(slots)
         else:
             bank_cls = {"dmr": DMRBankProcessor,
@@ -343,9 +411,13 @@ class Orchestrator:
     # --- control plane -------------------------------------------------
 
     def _default_chunk(self, m: int) -> int:
-        """Default wideband chunk: 16 * M, and for the analog kinds the
+        """Default wideband chunk: 16 * M; for the analog kinds the
         smallest chunk whose per-channel block K = 2 * chunk / M is a
-        multiple of the resampler's ``down``."""
+        multiple of the resampler's ``down``; for the analog-trunking
+        kinds 125 * M: K = 250 satisfies the 8 kHz resampler (K % 25) and
+        the AFSK correlator's audio step (Ka % 10)."""
+        if self.bank_mixed:
+            return m * 125
         if self.bank_analog:
             down = self.rx.decoder.down
             return m * down if down % 2 else m * down // 2
@@ -355,8 +427,20 @@ class Orchestrator:
         """Live step = the receiver's dynamic step + on-device packing
         into ONE flat uint8 tensor. Digital kinds: compaction and sync
         correlation, then dib4 | hits | counts (le int32) | pll (le f32
-        of slot 0). Analog kinds: PCM | gate bits (``pack_audio``)."""
+        of slot 0). Analog kinds: PCM | gate bits (``pack_audio``).
+        Analog-trunking kinds: mu-law PCM | gate bits | compacted bits |
+        counts (``pack_mixed``)."""
         base = self.rx.build_dynamic()
+        if self.bank_mixed:
+            bit_cap = self._bank_bit_cap
+
+            def fused_mixed(x, state, bins, steps):
+                out, st = base(ingest(x), state, bins, steps)
+                return {"packed_mixed": pack_mixed(
+                    out["audio"], out["audio_gate"], out["bits"],
+                    out["valid"], bit_cap)}, st
+
+            return fused_mixed
         if self.bank_analog:
             audio_format = self.audio_format
 
@@ -604,10 +688,31 @@ class Orchestrator:
                              axis=1)[:, :ka].astype(bool)
         return audio, gate
 
+    def _split_packed_mixed(self, buf: np.ndarray):
+        """Parse the mixed analog-trunking transfer (mu-law PCM | gates |
+        compacted bits | counts)."""
+        c = len(self.slots)
+        ka = self._bank_ka
+        cap = self._bank_bit_cap
+        audio = self._mulaw_lut()[buf[: c * ka]].reshape(c, ka)
+        pos = c * ka
+        nb = (ka + 7) // 8
+        gate = np.unpackbits(buf[pos: pos + c * nb].reshape(c, nb),
+                             axis=1)[:, :ka].astype(bool)
+        pos += c * nb
+        bits = np.unpackbits(
+            buf[pos: pos + c * (cap // 8)].reshape(c, cap // 8), axis=1)
+        pos += c * (cap // 8)
+        counts = buf[pos: pos + 4 * c].view(np.int32)
+        return audio, gate, bits, counts
+
     def _pull_bank(self, out: dict, now: float) -> dict:
         """Download-worker half of a chunk: transfer + unpack (+ bank-frame
         for the digital kinds; stateful, strictly in chunk order on the one
         download thread)."""
+        if self.bank_mixed:
+            return {"bank_mixed": self._split_packed_mixed(
+                out["packed_mixed"].cpu().numpy())}
         if self.bank_analog:
             audio, gate = self._split_packed_audio(
                 out["packed_audio"].cpu().numpy())
@@ -619,7 +724,8 @@ class Orchestrator:
 
     def _process(self, out: dict, now: float) -> dict:
         self.now = now
-        if "packed" in out or "packed_audio" in out:
+        if "packed" in out or "packed_audio" in out \
+                or "packed_mixed" in out:
             out = self._pull_bank(out, now)        # un-pipelined path
         pll_raw = out.get("pll_raw")
 
@@ -632,7 +738,10 @@ class Orchestrator:
             self.ppm_monitor.update(pll_err_hz, self.now)
 
         active = np.array([s.active for s in self.slots])
-        if self.bank_analog:
+        if self.bank_mixed:
+            per_slot = self.bank_proc.route_mixed(*out["bank_mixed"], active,
+                                                  self.now)
+        elif self.bank_analog:
             per_slot = self.bank_proc.route_audio(
                 out["bank_audio"], out["bank_gate"], active, self.now)
         else:

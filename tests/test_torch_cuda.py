@@ -1,5 +1,6 @@
-"""Tests of the CUDA kernels (DQPSK and Gardner DQPSK) and of the analog
-chain on the card; they need a card and skip without one.
+"""Tests of the CUDA kernels (DQPSK, Gardner DQPSK and bit timing) and of
+the analog and analog-trunking chains on the card; they need a card and
+skip without one.
 
 The file imports no JAX, so that it runs on a machine with a card and no
 JAX installed. tests/conftest.py imports JAX, so run it there with
@@ -13,8 +14,14 @@ import torch
 from sdrtrunk_tpu_torch.signal.generators import (awgn, c4fm_modulate,
                                                   lsm_modulate, nbfm_modulate,
                                                   random_dibits)
+from sdrtrunk_tpu_torch.convert import tree_map
+from sdrtrunk_tpu_torch.decoders.ltr import LTRLiveDecoder
 from sdrtrunk_tpu_torch.decoders.nbfm import NBFMDecoder
-from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda
+from sdrtrunk_tpu_torch.dsp import bit_timing_cuda, dqpsk_cuda, gardner_cuda
+from sdrtrunk_tpu_torch.dsp.afsk import AFSK1200Demodulator
+from sdrtrunk_tpu_torch.dsp.bit_timing import (BitTimingGeometry, bit_timing,
+                                               bit_timing_plain)
+from sdrtrunk_tpu_torch.dsp.fsk import LTRFSKDemodulator
 from sdrtrunk_tpu_torch.dsp.psk import (DQPSKDemodulator, DQPSKState,
                                         GardnerDQPSKDemodulator, GardnerState)
 
@@ -217,3 +224,115 @@ def test_nbfm_decoder_on_card_matches_cpu(card):
         assert float((got["power_db"] - want["power_db"]).abs().max()) <= 1e-4
         assert torch.equal(got["audio_gate"], want["audio_gate"])
     assert float(out["cpu"][1]["audio"].abs().max()) > 0.3
+
+
+def _timing_block(geom, c, t, seed, device):
+    """Slicer inputs whose crossings come and go in the window: square
+    waves around the symbol period with noise, row 5 all zero; a random
+    delay line, and a symbol due at t = 0 on every third channel."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    period = torch.linspace(0.7, 1.6, c)[:, None] * 2.0 * geom.sps
+    x = torch.sign(torch.sin(2 * np.pi * torch.arange(t)[None, :] / period
+                             + 0.3)) + 0.3 * torch.randn((c, t), generator=gen)
+    x[5] = 0.0
+    window = (torch.rand((c, geom.window_len), generator=gen) > 0.5
+              ).to(torch.int8)
+    sp = torch.full((c,), float(np.float32(geom.sps * 1.5)))
+    sp[::3] = 1.5
+    return x.to(device), window.to(device), sp.to(device)
+
+
+_TIMING = {"ltr": (lambda: LTRFSKDemodulator(device="cpu").geometry, False),
+           "afsk": (lambda: AFSK1200Demodulator(device="cpu").geometry,
+                    False),
+           "afsk_inverted": (
+               lambda: AFSK1200Demodulator(device="cpu").geometry, True),
+           "w64_two_crossings": (lambda: BitTimingGeometry(
+               64, 16, 32, 33, 16.0, 32.0, 0.25, True), False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_TIMING))
+def test_bit_timing_kernel_matches_plain_loop_on_card(card, case):
+    """The bit-timing kernel and its plain loop agree bit for bit (bits,
+    valid, window, sampling point) on a small edge-case block: 37 channels,
+    T = 997 and T = 1, a symbol due at t = 0, an all-zero channel, and two
+    calls with carried state."""
+    make, invert = _TIMING[case]
+    geom = make()
+    x, window, sp = _timing_block(geom, 37, 997, 11, card)
+    want = bit_timing_plain(geom, x, window, sp, invert)
+    assert bool(want[1][::3, 0].all())
+    before = bit_timing_cuda.bit_timing_cuda.launches
+    got = bit_timing(geom, x, window, sp, invert)
+    assert bit_timing_cuda.bit_timing_cuda.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(bit_timing(geom, x[:, :1], window, sp, invert),
+                    bit_timing_plain(geom, x[:, :1], window, sp, invert)):
+        assert torch.equal(a, b)
+    b1, v1, w1, s1 = bit_timing(geom, x[:, :400], window, sp, invert)
+    b2, v2, w2, s2 = bit_timing(geom, x[:, 400:], w1, s1, invert)
+    assert torch.equal(torch.cat([b1, b2], 1), want[0])
+    assert torch.equal(torch.cat([v1, v2], 1), want[1])
+    assert torch.equal(w2, want[2]) and torch.equal(s2, want[3])
+
+
+@pytest.mark.cuda
+def test_bit_timing_kernel_rejects_what_it_does_not_take(card):
+    geom = LTRFSKDemodulator(device="cpu").geometry
+    x, window, sp = _timing_block(geom, 8, 16, 1, card)
+    with pytest.raises(ValueError, match="float32"):
+        bit_timing(geom, x.double(), window, sp)
+    with pytest.raises(ValueError, match="window"):
+        bit_timing(geom, x, window[:, :12].contiguous(), sp)
+    with pytest.raises(ValueError, match="sampling_point"):
+        bit_timing(geom, x, window, sp[:2])
+    with pytest.raises(ValueError, match=r"\(C, T\)"):
+        bit_timing(geom, x[0], window, sp)
+
+
+@pytest.mark.cuda
+def test_ltr_live_decoder_on_card_matches_cpu(card):
+    """LTRLiveDecoder.batched_call on the card (the bit-timing kernel)
+    against the same call on the CPU (the plain loop), two chunks with
+    carried state: audio within 1e-4, the gate exactly, valid exactly and
+    bits exactly. Every row carries sub-audible FSK under a voice tone, so
+    the slicer's input stays clear of zero by far more than the 1e-4 the
+    two devices' float sums may differ by, except within a sample of a
+    crossing; on this seed no decision differs."""
+    c, t = 16, 12500
+    rng = np.random.default_rng(17)
+    rows = []
+    for i in range(c):
+        n = np.arange(t * 8 // 25 + 80)
+        bits = rng.integers(0, 2, 200)
+        data = 0.35 * (2.0 * bits[np.minimum(
+            (n * 300 / 8000).astype(np.int64), 199)] - 1.0)
+        audio = data + 0.5 * np.sin(2 * np.pi * (700.0 + 20.0 * i) * n
+                                    / 8000.0)
+        iq = nbfm_modulate(audio, 8000.0, 25000.0)[:t] * (0.05 + 0.05 * i)
+        rows.append(iq * np.exp(1j * rng.uniform(0, 2 * np.pi)))
+    x = np.stack(rows).astype(np.complex64)
+    out = {}
+    before = bit_timing_cuda.bit_timing_cuda.launches
+    for dev in ("cpu", card):
+        dec = LTRLiveDecoder(device=dev)
+        state = tree_map(lambda a: a.expand((c,) + a.shape).clone(),
+                         dec.init_state())
+        chunks = []
+        for part in (x[:, :6250], x[:, 6250:]):
+            o, state = dec.batched_call(torch.as_tensor(part, device=dev),
+                                        state)
+            chunks.append({k: v.cpu() for k, v in o.items()})
+        out[str(dev)] = chunks
+    assert bit_timing_cuda.bit_timing_cuda.launches == before + 2
+    symbols = 0
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got["audio"].shape == want["audio"].shape == (c, 2000)
+        assert float((got["audio"] - want["audio"]).abs().max()) <= 1e-4
+        assert torch.equal(got["audio_gate"], want["audio_gate"])
+        assert torch.equal(got["valid"], want["valid"])
+        assert torch.equal(got["bits"], want["bits"])
+        symbols += int(want["valid"].sum())
+    assert abs(symbols - c * 4000 * 300 / 8000) <= 2 * c

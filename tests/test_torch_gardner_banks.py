@@ -162,24 +162,35 @@ def _recording(orch, packed):
     orch.step = spy
 
 
-def _run_pair(wide, fs, center_hz, control_off, prepare=None, **kw):
-    """The JAX and the port's orchestrators on one capture, from one state:
-    the JAX design arrays and its (float-pair packed) receiver state after
-    the control slot was tuned. ``prepare(orch)``, when given, runs on
-    each orchestrator before its run. Returns (jorch, its metrics lines,
-    its packed chunks, orch, lines, packed chunks)."""
-    j_lines, t_lines, j_packed, t_packed = [], [], [], []
-    jorch = JOrchestrator(_source(wide), fs, center_hz, [control_off],
-                          metrics_sink=j_lines.append, bank_mode=True, **kw)
-    orch = Orchestrator(_source(wide), fs, center_hz, [control_off],
-                        metrics_sink=t_lines.append, bank_mode=True,
-                        device="cpu", **kw)
-    jrx = jorch.rx
+def _design_arrays(jrx) -> dict:
+    """The JAX receiver's design arrays as the port's state dict, for a
+    decoder that holds its taps itself (the DQPSK chains, NBFM, AM)."""
     demod = getattr(jrx.decoder, "demod", None)
-    orch.rx.load_state_dict(params_from_numpy(
+    return params_from_numpy(
         jrx.channelizer.hmat, jrx.decoder.baseband_taps,
         interp_bank=None if demod is None else demod.bank,
-        resampler_taps=getattr(jrx.decoder, "resampler_taps", None)))
+        resampler_taps=getattr(jrx.decoder, "resampler_taps", None))
+
+
+def _run_pair(wide, fs, center_hz, control_off, prepare=None,
+              params=_design_arrays, jax_kw=None, port_kw=None, **kw):
+    """The JAX and the port's orchestrators on one capture, from one state:
+    the JAX design arrays (``params(jorch.rx)``) and its (float-pair
+    packed) receiver state after the control slot was tuned.
+    ``prepare(orch)``, when given, runs on each orchestrator before its
+    run. ``jax_kw`` and ``port_kw`` hold keyword arguments whose values
+    are objects of one package's own host layer (a FrequencyBand).
+    Returns (jorch, its metrics lines, its packed chunks, orch, lines,
+    packed chunks)."""
+    j_lines, t_lines, j_packed, t_packed = [], [], [], []
+    jorch = JOrchestrator(_source(wide), fs, center_hz, [control_off],
+                          metrics_sink=j_lines.append, bank_mode=True, **kw,
+                          **(jax_kw or {}))
+    orch = Orchestrator(_source(wide), fs, center_hz, [control_off],
+                        metrics_sink=t_lines.append, bank_mode=True,
+                        device="cpu", **kw, **(port_kw or {}))
+    jrx = jorch.rx
+    orch.rx.load_state_dict(params(jrx))
     flags = complex_flags(jrx.init_state())
     tree = jax.tree.map(np.asarray, unpack_tree(jorch.state, flags))
     orch.state = receiver_state_from_numpy(tree, device="cpu")

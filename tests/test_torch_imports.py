@@ -2,21 +2,24 @@
 and its kernel path never falls back.
 
 * Every file of sdrtrunk_tpu_torch/, chip_smoke.py,
-  tests/test_torch_cuda.py and tools/symbol_loop_split.py is parsed, and
-  no import of jax, of
+  tests/test_torch_cuda.py, tools/symbol_loop_split.py and
+  tools/bit_timing_blocks.py is parsed, and no import of jax, of
   sdrtrunk_tpu or of any sdrtrunk_tpu.* module is allowed (the machine
   with the card has no JAX installed, and the port keeps its own copy of
   the host layer it needs: tests/test_torch_host_copy.py).
 * A fresh interpreter imports every port module and chip_smoke, then
   drives the port's CPU Orchestrator for one chunk at a tiny width for
-  c4fm, p25p2, lsm, dmr, nbfm and am (the bank processors' lazy imports
-  run there);
+  c4fm, p25p2, lsm, dmr, nbfm, am, ltr and mpt1327 (the bank
+  processors' lazy imports run there), and an AuxDecoder on a block of
+  silence;
   neither 'jax' nor any sdrtrunk_tpu module is in sys.modules after.
-* batched() on a non-CPU tensor goes to the CUDA kernel; when its build
-  fails, the call raises and the plain loop is never run. The shared nvcc
-  helper raises when nvcc fails, and leaves no library behind, and the
-  input check both wrappers share refuses a tensor of the wrong device,
-  dtype, shape or layout.
+* batched() on a non-CPU tensor goes to the CUDA kernel, and so does
+  bit_timing(); when the build fails, the call raises and the plain loop
+  is never run. The shared nvcc helper raises when nvcc fails, and leaves
+  no library behind, and the input check the wrappers share refuses a
+  tensor of the wrong device, dtype, shape or layout.
+* The block-size sweep tool's one text edit still finds its place in
+  csrc/bit_timing.cu.
 """
 import ast
 import re
@@ -27,7 +30,10 @@ from pathlib import Path
 import pytest
 import torch
 
-from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda, nvcc
+from sdrtrunk_tpu_torch.dsp import (bit_timing, bit_timing_cuda, dqpsk_cuda,
+                                    gardner_cuda, nvcc)
+from sdrtrunk_tpu_torch.dsp.afsk import AFSK1200Demodulator
+from sdrtrunk_tpu_torch.dsp.fsk import LTRFSKDemodulator
 from sdrtrunk_tpu_torch.dsp.psk import (DQPSKDemodulator, DQPSKState,
                                         GardnerDQPSKDemodulator, GardnerState)
 
@@ -54,7 +60,8 @@ def _port_files() -> list[Path]:
     # no JAX
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tests" / "test_torch_cuda.py",
-                                         ROOT / "tools" / "symbol_loop_split.py"]
+                                         ROOT / "tools" / "symbol_loop_split.py",
+                                         ROOT / "tools" / "bit_timing_blocks.py"]
 
 
 def _imported(tree: ast.AST) -> list[str]:
@@ -91,19 +98,36 @@ def test_no_jax_import(path):
                 ", which imports jax" if name in with_jax else "")
 
 
+def test_block_sweep_tool_finds_its_marker():
+    """tools/bit_timing_blocks.py builds copies of csrc/bit_timing.cu at
+    other block sizes by editing one line; the line must be there, once,
+    and say one channel a block, which is what the wrapper launches."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "bit_timing_blocks", ROOT / "tools" / "bit_timing_blocks.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool._MARKER == "constexpr int kBlock = 1;"
+    assert (nvcc.CSRC / "bit_timing.cu").read_text().count(tool._MARKER) == 1
+    assert len(bit_timing_cuda._ARGTYPES) == 19
+
+
 _DRIVE = """
 import sys
 import numpy as np
 from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
-for kind in ("c4fm", "p25p2", "lsm", "dmr", "nbfm", "am"):
+for kind in ("c4fm", "p25p2", "lsm", "dmr", "nbfm", "am", "ltr", "mpt1327"):
     # the analog kinds resample 25 kHz to 8 kHz: K = 2 * chunk / M must
-    # be a multiple of 25
-    chunk = 64 * 25 * 2 if kind in ("nbfm", "am") else 64 * 64
+    # be a multiple of 25, and for mpt1327 the audio length one of 10
+    chunk = (64 * 25 * 2 if kind in ("nbfm", "am") else
+             64 * 125 if kind in ("ltr", "mpt1327") else 64 * 64)
     orch = Orchestrator(lambda n: None, 64 * 12500.0, 460e6, [25000.0],
                         slots=4, decoder=kind, chunk_samples=chunk,
                         bank_mode=True, ppm_correction=False, device="cpu")
     m = orch.run_chunk(np.zeros((chunk, 2), np.int8))
     assert m["samples"] == chunk, m
+from sdrtrunk_tpu_torch.decoders.auxdec import AuxDecoder
+assert AuxDecoder("fleetsync2", device="cpu").process(np.zeros(800)) == []
 """
 
 
@@ -199,7 +223,49 @@ def test_gardner_wrapper_rejects_a_window_without_instantiation(monkeypatch):
             demod, torch.zeros((1, 8), dtype=torch.complex64), state)
 
 
-@pytest.mark.parametrize("name", ["dqpsk", "gardner"])
+@pytest.mark.parametrize("demod_cls,invert", [
+    (LTRFSKDemodulator, False), (AFSK1200Demodulator, True)],
+    ids=["fsk", "afsk"])
+def test_bit_timing_build_failure_raises_without_fallback(monkeypatch,
+                                                          demod_cls, invert):
+    """Both demodulators' public call sends a non-CPU tensor to the
+    bit-timing kernel; a failed build raises, and the plain loop does not
+    run in its place."""
+    kw = {"invert": True} if invert else {}
+    demod = demod_cls(device="cpu", **kw)
+    geom = demod.geometry
+    x = torch.zeros((2, 40), dtype=torch.float32, device="meta")
+    window = torch.zeros((2, geom.window_len), dtype=torch.int8,
+                         device="meta")
+    sp = torch.zeros((2,), dtype=torch.float32, device="meta")
+
+    class BuildFailed(RuntimeError):
+        pass
+
+    def fail():
+        raise BuildFailed("nvcc failed")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain loop ran for a non-CPU tensor")
+
+    monkeypatch.setattr(bit_timing_cuda, "build", fail)
+    monkeypatch.setattr(bit_timing, "bit_timing_plain", plain)
+    before = bit_timing_cuda.bit_timing_cuda.launches
+    with pytest.raises(BuildFailed):
+        bit_timing.bit_timing(geom, x, window, sp, invert)
+    assert bit_timing_cuda.bit_timing_cuda.launches == before
+
+
+def test_bit_timing_wrapper_rejects_a_cpu_tensor(monkeypatch):
+    monkeypatch.setattr(bit_timing_cuda, "build", lambda: None)
+    geom = LTRFSKDemodulator(device="cpu").geometry
+    with pytest.raises(ValueError, match="CUDA"):
+        bit_timing_cuda.bit_timing_cuda(
+            geom, torch.zeros((1, 8)), torch.zeros((1, 53), dtype=torch.int8),
+            torch.zeros((1,)))
+
+
+@pytest.mark.parametrize("name", ["dqpsk", "gardner", "bit_timing"])
 def test_nvcc_failure_raises_and_leaves_no_library(monkeypatch, tmp_path,
                                                    name):
     """The shared build helper runs nvcc once per source and raises with

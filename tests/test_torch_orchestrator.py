@@ -172,7 +172,6 @@ def test_run_chunk_processes_one_chunk():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"decoder": "ltr"}, {"decoder": "passport"}, {"decoder": "mpt1327"},
     {"banks": [("c4fm", 4)]}, {"host_process": True},
     {"ingest_format": "int4"}, {"bank_mode": False}])
 def test_unported_options_raise(kwargs):
@@ -181,3 +180,48 @@ def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Orchestrator(lambda n: None, to.FS, to.CENTER_HZ, [to.CONTROL_OFF],
                      **args)
+
+
+def test_unknown_decoder_kind_raises():
+    with pytest.raises(ValueError, match="unknown decoder kind 'pocsag'"):
+        Orchestrator(lambda n: None, to.FS, to.CENTER_HZ, [to.CONTROL_OFF],
+                     slots=4, decoder="pocsag", bank_mode=True, device="cpu")
+
+
+@pytest.mark.parametrize("decoder,analog,mixed,chunk,ka,bit_cap", [
+    ("c4fm", False, False, 16 * 64, None, None),
+    ("nbfm", True, False, 64 * 25, 16, None),
+    ("ltr", False, True, 64 * 125, 80, 32),
+    ("ltrnet", False, True, 64 * 125, 80, 32),
+    ("passport", False, True, 64 * 125, 80, 32),
+    ("mpt1327", False, True, 64 * 125, 80, 32)])
+def test_bank_attributes_and_channel_map(decoder, analog, mixed, chunk, ka,
+                                         bit_cap):
+    """What the reference's callers read of a bank-mode orchestrator:
+    ``bank_mode``, ``bank_analog``, ``bank_mixed`` and the ``channel_map``
+    it was given, kept and passed on to the mixed bank's processors; and
+    each kind's default chunk, audio length and bit budget (reference
+    orchestrator.py:200-216, :579-598: 0.01 s at 300 baud gives ceil((3.75
+    + 16) / 32) * 32 = 32 bits, at 1200 baud ceil((15 + 16) / 32) * 32)."""
+    from sdrtrunk_tpu_torch.runtime.traffic import FrequencyBand
+
+    band = FrequencyBand(identifier=0, base_frequency_hz=459e6,
+                         channel_spacing_hz=12500.0)
+    orch = Orchestrator(lambda n: None, to.FS, to.CENTER_HZ,
+                        [to.CONTROL_OFF], slots=4, decoder=decoder,
+                        bank_mode=True, ppm_correction=False,
+                        channel_map=band, device="cpu")
+    assert orch.bank_mode is True
+    assert (orch.bank_analog, orch.bank_mixed) == (analog, mixed)
+    assert orch.channel_map is band
+    assert orch.chunk_samples == chunk
+    assert (orch._bank_ka, orch._bank_bit_cap) == (ka, bit_cap)
+    if mixed:
+        assert orch.bank_proc.channel_map is band
+        assert orch.bank_proc.kind == decoder
+        assert orch.bank_proc.states is orch.bank_proc.procs
+        assert orch.bank_proc.procs[0] is not None      # the control slot
+    if decoder == "mpt1327":
+        # the control slot's processor registered the map as band 0
+        assert orch.traffic.resolve_frequency(0, 77) == \
+            459e6 + 77 * 12500.0
