@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (sdrtrunk_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [PHASE ...]
 
 Run from the root of a checkout on a machine with a CUDA card, nvcc and
-PyTorch built for CUDA (no JAX needed). Phases, each of which raises on
-failure (the exit code is then not 0):
+PyTorch built for CUDA (no JAX needed). With no argument it runs every
+phase below, which is the acceptance check; named phases (``edges``:
+phase 3 and the bit-timing edge cases, ``bits`` and ``psk``: phase 4's
+bit-timing and symbol-loop kernels, ``c4fm``, ``p25p2``, ``lsm``, ``dmr``,
+``nbfm``, ``am``, ``ltr``, ``mpt1327``: the live loops) run those alone,
+after the environment and the build, in this order; an unknown name
+raises. Each phase raises on failure (the exit code is then not 0):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the three kernels, sdrtrunk_tpu_torch/csrc/dqpsk.cu, gardner.cu
@@ -93,8 +98,9 @@ sdrtrunk_tpu_torch.protocol).
 
 Each live loop resets every kernel's launch count just before it runs and
 reads them just after. At the end the script prints its own run time, then
-the kernels' JSON record on the line before the last; the last line is
-{"ok": true, "device": {...}}.
+the kernels' JSON record on the line before the last (the kernels a run
+checked; an entry's ``launches`` is null where its live loop did not run);
+the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -540,7 +546,7 @@ def check_bit_timing(card: str, which: str) -> dict:
 
     def run_kernel():
         bit_timing_cuda(geom, x, s0.window, s0.sampling_point, invert)
-    # a call through the wrapper (two zero-fills, the launch, the host's
+    # a call through the wrapper (its allocations, the launch, the host's
     # enqueue) by CUDA events, as check_kernel times the others; the
     # kernel's own device time beside it
     kernel_ms = _cuda_ms(run_kernel, reps=20)
@@ -1757,7 +1763,26 @@ def run_mpt1327(card: str) -> dict:
     return result
 
 
-def main() -> int:
+# phases a run can name, in the order a run takes them; the environment
+# and the build always run
+PHASES = ("edges", "bits", "psk", "c4fm", "p25p2", "lsm", "dmr", "nbfm", "am",
+          "ltr", "mpt1327")
+# each live loop, and the kernels line's entry that takes its launches
+_LIVE = {"c4fm": (run_c4fm, "dqpsk"), "p25p2": (run_p25p2, "gardner_p25p2"),
+         "lsm": (run_lsm, "gardner_lsm"), "dmr": (run_dmr, "dqpsk_dmr"),
+         "nbfm": (run_nbfm, None), "am": (run_am, None),
+         "ltr": (run_ltr, "bit_timing_ltr"),
+         "mpt1327": (run_mpt1327, "bit_timing_afsk")}
+_ENTRIES = ("dqpsk", "gardner_p25p2", "gardner_lsm", "dqpsk_dmr",
+            "bit_timing_ltr", "bit_timing_afsk")
+
+
+def main(argv: list[str]) -> int:
+    phases = set(argv) or set(PHASES)
+    unknown = sorted(phases - set(PHASES))
+    if unknown:
+        raise ValueError(f"unknown phase(s) {', '.join(unknown)}; the "
+                         f"phases are {', '.join(PHASES)}")
     if not (ROOT / "sdrtrunk_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository",
               file=sys.stderr)
@@ -1776,22 +1801,27 @@ def main() -> int:
     print(card, flush=True)
 
     build_kernels()
-    check_edges(card)
-    check_bit_timing_edges(card)
-    bit_ltr, bit_afsk = (check_bit_timing(card, w) for w in ("ltr", "afsk"))
-    dqpsk, p25p2_k, lsm_k, dmr_k = (check_kernel(card, *k) for k in KERNELS)
-    dqpsk["launches"] = run_c4fm(card)["kernel_launches"]
-    p25p2_k["launches"] = run_p25p2(card)["kernel_launches"]
-    lsm_k["launches"] = run_lsm(card)["kernel_launches"]
-    dmr_k["launches"] = run_dmr(card)["kernel_launches"]
-    run_nbfm(card)
-    run_am(card)
-    bit_ltr["launches"] = run_ltr(card)["kernel_launches"]
-    bit_afsk["launches"] = run_mpt1327(card)["kernel_launches"]
-    print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    print(json.dumps({"kernels": [dqpsk, p25p2_k, lsm_k, dmr_k, bit_ltr,
-                                  bit_afsk]}), flush=True)
+    entries = {}
+    if "edges" in phases:
+        check_edges(card)
+        check_bit_timing_edges(card)
+    if "bits" in phases:
+        for which in ("ltr", "afsk"):
+            entry = check_bit_timing(card, which)
+            entries[entry["name"]] = {**entry, "launches": None}
+    if "psk" in phases:
+        for k in KERNELS:
+            entries[k[0]] = {**check_kernel(card, *k), "launches": None}
+    for name, (run, entry) in _LIVE.items():
+        if name in phases:
+            launches = run(card)["kernel_launches"]
+            if entry in entries:
+                entries[entry]["launches"] = launches
+    ran = [p for p in PHASES if p in phases]
+    print(f"[done] {'every phase' if len(ran) == len(PHASES) else ', '.join(ran)}"
+          f" passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": [entries[n] for n in _ENTRIES
+                                  if n in entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1799,4 +1829,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

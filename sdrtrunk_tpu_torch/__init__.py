@@ -16,8 +16,10 @@ equal to its original, so a fix to one must change both.
 Plain tensor code is PyTorch. Each Pallas kernel of the reference
 (``sdrtrunk_tpu/dsp/pallas_psk.py::_dqpsk_kernel``,
 ``sdrtrunk_tpu/dsp/pallas_gardner.py::_gardner_kernel``) is a CUDA C++
-kernel written by hand (``csrc/dqpsk.cu``, ``csrc/gardner.cu``), built
-with nvcc at first use.
+kernel written by hand (``csrc/dqpsk.cu``, ``csrc/gardner.cu``), and so is
+the boolean bit-timing loop that the reference's FSK and AFSK demodulators
+run as a ``lax.scan`` (``csrc/bit_timing.cu``); all three are built with
+nvcc at first use.
 
 The device is explicit: every public constructor takes ``device``; the
 main path defaults to ``"cuda"`` and raises when CUDA is absent.

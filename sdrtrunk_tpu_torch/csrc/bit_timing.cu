@@ -10,28 +10,39 @@
 // for bit.
 //
 // The reference keeps the delay line as a W-element int8 array and slices,
-// sums and arg-maxes it on every sample. W <= 64, so here the whole line is
-// one 64-bit register a channel, newest decision in bit 0 (window[i] of the
-// reference layout is bit W - 1 - i): a shift takes the new decision in,
-// the vote is a popcount under a mask, the crossings are w ^ (w >> 1) under
-// a mask (crossing i of the reference is bit zc_len - 2 - i), their count a
-// popcount, and the first and last crossing come from clz and ffs.
+// sums and arg-maxes it on every sample. W <= 64, so here the line is one
+// 64-bit word, newest decision in bit 0 (window[i] of the reference layout
+// is bit W - 1 - i): the vote is a popcount under a mask, the crossings are
+// w ^ (w >> 1) under a mask (crossing i of the reference is bit zc_len - 2 -
+// i), their count a popcount, and the first and last crossing come from clz
+// and ffs.
 //
 // What bounds it: each channel's serial chain, not bytes (1023 x 4000
 // floats in and the two (C, T) byte planes out move 24.5 MB, 7 us at 3.35
-// TB/s). One thread a channel runs the per-sample loop; a tile of samples
-// is loaded ahead of the steps that use it, so the loads of a tile overlap.
-// A block is one channel (kBlock: a warp with one lane at work): the
-// channels of a warp sit at independent symbol phases, so a warp of 32
-// takes the symbol branch on nearly every sample (32 channels, a symbol
-// every 27 samples or every 6). On the H100, 1023 x 4000 at the LTR
-// geometry took 0.56 ms at 32 channels a block, 0.31 at 8 and 0.24 at 1
-// (tools/bit_timing_blocks.py, which builds copies of this file with other
-// values of kBlock); 1023 warps are 8 a multiprocessor.
+// TB/s). A slicer decision does not depend on the loop's state, so the line
+// at any sample is the last W decisions, and the only state carried from
+// sample to sample is the counter, which between symbols only runs down by
+// one a sample. So the chain has a step a symbol (150 a channel at the LTR
+// geometry, 600 at the AFSK one), not a sample. One warp serves a channel,
+// kWarps channels a block, in three phases over each tile of kTile samples:
+//
+// 1. pack (all lanes): the warp reads its row coalesced, and __ballot_sync
+//    turns 32 consecutive decisions into a word in shared memory, behind
+//    two words holding the 64 decisions before the tile (at the first
+//    tile the carried window, newest last);
+// 2. walk (lane 0): the counter runs down to the next symbol at once (from
+//    1 <= sp < 2^23 the per-sample loop's steps are exact subtractions of
+//    1, so the symbol falls floor(sp) samples on and leaves sp - floor(sp);
+//    any other counter steps as the loop does); there the line comes from
+//    three shared words (two funnel shifts and a bit reversal), symbol()
+//    takes the step, and the bit and the symbol's place go into two
+//    bitmaps;
+// 3. write (all lanes): the bitmaps become the whole bits and valid rows,
+//    four bytes a lane a store.
 //
 // Layout: x is (C, T) float32; bits (C, T) int8 and valid (C, T) bool are
-// written only at symbols (the caller zero-fills them); the state is in the
-// JAX reference's layout: window (C, W) int8 (newest last), sampling_point
+// written in full (bits 0 where valid is not set); the state is in the JAX
+// reference's layout: window (C, W) int8 (newest last), sampling_point
 // (C,) float32.
 #include <cuda_runtime.h>
 
@@ -39,8 +50,11 @@
 
 namespace {
 
-constexpr int kBlock = 1;    // channels (threads) a block
-constexpr int kTile = 16;    // samples loaded ahead of their steps
+constexpr int kWarps = 4;                 // channels (warps) a block
+constexpr int kTile = 8192;               // samples a pass through shared memory
+constexpr int kTileWords = kTile / 32;
+constexpr int kBatch = 16;                // words whose samples a lane loads at once
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Geometry {
   int window_len;
@@ -80,44 +94,145 @@ __device__ __forceinline__ int8_t symbol(uint64_t w, const Geometry& g,
   return votes > g.vote_half ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kBlock)
+// The packed stream P of a tile: bit b of words[q] is P[32 q + b]; P[64 + t]
+// is the decision of the tile's sample t, P[0 .. 63] the 64 before it.
+// Returns P[s .. s + 63], bit b = P[s + b].
+__device__ __forceinline__ uint64_t bits64(const uint32_t* words, int s) {
+  const int q = s >> 5, r = s & 31;
+  const uint32_t lo = __funnelshift_r(words[q], words[q + 1], r);
+  const uint32_t hi = __funnelshift_r(words[q + 1], words[q + 2], r);
+  return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+// Bitmap bits 0 .. n - 1 as bytes 0 / 1 at dst[0 .. n), by the warp: single
+// bytes up to a 4-byte boundary, a 32-bit store a lane for each four
+// samples, single bytes for the rest. bm[n / 32 + 1] must be readable.
+__device__ __forceinline__ void expand(const uint32_t* bm, uint8_t* dst, int n,
+                                       int lane) {
+  const int head = min(
+      n, static_cast<int>((4u - (reinterpret_cast<uintptr_t>(dst) & 3u)) & 3u));
+  if (lane < head) dst[lane] = (bm[0] >> lane) & 1u;
+  const int quads = (n - head) >> 2;
+  uint32_t* d4 = reinterpret_cast<uint32_t*>(dst + head);
+  for (int k = lane; k < quads; k += 32) {
+    const int j = head + 4 * k;
+    const uint32_t nib =
+        __funnelshift_r(bm[j >> 5], bm[(j >> 5) + 1], j & 31) & 0xFu;
+    d4[k] = (nib * 0x00204081u) & 0x01010101u;   // bit i -> byte i
+  }
+  const int j = head + 4 * quads + lane;
+  if (j < n) dst[j] = (bm[j >> 5] >> (j & 31)) & 1u;
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
 bit_timing_kernel(const float* __restrict__ x, int T, int C, Geometry g,
                   const int8_t* __restrict__ win_in,
                   const float* __restrict__ sp_in, int8_t* __restrict__ bits,
                   uint8_t* __restrict__ valid, int8_t* __restrict__ win_out,
                   float* __restrict__ sp_out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ uint32_t s_words[kWarps][kTileWords + 3];
+  __shared__ uint32_t s_valid[kWarps][kTileWords + 1];
+  __shared__ uint32_t s_bits[kWarps][kTileWords + 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kWarps + warp;
   if (c >= C) return;
+  uint32_t* words = s_words[warp];
+  uint32_t* vmask = s_valid[warp];
+  uint32_t* bmask = s_bits[warp];
   const int W = g.window_len;
-  uint64_t w = 0;
-  for (int i = 0; i < W; ++i)
-    w = (w << 1) | static_cast<uint64_t>(win_in[static_cast<size_t>(c) * W + i] != 0);
-  float sp = sp_in[c];
   const size_t row = static_cast<size_t>(c) * T;
-  const float* xr = x + row;
+
+  // the 64 decisions before the first sample: window[i] is bit 64 - W + i
+  const int8_t* wr = win_in + static_cast<size_t>(c) * W;
+  const uint32_t w0 = __ballot_sync(kFull, lane < W && wr[lane] != 0);
+  const uint32_t w1 = __ballot_sync(kFull, lane + 32 < W && wr[lane + 32] != 0);
+  uint64_t hist = ((static_cast<uint64_t>(w1) << 32) | w0) << (64 - W);
+  float sp = sp_in[c];                      // lane 0's is the one carried
 
   for (int t0 = 0; t0 < T; t0 += kTile) {
-    float v[kTile];
+    const int n = min(kTile, T - t0);
+    const int nw = (n + 31) >> 5;
+    const float* xr = x + row + t0;
+    // --- pack
+    if (lane == 0) {
+      words[0] = static_cast<uint32_t>(hist);
+      words[1] = static_cast<uint32_t>(hist >> 32);
+      words[nw + 2] = 0;
+    }
+    for (int k = lane; k <= nw; k += 32) {
+      vmask[k] = 0;
+      bmask[k] = 0;
+    }
+    for (int k0 = 0; k0 < nw; k0 += kBatch) {
+      float v[kBatch];
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) v[j] = (t0 + j < T) ? xr[t0 + j] : 0.0f;
+      for (int u = 0; u < kBatch; ++u) {
+        const int t = 32 * (k0 + u) + lane;
+        v[u] = t < n ? xr[t] : 0.0f;
+      }
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      if (t0 + j < T) {
-        const bool d = (v[j] > 0.0f) != (g.invert != 0);
-        w = ((w << 1) | static_cast<uint64_t>(d)) & g.line_mask;
-        sp = sp - 1.0f;
-        if (sp < 1.0f) {
-          bits[row + t0 + j] = symbol(w, g, sp);
-          valid[row + t0 + j] = 1;
+      for (int u = 0; u < kBatch; ++u) {
+        if (k0 + u < nw) {
+          const int t = 32 * (k0 + u) + lane;
+          const uint32_t word = __ballot_sync(
+              kFull, t < n && ((v[u] > 0.0f) != (g.invert != 0)));
+          if (lane == u) words[2 + k0 + u] = word;
         }
       }
     }
+    __syncwarp();
+    // --- walk
+    if (lane == 0) {
+      int cur = 0;                          // the bitmap word being filled
+      uint32_t cur_v = 0, cur_b = 0;
+      int i = 0;                            // samples of the tile stepped
+      while (i < n) {
+        // run the counter down to the next symbol or the tile's end. From
+        // 1 <= sp < 2^23 every step of the per-sample loop subtracts 1
+        // exactly, and its symbol comes at step k = floor(sp), leaving sp -
+        // k: taken at once, as exact. Any other counter (below 1, huge,
+        // NaN) takes one step as the loop takes it.
+        if (sp >= 1.0f && sp < 8388608.0f) {
+          const int k = static_cast<int>(sp);
+          if (k > n - i) {
+            sp = sp - static_cast<float>(n - i);
+            break;
+          }
+          sp = sp - static_cast<float>(k);
+          i += k;
+        } else {
+          sp = sp - 1.0f;
+          ++i;
+          if (!(sp < 1.0f)) continue;
+        }
+        const int j = i - 1;                // the symbol's sample
+        const uint64_t w = __brevll(bits64(words, j + 1)) & g.line_mask;
+        const int8_t bit = symbol(w, g, sp);
+        // the word of the bitmaps being filled, stored after every symbol
+        // (no branch); a word no symbol falls in keeps its zero
+        const int q = j >> 5;
+        const uint32_t m = 1u << (j & 31);
+        cur_v = (q == cur ? cur_v : 0u) | m;
+        cur_b = (q == cur ? cur_b : 0u) | (bit ? m : 0u);
+        cur = q;
+        vmask[q] = cur_v;
+        bmask[q] = cur_b;
+      }
+      hist = bits64(words, n);              // the tile's last 64 decisions
+    }
+    __syncwarp();
+    // --- write
+    expand(vmask, valid + row + t0, n, lane);
+    expand(bmask, reinterpret_cast<uint8_t*>(bits) + row + t0, n, lane);
+    __syncwarp();
   }
 
-  for (int i = 0; i < W; ++i)
-    win_out[static_cast<size_t>(c) * W + i] =
-        static_cast<int8_t>((w >> (W - 1 - i)) & 1);
-  sp_out[c] = sp;
+  hist = __shfl_sync(kFull, hist, 0);
+  int8_t* wo = win_out + static_cast<size_t>(c) * W;
+  if (lane < W) wo[lane] = static_cast<int8_t>((hist >> (64 - W + lane)) & 1);
+  if (lane + 32 < W)
+    wo[lane + 32] = static_cast<int8_t>((hist >> (96 - W + lane)) & 1);
+  if (lane == 0) sp_out[c] = sp;
 }
 
 }  // namespace
@@ -151,8 +266,8 @@ extern "C" int bit_timing_launch(
   g.zc_ideal = zc_ideal;
   g.sps = sps;
   g.gain = gain;
-  const int grid = (C + kBlock - 1) / kBlock;
-  bit_timing_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int grid = (C + kWarps - 1) / kWarps;
+  bit_timing_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), T, C, g,
       static_cast<const int8_t*>(win_in), static_cast<const float*>(sp_in),
       static_cast<int8_t*>(bits), static_cast<uint8_t*>(valid),

@@ -34,9 +34,9 @@ def bit_timing_cuda(geom, x: torch.Tensor, window: torch.Tensor,
 
     Returns (bits (C, T) int8, valid (C, T) bool, new window (C, W) int8,
     new sampling_point (C,) float32), all new tensors. The kernel writes
-    ``bits`` and ``valid`` only at symbols, so ``bits`` is 0 wherever
-    ``valid`` is not set. Raises on a build failure, on a tensor the
-    kernel does not take, and on a nonzero launch status.
+    every byte of ``bits`` and ``valid``; ``bits`` is 0 wherever ``valid``
+    is not set. Raises on a build failure, on a tensor the kernel does not
+    take, and on a nonzero launch status.
     """
     lib = build()
     name = "bit_timing_cuda"
@@ -52,8 +52,8 @@ def bit_timing_cuda(geom, x: torch.Tensor, window: torch.Tensor,
     check_tensor(name, "window", window, torch.int8, (c, w), dev)
     check_tensor(name, "sampling_point", sampling_point, torch.float32, (c,),
                  dev)
-    bits = torch.zeros((c, t), dtype=torch.int8, device=dev)
-    valid = torch.zeros((c, t), dtype=torch.bool, device=dev)
+    bits = torch.empty((c, t), dtype=torch.int8, device=dev)
+    valid = torch.empty((c, t), dtype=torch.bool, device=dev)
     new_window = torch.empty_like(window)
     new_sp = torch.empty_like(sampling_point)
     k = geom.constants()

@@ -288,7 +288,11 @@ class Orchestrator:
                 "(ROADMAP Queue 1 item 15)")
         if isinstance(control_offsets_hz, (int, float, np.floating)):
             control_offsets_hz = [control_offsets_hz]
-        control_offsets_hz = [float(e) for e in control_offsets_hz]
+        # an entry may be an (offset_hz, kind) pair; the kind names the
+        # bank of a heterogeneous mix (banks=, not ported), so here it is
+        # ignored, as the reference ignores it without banks
+        control_offsets_hz = [float(e[0]) if isinstance(e, tuple)
+                              else float(e) for e in control_offsets_hz]
         if slots < len(control_offsets_hz) + 1:
             raise ValueError("need at least one traffic slot")
         if bank_mode is None:
@@ -306,6 +310,9 @@ class Orchestrator:
         self.codec = codec if codec is not None else FakeMBECodec()
         self.metrics_sink = metrics_sink
         self.channel_map = channel_map
+        self.channel_bandwidth = float(channel_bandwidth)
+        self.banks = None
+        self.ingest_format = ingest_format
         self.bank_mode = True
 
         self.rx = WidebandReceiver(sample_rate, [0.0] * slots,
@@ -795,18 +802,30 @@ class Orchestrator:
             self.metrics_sink(json.dumps(metrics))
         return metrics
 
-    def run(self, max_chunks: int | None = None) -> dict:
+    def run(self, max_chunks: int | None = None,
+            pipelined: bool = True) -> dict:
         """Drain the source to exhaustion (or max_chunks) and return the
-        final metrics line.
+        final metrics line. A bounded run consumes exactly max_chunks
+        chunks from the source; a short read or an error state ends it.
 
-        Pipelined: an upload thread stages chunk n+1 while the device
+        pipelined: an upload thread stages chunk n+1 while the device
         computes chunk n and a download thread pulls and bank-frames
-        chunk n-1. Control-plane writes from chunk n (grants, retunes)
-        take effect from chunk n+2. A bounded run consumes exactly
-        max_chunks chunks from the source."""
+        chunk n-1; control-plane writes from chunk n (grants, retunes)
+        take effect from chunk n+2. Otherwise each chunk goes through
+        ``run_chunk`` in turn and its writes take effect from chunk n+1."""
         metrics = {}
         chunks = 0
         pending = None
+        if not pipelined:
+            while max_chunks is None or chunks < max_chunks:
+                if self.error_state is not None:
+                    break
+                iq = self.source(self.chunk_samples)
+                if iq is None or len(iq) < self.chunk_samples:
+                    break
+                metrics = self.run_chunk(iq)
+                chunks += 1
+            return metrics
 
         def next_prepared():
             if self.error_state is not None:
@@ -852,6 +871,12 @@ class Orchestrator:
     @property
     def events(self) -> list[DecodeEvent]:
         return self.traffic.events
+
+    def close(self) -> None:
+        """Release the bank worker process, the one resource the reference
+        frees here. The port runs the bank host layer in-process
+        (host_process=True raises: ROADMAP Queue 1 item 9 + 15c), so there
+        is nothing to release; calling it again is harmless."""
 
     def channel_status(self) -> list[dict]:
         return [{

@@ -24,6 +24,7 @@ from sdrtrunk_tpu_torch.dsp.bit_timing import (BitTimingGeometry, bit_timing,
 from sdrtrunk_tpu_torch.dsp.fsk import LTRFSKDemodulator
 from sdrtrunk_tpu_torch.dsp.psk import (DQPSKDemodulator, DQPSKState,
                                         GardnerDQPSKDemodulator, GardnerState)
+import test_torch_bit_timing_walk as walk
 
 torch.set_num_threads(1)
 
@@ -276,6 +277,41 @@ def test_bit_timing_kernel_matches_plain_loop_on_card(card, case):
     assert torch.equal(torch.cat([b1, b2], 1), want[0])
     assert torch.equal(torch.cat([v1, v2], 1), want[1])
     assert torch.equal(w2, want[2]) and torch.equal(s2, want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom_name,invert", walk.CASES, ids=walk.CASE_IDS)
+def test_bit_timing_kernel_walk_edges_on_card(card, geom_name, invert):
+    """The symbol-major kernel against its plain loop on the card, on the
+    edge blocks its CPU model is held on (tests/test_torch_bit_timing_walk.py):
+    37 channels (the last block part full) with an all-zero channel and
+    counters entering at 1.5, 1, 0.3 and below zero; T = 1, T = 997 (rows
+    off the 4-byte boundary) and T spanning two of the kernel's tiles; two
+    calls with carried state; and counters entering at 2^23 and beyond,
+    +-inf, NaN and integers. bits, valid, window and sampling point
+    identical (the sampling point bit for bit, NaN included)."""
+    geom = walk.GEOMETRIES[geom_name]
+    x, window, _ = (torch.as_tensor(a, device=card) for a in
+                    walk.edge_block(geom, len(walk.ODD_SP), 997, 44))
+    sp = torch.as_tensor(walk.ODD_SP, device=card)
+    got = bit_timing(geom, x, window, sp, invert)
+    want = bit_timing_plain(geom, x, window, sp, invert)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3].view(torch.int32), want[3].view(torch.int32))
+    for t in (1, 997, walk.K_TILE + 997):
+        x, window, sp = (torch.as_tensor(a, device=card)
+                         for a in walk.edge_block(geom, 37, t, 5))
+        want = bit_timing_plain(geom, x, window, sp, invert)
+        got = bit_timing(geom, x, window, sp, invert)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), t
+        if t == 997:
+            b1, v1, w1, s1 = bit_timing(geom, x[:, :400], window, sp, invert)
+            b2, v2, w2, s2 = bit_timing(geom, x[:, 400:], w1, s1, invert)
+            assert torch.equal(torch.cat([b1, b2], 1), want[0])
+            assert torch.equal(torch.cat([v1, v2], 1), want[1])
+            assert torch.equal(w2, want[2]) and torch.equal(s2, want[3])
 
 
 @pytest.mark.cuda

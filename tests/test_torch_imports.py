@@ -18,7 +18,7 @@ and its kernel path never falls back.
   is never run. The shared nvcc helper raises when nvcc fails, and leaves
   no library behind, and the input check the wrappers share refuses a
   tensor of the wrong device, dtype, shape or layout.
-* The block-size sweep tool's one text edit still finds its place in
+* The bit-timing phase-split tool's text edits still find their places in
   csrc/bit_timing.cu.
 """
 import ast
@@ -99,16 +99,24 @@ def test_no_jax_import(path):
 
 
 def test_block_sweep_tool_finds_its_marker():
-    """tools/bit_timing_blocks.py builds copies of csrc/bit_timing.cu at
-    other block sizes by editing one line; the line must be there, once,
-    and say one channel a block, which is what the wrapper launches."""
+    """tools/bit_timing_blocks.py builds a clock64 copy of
+    csrc/bit_timing.cu by text edits around the kernel's three phases
+    (pack, walk, write); each marker must be there, once, and the copy
+    keeps the C entry point the wrapper's argument types describe. The
+    kernel's shape is fixed by its source: the wrapper passes no block,
+    tile or warp count."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "bit_timing_blocks", ROOT / "tools" / "bit_timing_blocks.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    assert tool._MARKER == "constexpr int kBlock = 1;"
-    assert (nvcc.CSRC / "bit_timing.cu").read_text().count(tool._MARKER) == 1
+    text = (nvcc.CSRC / "bit_timing.cu").read_text()
+    for phase in ("pack", "walk", "write"):
+        assert text.count(f"    // --- {phase}\n") == 1
+    copy = tool.instrument(text)
+    assert copy.count("clock64()") == 4 and "read_clk" in copy
+    assert copy.count("extern \"C\" int bit_timing_launch(") == 1
+    assert "kBlock" not in text
     assert len(bit_timing_cuda._ARGTYPES) == 19
 
 

@@ -62,16 +62,17 @@ def _source(iq8):
     return read
 
 
-@pytest.fixture(scope="module")
-def runs():
-    iq8 = _capture()
+def pair(iq8, control=(to.CONTROL_OFF,)):
+    """A JAX and a port orchestrator on one capture, the port's started
+    from the JAX one's design arrays and receiver state; returns (JAX
+    orchestrator, its metrics lines, port orchestrator, its lines)."""
     kw = dict(slots=4, chunk_samples=64 * 256, idle_teardown_seconds=0.6,
               bank_mode=True)
     j_lines, t_lines = [], []
-    jorch = JOrchestrator(_source(iq8), to.FS, to.CENTER_HZ,
-                          [to.CONTROL_OFF], metrics_sink=j_lines.append, **kw)
+    jorch = JOrchestrator(_source(iq8), to.FS, to.CENTER_HZ, list(control),
+                          metrics_sink=j_lines.append, **kw)
     torch_orch = Orchestrator(_source(iq8), to.FS, to.CENTER_HZ,
-                              [to.CONTROL_OFF], metrics_sink=t_lines.append,
+                              list(control), metrics_sink=t_lines.append,
                               device="cpu", **kw)
     # one starting point: the JAX orchestrator's design arrays and its
     # (float-pair packed) receiver state after the control slot was tuned
@@ -84,6 +85,12 @@ def runs():
     torch_orch.state = receiver_state_from_numpy(tree, device="cpu")
     np.testing.assert_array_equal(torch_orch.bins, jorch.bins)
     np.testing.assert_array_equal(torch_orch.steps, jorch.steps)
+    return jorch, j_lines, torch_orch, t_lines
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jorch, j_lines, torch_orch, t_lines = pair(_capture())
     jorch.run()
     torch_orch.run()
     return jorch, j_lines, torch_orch, t_lines
