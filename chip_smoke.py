@@ -8,8 +8,9 @@ PyTorch built for CUDA (no JAX needed). With no argument it runs every
 phase below, which is the acceptance check; named phases (``edges``:
 phase 3 and the bit-timing edge cases, ``bits`` and ``psk``: phase 4's
 bit-timing and symbol-loop kernels, ``c4fm``, ``p25p2``, ``lsm``, ``dmr``,
-``nbfm``, ``am``, ``ltr``, ``mpt1327``: the live loops) run those alone,
-after the environment and the build, in this order; an unknown name
+``nbfm``, ``am``, ``ltr``, ``mpt1327``, ``slots``, ``slots_p25p2``,
+``multibank``, ``worker``: the live loops) run those alone, after the
+environment and the build, in this order; an unknown name
 raises. Each phase raises on failure (the exit code is then not 0):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
@@ -84,23 +85,50 @@ raises. Each phase raises on failure (the exit code is then not 0):
    channel whose slot is left free, FM voice there and on the other 1021
    slots, 2 + 3 chunks. ALH and GTC must be decoded on the control slot,
    the grant followed, audio produced on the granted slot, and the
-   bit-timing kernel launched once per chunk.
+   bit-timing kernel launched once per chunk;
+13. the per-slot C4FM path (``bank_mode`` left to its default) at the same
+   width and 31 slots, the most it keeps off the bank tier: a control
+   channel granting a free slot and 29 voice slots, 3 + 4 chunks, an IQ
+   tap and a bits tap through the timed chunks, then a change to 6.4 MS/s
+   and one chunk on the rebuilt receiver; the grant followed, frames on
+   every voice slot, AudioSegments, one DQPSK launch a chunk;
+14. the same with ``decoder="p25p2"``: the key the control slot learns
+   handed to the granted slot, fragments on every voice slot, one Gardner
+   (W = 16) launch a chunk;
+15. banks=[("c4fm", 11), ("dmr", 10), ("ltr", 10)] behind one channelizer,
+   chunks of 1024 x 6250, 2 + 4: the P25 grant followed, frames on every
+   C4FM and DMR voice slot, CALL words of each LTR slot's own group and
+   audio, one DQPSK launch a chunk at gain 0.3 and one at 0.4, one
+   bit-timing launch;
+16. phase 5's bank with host_process=True, 2 + 3 chunks, phase 5's checks,
+   and no CUDA context in the worker process.
+
+After phases 13-15 each kernel they launched is held bit for bit against
+its plain loop at the shape that phase gives it, as phase 4 holds it at
+1023 channels (``_SMALL_SHAPES``).
 
 Every live loop prints its realtime factor, wall and host ms a chunk (the
 host layer: the bank framer's ``frame_chunk`` for the digital kinds,
 ``route_audio`` for the analog ones, ``route_mixed`` for the
-analog-trunking ones), its device layers, and the device's busy ms and
-idle share.
+analog-trunking ones, the per-slot processors' ``_route_slots`` on the
+per-slot path and with banks=, the worker's round trip ``process_chunk``),
+its device layers, and the device's busy ms and idle share.
 
 The script imports nothing of the JAX package: its signals and protocol
 encoders are the port's own copies (sdrtrunk_tpu_torch.signal,
 sdrtrunk_tpu_torch.protocol).
 
-Each live loop resets every kernel's launch count just before it runs and
-reads them just after. At the end the script prints its own run time, then
-the kernels' JSON record on the line before the last (the kernels a run
-checked; an entry's ``launches`` is null where its live loop did not run);
-the last line is {"ok": true, "device": {...}}.
+Each live loop resets every kernel's launch counts just before it runs and
+reads them just after. A wrapper counts a launch in all and under its
+loop's timing gain (DQPSK) or window length (Gardner, bit timing), so each
+entry of the kernels line (C4FM and DMR DQPSK, P25P2 and LSM Gardner, LTR
+and AFSK bit timing) has its own count from the launch itself. At the end
+the script prints its own run time, then the kernels' JSON record on the
+line before the last (the kernels a run checked; an entry's ``launches``
+is the sum over the live loops that ran it, ``launches_by_path`` each
+loop's count, ``launches`` null where no live loop ran it, and
+``small_shapes`` its holds at phases 13-15's shapes); the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -135,6 +163,11 @@ MPT_WARMUP, MPT_TIMED = 2, 3
 MPT_TRAFFIC_INDEX = 300          # a GTC channel number is below 512
 VOICE_TONE_HZ = 800.0
 BIT_T = {"ltr": 4000, "afsk": 3600}    # a live chunk's samples a slot
+SLOT_COUNT = 31                  # the most slots bank_mode=None runs per slot
+SLOTS_TRAFFIC_INDEX = 300        # the channel their control channel grants
+MULTIBANK = [("c4fm", 11), ("dmr", 10), ("ltr", 10)]
+MB_WARMUP, MB_TIMED = 2, 4
+WORKER_WARMUP, WORKER_TIMED = 2, 3
 
 
 def _card() -> str:
@@ -187,6 +220,37 @@ def _launch_counters():
     from sdrtrunk_tpu_torch.dsp.gardner_cuda import gardner_cuda
     return {"dqpsk": dqpsk_cuda, "gardner": gardner_cuda,
             "bit_timing": bit_timing_cuda}
+
+
+# the kernels line's entries, in its order: (the wrapper whose launches
+# they are, the key its ``launches_by`` counts them under: the DQPSK timing
+# gain, the Gardner and bit-timing window lengths)
+_ENTRY_KEYS = {"dqpsk": ("dqpsk", 0.3), "gardner_p25p2": ("gardner", 16),
+               "gardner_lsm": ("gardner", 11), "dqpsk_dmr": ("dqpsk", 0.4),
+               "bit_timing_ltr": ("bit_timing", 53),
+               "bit_timing_afsk": ("bit_timing", 12)}
+
+
+def _reset_launches() -> None:
+    for fn in _launch_counters().values():
+        fn.launches = 0
+        fn.launches_by.clear()
+
+
+def _read_launches() -> dict:
+    """Each entry's launches since the last reset, as its wrapper counted
+    them at the launch. Raises if a wrapper launched under a key that no
+    entry names."""
+    counters = _launch_counters()
+    got = {entry: counters[name].launches_by[key]
+           for entry, (name, key) in _ENTRY_KEYS.items()}
+    for name, fn in counters.items():
+        named = sum(got[e] for e, (n, _) in _ENTRY_KEYS.items() if n == name)
+        if fn.launches != named:
+            raise AssertionError(f"{name}: {fn.launches} launches, "
+                                 f"{named} of them under the entries' keys "
+                                 f"({dict(fn.launches_by)})")
+    return got
 
 
 # --- phase 2: build -------------------------------------------------------
@@ -279,9 +343,16 @@ def _fresh_state(demod, c: int):
     return type(s)(*[a.expand((c,) + a.shape).clone() for a in s])
 
 
-def _signal_block(modulate, t: int, rate: float, baud: float):
-    """(1023, t) complex64 on the card: 1015 channels of a modulated
-    random-dibit stream at 30 dB from random offsets, then 8 noise-only."""
+def _noise_channels(c: int) -> int:
+    """The noise-only channels at the end of a kernel check's c channels."""
+    return min(NOISE_CHANNELS, c // 8)
+
+
+def _signal_block(modulate, t: int, rate: float, baud: float,
+                  c: int = KERNEL_C):
+    """(c, t) complex64 on the card: channels of a modulated random-dibit
+    stream at 30 dB from random offsets, then the noise-only ones (1015
+    and 8 of 1023)."""
     import numpy as np
     import torch
 
@@ -291,13 +362,14 @@ def _signal_block(modulate, t: int, rate: float, baud: float):
     sym = int(t * baud / rate)
     bases = [modulate(random_dibits(sym + 2400, seed=s), rate, baud)
              for s in range(4)]
+    n_noise = _noise_channels(c)
     rows = []
-    for ch in range(KERNEL_C - NOISE_CHANNELS):
+    for ch in range(c - n_noise):
         base = bases[ch % 4]
         s = int(rng.integers(0, len(base) - t))
         rows.append(awgn(base[s:s + t], 30.0, rng=rng))
-    noise = (rng.standard_normal((NOISE_CHANNELS, t))
-             + 1j * rng.standard_normal((NOISE_CHANNELS, t))) * 0.5
+    noise = (rng.standard_normal((n_noise, t))
+             + 1j * rng.standard_normal((n_noise, t))) * 0.5
     return torch.as_tensor(np.concatenate([np.stack(rows), noise])
                            .astype(np.complex64), device="cuda")
 
@@ -346,17 +418,16 @@ def _bound(kind: str, x, state, symbols: int) -> tuple[float, str]:
 
 
 def check_kernel(card: str, name: str, kind: str, rate: float, baud: float,
-                 gain: float, t: int) -> dict:
-    """A kernel against its plain loop at its live shape (1023, t), reached
+                 gain: float, t: int, c: int = KERNEL_C) -> dict:
+    """A kernel against its plain loop at a live shape (c, t), reached
     through ``batched``, and timed beside its bound."""
     from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda
 
     wrapper = {"dqpsk": dqpsk_cuda.dqpsk_cuda,
                "gardner": gardner_cuda.gardner_cuda}[kind]
-    c = KERNEL_C
     demod = _symbol_loop(kind, rate, baud, gain)
     s0 = _fresh_state(demod, c)
-    x = _signal_block(_modulator(kind), t, rate, baud)
+    x = _signal_block(_modulator(kind), t, rate, baud, c)
     kernel = demod.batched(x, s0)
     plain = {}
 
@@ -471,7 +542,8 @@ def _bit_audio(which: str, c: int, t_out: int):
     samples to the timing loop: LTR, sub-audible square FSK at 300 baud
     (+/-0.35) under an 800 Hz tone and noise; AFSK, phase-continuous 1200
     / 1800 Hz tones at 1200 baud with noise. The last 8 channels are noise
-    only and the one before them all zero."""
+    only (fewer below 64 channels, ``_noise_channels``) and the one before
+    them all zero."""
     import numpy as np
     import torch
 
@@ -492,9 +564,10 @@ def _bit_audio(which: str, c: int, t_out: int):
         x = 0.5 * torch.sin(2 * np.pi / 8000.0 * torch.cumsum(freq, 1)
                             ).float()
     x = x + 0.02 * torch.randn((c, t), device="cuda", generator=gen)
-    x[c - NOISE_CHANNELS - 1] = 0.0
-    x[c - NOISE_CHANNELS:] = 0.2 * torch.randn(
-        (NOISE_CHANNELS, t), device="cuda", generator=gen)
+    n_noise = _noise_channels(c)
+    x[c - n_noise - 1] = 0.0
+    x[c - n_noise:] = 0.2 * torch.randn((n_noise, t), device="cuda",
+                                        generator=gen)
     return x
 
 
@@ -513,17 +586,19 @@ def _hold_bits(name: str, got, want) -> float:
     return float((got[3] - want[3]).abs().max())
 
 
-def check_bit_timing(card: str, which: str) -> dict:
-    """The bit-timing kernel at a live chunk's shape (1023, T): reached
+def check_bit_timing(card: str, which: str, c: int = KERNEL_C,
+                     device_time: bool = True) -> dict:
+    """The bit-timing kernel at a live chunk's shape (c, T): reached
     through the demodulator's public call, held bit for bit against the
-    plain loop on the same slicer input, and timed beside its bound."""
+    plain loop on the same slicer input, and timed beside its bound; with
+    `device_time`, its own device time by torch.profiler too."""
     import torch
 
     from sdrtrunk_tpu_torch.convert import tree_map
     from sdrtrunk_tpu_torch.dsp.bit_timing import bit_timing_plain
     from sdrtrunk_tpu_torch.dsp.bit_timing_cuda import bit_timing_cuda
 
-    c, t = KERNEL_C, BIT_T[which]
+    t = BIT_T[which]
     demod, replaces = _bit_demod(which)
     geom, invert = demod.geometry, getattr(demod, "invert", False)
     s0 = tree_map(lambda a: a.expand((c,) + a.shape).clone(),
@@ -550,12 +625,13 @@ def check_bit_timing(card: str, which: str) -> dict:
     # enqueue) by CUDA events, as check_kernel times the others; the
     # kernel's own device time beside it
     kernel_ms = _cuda_ms(run_kernel, reps=20)
-    device_ms = _kernel_device_ms(run_kernel, "bit_timing_kernel")
+    device_ms = (_kernel_device_ms(run_kernel, "bit_timing_kernel")
+                 if device_time else None)
     name = f"bit_timing_{which}"
     err = _hold_bits(name, (bits, valid, s1.window, s1.sampling_point),
                      plain["out"])
     symbols = int(valid.sum())
-    live = valid[:c - NOISE_CHANNELS - 1].sum(1)
+    live = valid[:c - _noise_channels(c) - 1].sum(1)
     nominal = t / geom.sps
     if int(live.min()) < 0.9 * nominal or int(live.max()) > 1.1 * nominal:
         raise AssertionError(f"{name}: {int(live.min())}-{int(live.max())} "
@@ -567,12 +643,15 @@ def check_bit_timing(card: str, which: str) -> dict:
     by_ops = ops / FP32_OPS_PER_S * 1e3
     bound_ms, bound_by = ((by_bytes, "bytes") if by_bytes >= by_ops
                           else (by_ops, "operations"))
+    on_device = ("its device time not measured" if device_ms is None
+                 else f"{device_ms:.4f} ms of it the kernel on the device, "
+                 "profiler")
     print(f"[kernel] {card}: {name} W={geom.window_len} C={c} T={t}: "
           f"identical to the plain loop on all {c} channels (bits, valid, "
           f"window, sampling point; max err {err}), {symbols} symbols; "
           f"kernel {kernel_ms:.4f} ms a call through the wrapper (CUDA "
-          f"events; {device_ms:.4f} ms of it the kernel on the device, "
-          f"profiler) against a {bound_ms:.4f} ms {bound_by} bound "
+          f"events; {on_device}) against a {bound_ms:.4f} ms {bound_by} "
+          f"bound "
           f"({100 * bound_ms / kernel_ms:.2f}% of it), plain "
           f"{plain_ms:.1f} ms", flush=True)
     return {"name": name, "route": "cuda", "source": BIT_SOURCE,
@@ -705,8 +784,10 @@ def check_bit_timing_edges(card: str) -> None:
 
 # --- phases 5-7: the live loops -------------------------------------------
 
-def _p25_streams(total_dibits: int, base_hz: float):
-    """(control, traffic, voice superframe) P25P1 dibit streams."""
+def _p25_streams(total_dibits: int, base_hz: float,
+                 traffic_index: int = TRAFFIC_INDEX):
+    """(control, traffic, voice superframe) P25P1 dibit streams; the
+    control channel grants channel traffic_index of the band at base_hz."""
     import numpy as np
 
     from sdrtrunk_tpu_torch.protocol.bits import from_int
@@ -726,7 +807,7 @@ def _p25_streams(total_dibits: int, base_hz: float):
     iden[32:64] = from_int(int(base_hz / 5), 32)
     grant = np.zeros(64, np.uint8)             # GROUP_VOICE_CHANNEL_GRANT
     grant[8:12] = from_int(1, 4)
-    grant[12:24] = from_int(TRAFFIC_INDEX, 12)
+    grant[12:24] = from_int(traffic_index, 12)
     grant[24:40] = from_int(GROUP, 16)
     grant[40:64] = from_int(SOURCE, 24)
     t_iden = asm.assemble(DUID.TSBK, tsbk_encode(0x3D, iden))
@@ -883,29 +964,110 @@ _KERNEL_LAYER = {"DQPSKDemodulator": "dqpsk_kernel",
                  "GardnerDQPSKDemodulator": "gardner_kernel"}
 
 
+def _chain_layers(orch, dec, dstate, rows, r: dict, prefix: str) -> list:
+    """(name, fn) of each layer of one decoder chain over the select
+    layer's streams r["streams"][rows]: a DQPSK chain's front end (FIR,
+    power, AGC), its symbol kernel and its tail (the bank tier's
+    compaction, sync and packing, or the per-slot path's ``pack_sym``); an
+    analog chain's front at the channel rate (FIR, squelch, FM
+    discriminator and de-emphasis, or envelope and DC removal), the
+    resampler to 8 kHz and its packing (``pack_audio``, or the per-slot
+    casts); an analog-trunking chain's NBFM front and resampler, the
+    slicer's front (DC removal and low-pass, or the 9/10 resampler and the
+    tone correlators), the bit-timing kernel and its packing
+    (``pack_mixed``, or ``pack_sym`` and the casts)."""
+    import torch
+
+    from sdrtrunk_tpu_torch.dsp.bit_timing import bit_timing
+    from sdrtrunk_tpu_torch.dsp.psk import unpack_symbols
+    from sdrtrunk_tpu_torch.runtime.orchestrator import (
+        compact_and_correlate, pack_audio, pack_mixed, pack_sym,
+        sync_patterns)
+
+    def streams():
+        return r["streams"][rows]
+
+    def front():
+        (r["leveled"], _), _ = dec._front(streams(), dstate)
+
+    def kernel():
+        r["packed"], _ = dec.demod._kernel(r["leveled"], dstate["psk"])
+
+    def tail():
+        if orch.bank_mode:
+            compact_and_correlate(*unpack_symbols(r["packed"]),
+                                  orch._bank_cap,
+                                  *sync_patterns(orch.decoder_name))
+        else:
+            pack_sym(*unpack_symbols(r["packed"]))
+
+    if hasattr(dec, "demod"):
+        return [(prefix + "front_end", front),
+                (prefix + _KERNEL_LAYER[type(dec.demod).__name__], kernel),
+                (prefix + "tail", tail)]
+
+    mixed = hasattr(dec, "slicer")
+    analog = dec.nbfm if mixed else dec
+    astate = dstate["nbfm"] if mixed else dstate
+
+    def analog_front():
+        r["audio"], r["gate"], _, _ = analog._front(streams(), astate)
+
+    def resample():
+        r["audio8k"], r["gate8k"] = analog._resample(r["audio"], r["gate"],
+                                                     astate["resamp"])
+
+    def casts():
+        r["audio8k"].to(torch.float32)
+        r["gate8k"].to(torch.int8)
+
+    def pack():
+        if orch.bank_mode:
+            pack_audio(r["audio8k"], r["gate8k"], orch.audio_format)
+        else:
+            casts()
+
+    layers = [(prefix + "analog_front", analog_front),
+              (prefix + "resample", resample)]
+    if not mixed:
+        return layers + [(prefix + "pack", pack)]
+    demod = getattr(dec, dec.slicer)
+    sstate = dstate[dec.slicer]
+
+    def slicer_front():
+        r["sliced"] = demod.front(dec._slice(r["audio8k"]), sstate)[0]
+
+    def timing():
+        r["bits"], r["valid"], _, _ = bit_timing(
+            demod.geometry, r["sliced"], sstate.window,
+            sstate.sampling_point, getattr(demod, "invert", False))
+
+    def pack_m():
+        if orch.bank_mode:
+            pack_mixed(r["audio8k"], r["gate8k"], r["bits"], r["valid"],
+                       orch._bank_bit_cap)
+        else:
+            pack_sym(r["bits"], r["valid"])
+            casts()
+
+    return layers + [(prefix + "slicer_front", slicer_front),
+                     (prefix + "bit_timing_kernel", timing),
+                     (prefix + "pack", pack_m)]
+
+
 def layer_times(orch, iq8) -> dict:
     """Per-chunk device ms of each layer of the live step, on one chunk,
-    from a copy of the running state (CUDA events). A DQPSK chain: ingest
-    + channelize, select + mix, front end (FIR, power, AGC), the symbol
-    kernel, tail (compaction, sync, packing). An analog chain: the same
-    first two, the analog front at the channel rate (FIR, squelch, FM
-    discriminator and de-emphasis, or envelope and DC removal), the
-    resampler to 8 kHz, and the PCM + gate packing. An analog-trunking
-    chain: the NBFM decoder's analog front and resampler, the slicer's
-    front (DC removal and low-pass, or the 9/10 resampler and the tone
-    correlators), the bit-timing kernel, and the mixed packing."""
+    from a copy of the running state (CUDA events): ingest + channelize,
+    select + mix, then each decoder chain's layers (``_chain_layers``);
+    with ``banks``, each bank's under "<bank key>/"."""
     import torch
 
     from sdrtrunk_tpu_torch.convert import tree_map
     from sdrtrunk_tpu_torch.dsp.channelizer import channelize_core
-    from sdrtrunk_tpu_torch.dsp.psk import unpack_symbols
     from sdrtrunk_tpu_torch.receiver import dynamic_select_mix
-    from sdrtrunk_tpu_torch.dsp.bit_timing import bit_timing
-    from sdrtrunk_tpu_torch.runtime.orchestrator import (
-        compact_and_correlate, ingest, pack_audio, pack_mixed, sync_patterns)
+    from sdrtrunk_tpu_torch.runtime.orchestrator import ingest
 
     rx = orch.rx
-    dec = rx.decoder
     state = tree_map(lambda a: a.clone(), orch.state)
     bins, steps = (torch.as_tensor(orch.bins, dtype=torch.long,
                                    device="cuda"),
@@ -922,59 +1084,18 @@ def layer_times(orch, iq8) -> dict:
         r["streams"], _ = dynamic_select_mix(
             r["y"], state["rot"], state["mixer_phase"], bins, steps, rx.rot4)
 
-    def front():
-        (r["leveled"], _), _ = dec._front(r["streams"], state["dec"])
-
-    def kernel():
-        r["packed"], _ = dec.demod._kernel(r["leveled"], state["dec"]["psk"])
-
-    def tail():
-        compact_and_correlate(*unpack_symbols(r["packed"]), orch._bank_cap,
-                              *sync_patterns(orch.decoder_name))
-
-    def analog_front():
-        r["audio"], r["gate"], _, _ = dec._front(r["streams"], state["dec"])
-
-    def resample():
-        r["audio8k"], r["gate8k"] = dec._resample(r["audio"], r["gate"],
-                                                  state["dec"]["resamp"])
-
-    def pack():
-        pack_audio(r["audio8k"], r["gate8k"], orch.audio_format)
-
-    if orch.bank_mixed:
-        slicer, key = dec, dec.slicer          # the nested NBFM chain first
-        dec = slicer.nbfm
-        state = {**state, "dec": state["dec"]["nbfm"]}
-        sstate = orch.state["dec"][key]
-        demod = getattr(slicer, key)
-
-        def slicer_front():
-            r["sliced"] = demod.front(slicer._slice(r["audio8k"]),
-                                      sstate)[0]
-
-        def timing():
-            r["bits"], r["valid"], _, _ = bit_timing(
-                demod.geometry, r["sliced"], sstate.window,
-                sstate.sampling_point, getattr(demod, "invert", False))
-
-        def pack_m():
-            pack_mixed(r["audio8k"], r["gate8k"], r["bits"], r["valid"],
-                       orch._bank_bit_cap)
-
-        layers = (("analog_front", analog_front), ("resample", resample),
-                  ("slicer_front", slicer_front),
-                  ("bit_timing_kernel", timing), ("pack", pack_m))
-    elif orch.bank_analog:
-        layers = (("analog_front", analog_front), ("resample", resample),
-                  ("pack", pack))
+    layers = [("ingest_channelize", chan), ("select_mix", select)]
+    if orch.banks is None:
+        layers += _chain_layers(orch, rx.decoder, state["dec"],
+                                slice(None), r, "")
     else:
-        layers = (("front_end", front),
-                  (_KERNEL_LAYER[type(dec.demod).__name__], kernel),
-                  ("tail", tail))
+        off = 0
+        for key, _, n, dec in rx.banks:
+            layers += _chain_layers(orch, dec, state[key],
+                                    slice(off, off + n), r, f"{key}/")
+            off += n
     out = {}
-    for name, fn in (("ingest_channelize", chan), ("select_mix", select),
-                     *layers):
+    for name, fn in layers:
         fn()
         out[name] = _cuda_ms(fn, reps=3)
     return out
@@ -1016,18 +1137,34 @@ def device_busy_ms(orch, iq8, chunks: int = 2) -> float:
     return busy / 1e6 / chunks
 
 
-def drive(orch, kernel: str | None, chunks: int, warmup: int) -> dict:
+def _host_layer(orch):
+    """(object, name) of the live loop's host layer, timed by ``drive``:
+    the bank framer's ``frame_chunk`` for a digital bank, ``route_audio``
+    for an analog one, ``route_mixed`` for an analog-trunking one, the
+    worker process's round trip ``process_chunk`` (its framing and routing
+    included) with ``host_process``, and the per-slot processors'
+    ``_route_slots`` on the per-slot path and with ``banks``."""
+    if orch.bank_host is not None:
+        return orch.bank_host, "process_chunk"
+    if not orch.bank_mode:
+        return orch, "_route_slots"
+    return orch.bank_proc, ("route_mixed" if orch.bank_mixed else
+                            "route_audio" if orch.bank_analog else
+                            "frame_chunk")
+
+
+def drive(orch, expect: dict, chunks: int, warmup: int,
+          before_timed=None) -> dict:
     """Run the live loop for `chunks` chunks (the first `warmup` untimed)
     with every kernel's launch count set to 0 just before and read just
     after. Checks that every live-step output lay on the card and that
-    only `kernel` launched, once per chunk; with kernel None (an analog
-    bank) that no kernel launched. The host layer is timed: the bank
-    framer's ``frame_chunk`` for a digital bank, ``route_audio`` for an
-    analog one, ``route_mixed`` for an analog-trunking one. Returns timing
-    and counts."""
+    each kernel launched as `expect` says ({kernels-line entry: launches a
+    chunk}, as the wrappers counted them by timing gain or window length;
+    an entry not named, none). ``before_timed(orch)``, when given, runs
+    between the warm-up and the timed chunks. The host layer
+    (``_host_layer``) is timed. Returns timing and counts."""
     import torch
 
-    counters = _launch_counters()
     devices = set()
     step = orch.step
 
@@ -1037,9 +1174,8 @@ def drive(orch, kernel: str | None, chunks: int, warmup: int) -> dict:
         return out, st
     orch.step = spy_step
     host = {"s": 0.0}
-    host_layer = ("route_mixed" if orch.bank_mixed else
-                  "route_audio" if orch.bank_analog else "frame_chunk")
-    host_fn = getattr(orch.bank_proc, host_layer)
+    host_obj, host_layer = _host_layer(orch)
+    host_fn = getattr(host_obj, host_layer)
 
     def timed_host(*args):
         f0 = time.perf_counter()
@@ -1047,28 +1183,28 @@ def drive(orch, kernel: str | None, chunks: int, warmup: int) -> dict:
             return host_fn(*args)
         finally:
             host["s"] += time.perf_counter() - f0
-    setattr(orch.bank_proc, host_layer, timed_host)
+    setattr(host_obj, host_layer, timed_host)
 
-    for fn in counters.values():               # count the main path only
-        fn.launches = 0
+    _reset_launches()                           # count the main path only
     orch.run(max_chunks=warmup)
     torch.cuda.synchronize()
+    if before_timed is not None:
+        before_timed(orch)
     host["s"] = 0.0
     t0 = time.perf_counter()
     metrics = orch.run(max_chunks=chunks - warmup)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _read_launches()
 
     timed = orch.chunk_samples * (chunks - warmup)
-    want = {name: chunks if name == kernel else 0 for name in counters}
+    want = {entry: chunks * expect.get(entry, 0) for entry in _ENTRY_KEYS}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} for {chunks} "
                              f"chunks (expected {want})")
     if devices != {"cuda"}:
         raise AssertionError(f"live step outputs on {devices}")
-    return {"metrics": metrics,
-            "launches": launches[kernel] if kernel is not None else 0,
+    return {"metrics": metrics, "launches": launches,
             "wall_ms_per_chunk": elapsed * 1e3 / (chunks - warmup),
             "msps": timed / elapsed / 1e6,
             "realtime_factor": timed / elapsed / FS,
@@ -1099,19 +1235,26 @@ def _coverage(orch, slot_hz):
     return np.array([by_freq[f]["frames"] for f in slot_hz])
 
 
-def run_c4fm(card: str) -> dict:
+# phase 5's synthesized chunks and record, which the worker phase reuses
+_C4FM: dict = {}
+
+
+def _c4fm_scene():
+    """Phase 5's scene: the channelizer, the 1023 slot offsets, the
+    wideband chunks (made once, kept for the worker phase), the
+    synthesis seconds."""
     import numpy as np
     import torch
 
-    from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
-    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
     from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
-    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
 
     chunk = M * CHUNK_BLOCKS
     ch = Channelizer.design(FS, 12500.0, device="cuda")
     assert ch.channels == M
     offsets = [(i - M // 2 + 1) * 12500.0 for i in range(SLOTS)]
+    if "chunks" in _C4FM:
+        return ch, offsets, _C4FM["chunks"], 0.0
     t0 = time.perf_counter()
     rate = ch.channel_sample_rate
     n_ch = (WARMUP + TIMED + 1) * (2 * chunk // M)
@@ -1123,13 +1266,22 @@ def run_c4fm(card: str) -> dict:
         streams[row] = torch.as_tensor(
             c4fm_modulate(dib, rate)[:n_ch].astype(np.complex64),
             device="cuda")
-    chunks = synthesize_chunks(ch, streams, offsets, WARMUP + TIMED)
-    synth_s = time.perf_counter() - t0
+    _C4FM["chunks"] = synthesize_chunks(ch, streams, offsets, WARMUP + TIMED)
+    return ch, offsets, _C4FM["chunks"], time.perf_counter() - t0
+
+
+def _c4fm_orchestrator(chunks, offsets, **kw):
+    """Phase 5's orchestrator: the 1023-slot C4FM bank, every voice slot
+    activated, the granted channel's slot left free. Returns (orch, the
+    traffic channel's Hz, the voice slots' Hz)."""
+    from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
 
     orch = Orchestrator(_source(chunks), FS, CENTER_HZ, [offsets[0]],
-                        slots=SLOTS, decoder="c4fm", chunk_samples=chunk,
+                        slots=SLOTS, decoder="c4fm",
+                        chunk_samples=M * CHUNK_BLOCKS,
                         idle_teardown_seconds=1e9, ppm_correction=False,
-                        bank_mode=True, device="cuda")
+                        bank_mode=True, device="cuda", **kw)
     traffic_hz = CENTER_HZ + offsets[TRAFFIC_INDEX]
     voice_hz = [CENTER_HZ + o for i, o in enumerate(offsets)
                 if i not in (0, TRAFFIC_INDEX)]
@@ -1137,37 +1289,55 @@ def run_c4fm(card: str) -> dict:
         orch._activate(f, IdentifierCollection())
     if sum(s.active for s in orch.slots) != SLOTS - 1:
         raise AssertionError("voice slots did not all activate")
+    return orch, traffic_hz, voice_hz
 
-    run = drive(orch, "dqpsk", WARMUP + TIMED, WARMUP)
-    voice_frames = _coverage(orch, voice_hz)
+
+def _c4fm_checks(orch, traffic_hz, voice_hz):
+    """Phase 5's coverage: the grant followed, frames on the granted slot
+    and on >= 99% of the voice slots, an AudioSegment."""
     status = {s["frequency_hz"]: s for s in orch.channel_status()}
     traffic = status.get(traffic_hz)
+    voice_frames = _coverage(orch, voice_hz)
     segs = [s for s in orch.audio_segments if s.duration > 0]
-    result = {
-        "card": card, "decoder": "c4fm", "slots": SLOTS,
-        "wideband_msps": FS / 1e6, "chunk_samples": chunk,
-        "timed_chunks": TIMED,
+    found = {
         "frames": int(sum(s["frames"] for s in status.values())),
         "voice_slots_with_frames": int((voice_frames > 0).sum()),
         "voice_slots": len(voice_hz),
         "traffic_frames": None if traffic is None else traffic["frames"],
         "events": len(orch.events), "audio_segments": len(segs),
-        "skipped_grants": len(orch.skipped_grants),
+        "skipped_grants": len(orch.skipped_grants)}
+
+    def check():
+        if traffic is None or not any(
+                s.active and s.frequency_hz == traffic_hz for s in orch.slots):
+            raise AssertionError("the grant did not activate the traffic "
+                                 "slot")
+        if not traffic["frames"]:
+            raise AssertionError("no frames decoded on the granted slot")
+        if (voice_frames > 0).mean() < 0.99:
+            raise AssertionError(f"frames on only {(voice_frames > 0).sum()} "
+                                 f"of {len(voice_hz)} voice slots")
+        if not segs:
+            raise AssertionError("no AudioSegment")
+    return found, check
+
+
+def run_c4fm(card: str) -> dict:
+    ch, offsets, chunks, synth_s = _c4fm_scene()
+    orch, traffic_hz, voice_hz = _c4fm_orchestrator(chunks, offsets)
+    run = drive(orch, {"dqpsk": 1}, WARMUP + TIMED, WARMUP)
+    found, check = _c4fm_checks(orch, traffic_hz, voice_hz)
+    result = {
+        "card": card, "decoder": "c4fm", "slots": SLOTS,
+        "wideband_msps": FS / 1e6, "chunk_samples": orch.chunk_samples,
+        "timed_chunks": TIMED, **found,
         "active_channels": run["metrics"].get("active_channels"),
         **_loop_record(orch, chunks[-1], run),
         "synthesis_s": synth_s,
     }
     print("[live c4fm] " + json.dumps(result), flush=True)
-    if traffic is None or not any(s.active and s.frequency_hz == traffic_hz
-                                  for s in orch.slots):
-        raise AssertionError("the grant did not activate the traffic slot")
-    if not traffic["frames"]:
-        raise AssertionError("no frames decoded on the granted slot")
-    if (voice_frames > 0).mean() < 0.99:
-        raise AssertionError(f"frames on only {(voice_frames > 0).sum()} of "
-                             f"{len(voice_hz)} voice slots")
-    if not segs:
-        raise AssertionError("no AudioSegment")
+    _C4FM["result"] = result
+    check()
     return result
 
 
@@ -1205,7 +1375,7 @@ def run_p25p2(card: str) -> dict:
         orch.bank_proc.framer.set_scramble_parameters(s, *P25P2_KEY)
         orch.bank_proc.states[s].scramble_key = P25P2_KEY
 
-    run = drive(orch, "gardner", WARMUP + TIMED, WARMUP)
+    run = drive(orch, {"gardner_p25p2": 1}, WARMUP + TIMED, WARMUP)
     voice_frames = _coverage(orch, voice_hz)
     segs = [s for s in orch.audio_segments if s.duration > 0]
     result = {
@@ -1251,7 +1421,7 @@ def run_lsm(card: str) -> dict:
     slot_hz = [CENTER_HZ + o for o in offsets]
     for f in slot_hz[1:]:
         orch._activate(f, IdentifierCollection())
-    run = drive(orch, "gardner", LSM_CHUNKS, 1)
+    run = drive(orch, {"gardner_lsm": 1}, LSM_CHUNKS, 1)
     frames = _coverage(orch, slot_hz)
     result = {"card": card, "decoder": "lsm", "slots": LSM_SLOTS,
               "chunks": LSM_CHUNKS, "frames": int(frames.sum()),
@@ -1373,7 +1543,7 @@ def run_dmr(card: str) -> dict:
     if sum(s.active for s in orch.slots) != SLOTS - 1:
         raise AssertionError("voice slots did not all activate")
 
-    run = drive(orch, "dqpsk", WARMUP + TIMED, WARMUP)
+    run = drive(orch, {"dqpsk_dmr": 1}, WARMUP + TIMED, WARMUP)
     voice_frames = _coverage(orch, voice_hz)
     status = {s["frequency_hz"]: s for s in orch.channel_status()}
     granted = status.get(traffic_hz)
@@ -1454,7 +1624,7 @@ def _analog_loop(card: str, decoder: str, streams, offsets, warmup: int,
         return segs
     orch.bank_proc.drain_audio = drain_long
 
-    run = drive(orch, None, chunks_total, warmup)
+    run = drive(orch, {}, chunks_total, warmup)
     modules = orch.bank_proc.modules
     long_audio = np.array([
         s in long_done or (modules[s].segment is not None
@@ -1591,7 +1761,8 @@ def _mixed_loop(card: str, decoder: str, streams, offsets, free: set,
         return segs
     orch.bank_proc.drain_audio = drain_long
 
-    run = drive(orch, "bit_timing", chunks_total, warmup)
+    entry = {"ltr": "bit_timing_ltr", "mpt1327": "bit_timing_afsk"}[decoder]
+    run = drive(orch, {entry: 1}, chunks_total, warmup)
     for s, proc in enumerate(orch.bank_proc.procs):
         if proc is not None and proc.audio.segment is not None \
                 and proc.audio.segment.duration > 1.0:
@@ -1763,18 +1934,566 @@ def run_mpt1327(card: str) -> dict:
     return result
 
 
+# --- the per-slot path, banks= and the worker process ---------------------
+
+def _offset(channel: int) -> float:
+    """Baseband offset of channel index `channel` of the 1023-slot grid."""
+    return (channel - M // 2 + 1) * 12500.0
+
+
+def _slot_channels():
+    """The per-slot phases' SLOT_COUNT channels, within the middle half of
+    the grid so that they stay in coverage at half the sample rate: a
+    control channel, the one it grants SLOTS_TRAFFIC_INDEX channels above
+    (its slot left free), and the voice channels spread over the rest."""
+    lo, hi = M // 4, 3 * M // 4 - 2
+    traffic = lo + SLOTS_TRAFFIC_INDEX
+    rest = [c for c in range(lo + 1, hi + 1) if c != traffic]
+    voice = rest[::len(rest) // (SLOT_COUNT - 2)][:SLOT_COUNT - 2]
+    return [_offset(i) for i in (lo, traffic, *voice)]
+
+
+def _spread_channels():
+    """The multibank's SLOT_COUNT channels: phase 5's control channel and
+    the one it grants, and the others spread over the grid."""
+    rest = [c for c in range(1, SLOTS) if c != TRAFFIC_INDEX]
+    others = rest[::len(rest) // (SLOT_COUNT - 2)][:SLOT_COUNT - 2]
+    return [_offset(i) for i in (0, TRAFFIC_INDEX, *others)]
+
+
+def _dibit_rows(rows, modulate, n_ch: int):
+    """(len(rows), n_ch) complex64 on the card: each dibit stream of rows
+    modulated and cut to n_ch samples."""
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.stack([modulate(d)[:n_ch] for d in rows])
+                           .astype(np.complex64), device="cuda")
+
+
+def _count_valid(orch, slot: int, counted: dict):
+    """Wrap the download half so that it counts `slot`'s valid dibits."""
+    pull = orch._pull
+
+    def counting_pull(out, now):
+        host = pull(out, now)
+        counted["dibits"] += int(((host["sym"][slot] >> 2) > 0).sum())
+        return host
+    orch._pull = counting_pull
+
+
+def _taps_and_rate_change(orch, voice_slot: int, entry: str, chunk: int,
+                          tmp, counted: dict) -> dict:
+    """Hold the IQ tap's file (the timed chunks' samples at the capture's
+    rate) and the bits tap's (the slot's valid dibits, 4 a byte, padded
+    to a whole byte) after the taps were stopped, then send one
+    SAMPLE_RATE_CHANGE to FS / 2 and run one chunk of noise on the
+    rebuilt receiver, the kernel of kernels-line entry `entry` launched
+    once."""
+    import wave
+
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.sources.tuner import SourceEvent, SourceEventType
+
+    orch.stop_iq_recording()
+    orch.stop_bits_recording(voice_slot)
+    with wave.open(str(tmp / "wideband_iq.wav"), "rb") as wf:
+        iq_frames, iq_rate = wf.getnframes(), wf.getframerate()
+    bits_bytes = (tmp / "voice.bits").stat().st_size
+    if iq_frames != TIMED * chunk or iq_rate != int(FS):
+        raise AssertionError(f"IQ tap: {iq_frames} samples at {iq_rate}, "
+                             f"not {TIMED * chunk} at {int(FS)}")
+    if bits_bytes != -(-counted["dibits"] // 4) or not counted["dibits"]:
+        raise AssertionError(f"bits tap: {bits_bytes} bytes for "
+                             f"{counted['dibits']} valid dibits")
+    found = {"iq_tap_samples": iq_frames,
+             "iq_tap_ms_per_chunk": counted["iq_tap_s"] * 1e3 / TIMED,
+             "bits_tap_dibits": counted["dibits"],
+             "bits_tap_bytes": bits_bytes}
+
+    _reset_launches()
+    before = orch.samples_processed
+    orch.on_source_event(SourceEvent(SourceEventType.SAMPLE_RATE_CHANGE,
+                                     value=FS / 2))
+    rng = np.random.default_rng(5)
+    orch.source = lambda n: rng.integers(-20, 21, (n, 2)).astype(np.int8)
+    metrics = orch.run(max_chunks=1)
+    launched = _read_launches()
+    found.update({
+        "rate_change_bins": orch.rx.channelizer.channels,
+        "rate_change_chunk_samples": orch.chunk_samples,
+        "rate_change_active_channels": metrics.get("active_channels"),
+        "rate_change_launches": launched})
+    if orch.rx.channelizer.channels != M // 2 \
+            or orch.samples_processed - before != orch.chunk_samples \
+            or launched != {e: int(e == entry) for e in _ENTRY_KEYS} \
+            or not orch.slots[0].active \
+            or orch.rx.channelizer.hmat.device.type != "cuda":
+        raise AssertionError(f"after the sample-rate change: {found}")
+    return found
+
+
+def _slots_loop(card: str, decoder: str, streams, offsets, entry: str,
+                prepare=None) -> tuple:
+    """The per-slot live loop at 12.8 MS/s over SLOT_COUNT slots (the
+    most bank_mode=None keeps off the bank tier): WARMUP + TIMED chunks of
+    M x CHUNK_BLOCKS, every voice slot activated, the granted channel's
+    slot left free, the kernel of kernels-line entry `entry` launched
+    once a chunk. An IQ tap and a bits tap on the first voice slot run
+    through the timed chunks; then the sample rate halves
+    (``_taps_and_rate_change``). Returns (orch, record, the voice slots'
+    Hz)."""
+    import tempfile
+    from pathlib import Path
+
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+    from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+
+    chunk = M * CHUNK_BLOCKS
+    ch = Channelizer.design(FS, 12500.0, device="cuda")
+    t0 = time.perf_counter()
+    chunks = synthesize_chunks(ch, streams, offsets, WARMUP + TIMED)
+    synth_s = time.perf_counter() - t0
+    orch = Orchestrator(_source(chunks), FS, CENTER_HZ, [offsets[0]],
+                        slots=SLOT_COUNT, decoder=decoder,
+                        chunk_samples=chunk, idle_teardown_seconds=1e9,
+                        ppm_correction=False, device="cuda")
+    if orch.bank_mode:
+        raise AssertionError("bank_mode=None took the bank tier")
+    voice_hz = [CENTER_HZ + o for o in offsets[2:]]
+    for f in voice_hz:
+        orch._activate(f, IdentifierCollection())
+    if sum(s.active for s in orch.slots) != SLOT_COUNT - 1:
+        raise AssertionError("voice slots did not all activate")
+    if prepare is not None:
+        prepare(orch)
+    voice_slot = next(s.index for s in orch.slots
+                      if s.frequency_hz == voice_hz[0])
+    counted = {"dibits": 0, "iq_tap_s": 0.0}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        def start_taps(o):
+            o.start_iq_recording(tmp / "wideband_iq.wav")
+            o.start_bits_recording(voice_slot, tmp / "voice.bits")
+            _count_valid(o, voice_slot, counted)
+            write = o._iq_writer.write
+
+            def timed_write(iq):            # the IQ tap's main-thread cost
+                t0 = time.perf_counter()
+                write(iq)
+                counted["iq_tap_s"] += time.perf_counter() - t0
+            o._iq_writer.write = timed_write
+
+        run = drive(orch, {entry: 1}, WARMUP + TIMED, WARMUP,
+                    before_timed=start_taps)
+        record = _loop_record(orch, chunks[-1], run)
+        taps = _taps_and_rate_change(orch, voice_slot, entry, chunk, tmp,
+                                     counted)
+    return orch, {"card": card, "decoder": decoder, "slots": SLOT_COUNT,
+                  "bank_mode": orch.bank_mode, "wideband_msps": FS / 1e6,
+                  "chunk_samples": chunk, "timed_chunks": TIMED,
+                  "active_channels": run["metrics"].get("active_channels"),
+                  **record, **taps, "synthesis_s": synth_s}, voice_hz
+
+
+def _granted(orch, hz: float, kind: str | None = None):
+    """The active traffic slot tuned to hz (a grant's frequency is the
+    band plan's sum, which may differ from hz in the last bit), or
+    None."""
+    return next((s for s in orch.slots if s.active and not s.is_control
+                 and abs(s.frequency_hz - hz) < 1.0
+                 and kind in (None, s.kind)), None)
+
+
+def _slot_frames(orch, hz) -> list:
+    by_freq = {s.frequency_hz: s for s in orch.slots}
+    return [by_freq[f].processor.frame_count for f in hz]
+
+
+def run_slots(card: str) -> dict:
+    """The per-slot C4FM path: a control channel granting a traffic
+    channel whose slot is left free, and 29 voice slots of LDU1 / LDU2 /
+    TDULC cycles at random phases."""
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    rate = 25000.0
+    n_ch = (WARMUP + TIMED + 1) * (2 * CHUNK_BLOCKS)
+    offsets = _slot_channels()
+    control, traffic, superframe = _p25_streams(
+        int(n_ch / rate * 4800) + 64, CENTER_HZ + offsets[0],
+        SLOTS_TRAFFIC_INDEX)
+    streams = _tiled_streams(superframe, lambda d: c4fm_modulate(d, rate),
+                             rate / 4800.0, SLOT_COUNT, n_ch, seed=0)
+    streams[:2] = _dibit_rows((control, traffic),
+                              lambda d: c4fm_modulate(d, rate), n_ch)
+    orch, result, voice_hz = _slots_loop(card, "c4fm", streams, offsets,
+                                         "dqpsk")
+    granted = _granted(orch, CENTER_HZ + offsets[1])
+    voice = np.array(_slot_frames(orch, voice_hz))
+    segs = [s for s in orch.audio_segments if s.duration > 0]
+    result.update({
+        "traffic_frames": None if granted is None
+        else granted.processor.frame_count,
+        "voice_slots_with_frames": int((voice > 0).sum()),
+        "voice_slots": len(voice_hz), "events": len(orch.events),
+        "audio_segments": len(segs),
+        "skipped_grants": len(orch.skipped_grants)})
+    print("[live slots] " + json.dumps(result), flush=True)
+    if granted is None or not granted.processor.frame_count:
+        raise AssertionError("slots: the grant was not followed, or no "
+                             "frames on the granted slot")
+    if not (voice > 0).all():
+        raise AssertionError(f"slots: frames on only {(voice > 0).sum()} "
+                             f"of {len(voice_hz)} voice slots")
+    if not segs:
+        raise AssertionError("slots: no AudioSegment")
+    return result
+
+
+def _p25p2_control(total_dibits: int, base_hz: float):
+    """A P25P2 control channel (tests/test_orchestrator_protocols.py's):
+    an unscrambled network status MAC that teaches the scramble key and an
+    IDEN_UP of the band at base_hz, then MAC grants of channel
+    SLOTS_TRAFFIC_INDEX to GROUP, the network status and IDEN_UP again
+    every fourth fragment."""
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.protocol.bits import from_int
+    from sdrtrunk_tpu_torch.protocol.p25p2 import P25P2FragmentAssembler
+    from sdrtrunk_tpu_torch.protocol.p25p2.mac import (build_mac_pdu,
+                                                       mac_structure_encode)
+    from sdrtrunk_tpu_torch.protocol.p25p2.timeslot import (MacPduType,
+                                                            facch_encode)
+
+    wacn, system, nac = P25P2_KEY
+    net = mac_structure_encode(123, {
+        "wacn": wacn, "system_id": system, "color_code": nac,
+        "frequency_band": 1, "channel_number": 2})
+    iden = np.zeros(72, np.uint8)
+    iden[0:8] = from_int(125, 8)
+    iden[8:12] = from_int(1, 4)                 # band id 1
+    iden[12:21] = from_int(100, 9)              # 12.5 kHz bandwidth
+    iden[30:40] = from_int(100, 10)             # 12.5 kHz spacing
+    iden[40:72] = from_int(int(base_hz / 5), 32)
+    grant = mac_structure_encode(64, {
+        "service_options": 0, "frequency_band": 1,
+        "channel_number": SLOTS_TRAFFIC_INDEX, "group_address": GROUP,
+        "source_address": SOURCE})
+
+    def facch(pdu_type, structures):
+        return facch_encode(build_mac_pdu(pdu_type, structures, 156),
+                            scrambled=False)
+    f_net, f_iden = (facch(MacPduType.ACTIVE, [net]),
+                     facch(MacPduType.ACTIVE, [iden]))
+    f_grant, idle = (facch(MacPduType.ACTIVE, [grant]),
+                     facch(MacPduType.IDLE, []))
+    asm = P25P2FragmentAssembler(wacn=wacn, system=system, nac=nac)
+    frags = [asm.assemble(0, [f_net, f_iden, f_net, f_iden])]
+    per = len(P25P2FragmentAssembler.to_dibits(frags[:1]))
+    i = 1
+    while len(frags) * per < total_dibits:
+        body = ([f_net, f_iden, f_net, f_iden] if i % 4 == 0
+                else [f_grant, idle, f_grant, idle])
+        frags.append(asm.assemble(i % 3, body))
+        i += 1
+    rng = np.random.default_rng(41)
+    return np.concatenate([rng.integers(0, 4, 200).astype(np.uint8),
+                           P25P2FragmentAssembler.to_dibits(frags)])
+
+
+def run_slots_p25p2(card: str) -> dict:
+    """The per-slot P25 Phase 2 path: the control channel's network status
+    teaches the scramble key, its grant activates the free slot with the
+    key handed over, and 29 voice slots of scrambled PTT + VOICE_4 cycles
+    (their key set on activation, as phase 6 sets it)."""
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.signal.generators import lsm_modulate
+
+    rate = 25000.0
+    n_ch = (WARMUP + TIMED + 1) * (2 * CHUNK_BLOCKS)
+    offsets = _slot_channels()
+    total = int(n_ch / rate * 6000) + 64
+    cycle = _p25p2_cycle()
+    rng = np.random.default_rng(43)
+    traffic = np.concatenate([rng.integers(0, 4, int(1.3 * 6000))
+                              .astype(np.uint8)]
+                             + [cycle] * (total // len(cycle) + 1))
+    modulate = lambda d: lsm_modulate(d, sample_rate=rate,  # noqa: E731
+                                      symbol_rate=6000.0)
+    streams = _tiled_streams(cycle, modulate, rate / 6000.0, SLOT_COUNT,
+                             n_ch, seed=0)
+    streams[:2] = _dibit_rows(
+        (_p25p2_control(total, CENTER_HZ + offsets[0]), traffic),
+        modulate, n_ch)
+
+    def set_voice_keys(orch):
+        for s in orch.slots:
+            if s.active and not s.is_control:
+                s.processor.framer.set_scramble_parameters(*P25P2_KEY)
+                s.processor.state.scramble_key = P25P2_KEY
+
+    orch, result, voice_hz = _slots_loop(card, "p25p2", streams, offsets,
+                                         "gardner_p25p2",
+                                         prepare=set_voice_keys)
+    control = next(s for s in orch.slots if s.is_control)
+    granted = _granted(orch, CENTER_HZ + offsets[1])
+    voice = np.array(_slot_frames(orch, voice_hz))
+    segs = [s for s in orch.audio_segments if s.duration > 0]
+    result.update({
+        "control_key": None if control.processor.state.scramble_key is None
+        else [hex(v) for v in control.processor.state.scramble_key],
+        "granted_key_handed_over": granted is not None
+        and granted.processor.state.scramble_key == P25P2_KEY,
+        "traffic_fragments": None if granted is None
+        else granted.processor.frame_count,
+        "voice_slots_with_fragments": int((voice > 0).sum()),
+        "voice_slots": len(voice_hz), "audio_segments": len(segs)})
+    print("[live slots_p25p2] " + json.dumps(result), flush=True)
+    if control.processor.state.scramble_key != P25P2_KEY:
+        raise AssertionError("slots_p25p2: the control slot did not learn "
+                             "the scramble key")
+    if not result["granted_key_handed_over"] \
+            or not granted.processor.frame_count:
+        raise AssertionError("slots_p25p2: the granted slot did not get the "
+                             "learned key, or decoded no fragment")
+    if not (voice > 0).all():
+        raise AssertionError(f"slots_p25p2: fragments on only "
+                             f"{(voice > 0).sum()} of {len(voice_hz)} voice "
+                             "slots")
+    if not segs:
+        raise AssertionError("slots_p25p2: no AudioSegment")
+    return result
+
+
+def run_multibank(card: str) -> dict:
+    """banks=[("c4fm", 11), ("dmr", 10), ("ltr", 10)] behind one
+    channelizer: a P25 control channel granting a traffic channel (a c4fm
+    slot left free) and 9 C4FM voice slots; 10 DMR voice slots of the call
+    cycle; 10 LTR carriers, each a voice tone plus CALL words of its own
+    group. Chunks of M x MIXED_BLOCKS, 2 + 4."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+    from sdrtrunk_tpu_torch.protocol.ltr.messages import ltr_encode_word
+    from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    n_c4fm, n_dmr, n_ltr = (n for _, n in MULTIBANK)
+    total = MB_WARMUP + MB_TIMED
+    rate = 25000.0
+    n_ch = (total + 1) * (2 * MIXED_BLOCKS)
+    offsets = _spread_channels()
+    t0 = time.perf_counter()
+    control, traffic, superframe = _p25_streams(
+        int(n_ch / rate * 4800) + 64, CENTER_HZ + offsets[0])
+    mod = lambda d: c4fm_modulate(d, rate)  # noqa: E731
+    call = _dmr_streams(int(n_ch / rate * 4800) + 64)[2]
+    rng = np.random.default_rng(17)
+    ident = [(k % 5 + 1, 10 * k + 3) for k in range(n_ltr)]
+    words = torch.as_tensor(np.stack([ltr_encode_word(0, h, h, g, h)
+                                      for h, g in ident]), device="cuda")
+    start = torch.as_tensor(rng.integers(0, 40 * 84, n_ltr), device="cuda")
+    data = 0.35 * _square_fsk(words, n_ch, rate / 300.0, start)
+    streams = torch.cat([
+        _dibit_rows((control, traffic), mod, n_ch),
+        _tiled_streams(superframe, mod, rate / 4800.0, n_c4fm - 2, n_ch, 0),
+        _tiled_streams(call, mod, rate / 4800.0, n_dmr, n_ch, 1),
+        _fm_streams(data.double() + _voice(n_ltr, n_ch, rate, rng, 0.5),
+                    rate)])
+    ch = Channelizer.design(FS, 12500.0, device="cuda")
+    chunks = synthesize_chunks(ch, streams, offsets, total, MIXED_BLOCKS)
+    synth_s = time.perf_counter() - t0
+
+    orch = Orchestrator(_source(chunks), FS, CENTER_HZ, [offsets[0]],
+                        banks=MULTIBANK, chunk_samples=M * MIXED_BLOCKS,
+                        idle_teardown_seconds=1e9, ppm_correction=False,
+                        device="cuda")
+    hz = [CENTER_HZ + o for o in offsets]
+    kinds = (["c4fm"] * (n_c4fm - 2) + ["dmr"] * n_dmr + ["ltr"] * n_ltr)
+    for f, kind in zip(hz[2:], kinds):
+        orch._activate(f, IdentifierCollection(), kind=kind)
+    if sum(s.active for s in orch.slots) != SLOT_COUNT - 1:
+        raise AssertionError("multibank: slots did not all activate")
+    long_audio = set()
+    for s in orch.slots:
+        if s.kind == "ltr":
+            drain = s.processor.drain_audio
+
+            def drain_long(drain=drain, index=s.index):
+                segs = drain()
+                if any(g.duration > 1.0 for g in segs):
+                    long_audio.add(index)
+                return segs
+            s.processor.drain_audio = drain_long
+
+    # one DQPSK launch a chunk for each of the two digital banks (gain 0.3
+    # for c4fm, 0.4 for dmr) and one bit-timing launch for the ltr bank
+    run = drive(orch, {"dqpsk": 1, "dqpsk_dmr": 1, "bit_timing_ltr": 1},
+                total, MB_WARMUP)
+    granted = _granted(orch, hz[1], "c4fm")
+    by_kind = {k: [s for s in orch.slots if s.kind == k and s.active
+                   and not s.is_control and s is not granted]
+               for k, _ in MULTIBANK}
+    calls = []
+    for s, want in zip(by_kind["ltr"], ident):
+        own = [m for m in s.processor.messages
+               if m.message_type.name == "CALL"
+               and (m.home, m.group) == want]
+        calls.append(len(own))
+        seg = s.processor.audio.segment
+        if seg is not None and seg.duration > 1.0:
+            long_audio.add(s.index)
+    dmr_frames = [s.processor.frame_count for s in by_kind["dmr"]]
+    c4fm_frames = [s.processor.frame_count for s in by_kind["c4fm"]]
+    segs = [s for s in orch.audio_segments if s.duration > 0]
+    result = {
+        "card": card, "banks": MULTIBANK, "slots": SLOT_COUNT,
+        "wideband_msps": FS / 1e6, "chunk_samples": orch.chunk_samples,
+        "timed_chunks": MB_TIMED,
+        "traffic_frames": None if granted is None
+        else granted.processor.frame_count,
+        "c4fm_voice_slots_with_frames": sum(f > 0 for f in c4fm_frames),
+        "dmr_voice_slots_with_frames": sum(f > 0 for f in dmr_frames),
+        "ltr_slots_with_own_call_words": sum(c > 0 for c in calls),
+        "ltr_slots_with_audio_over_1s": len(long_audio),
+        "audio_segments": len(segs), "events": len(orch.events),
+        "active_channels": run["metrics"].get("active_channels"),
+        **_loop_record(orch, chunks[-1], run),
+        "synthesis_s": synth_s}
+    print("[live multibank] " + json.dumps(result), flush=True)
+    if granted is None or not granted.processor.frame_count:
+        raise AssertionError("multibank: the P25 grant was not followed, or "
+                             "no frames on the granted slot")
+    if not all(c4fm_frames) or not all(dmr_frames):
+        raise AssertionError(f"multibank: frames C4FM {c4fm_frames}, DMR "
+                             f"{dmr_frames}")
+    if not all(calls) or len(long_audio) != n_ltr:
+        raise AssertionError(f"multibank: LTR CALL words of the slot's own "
+                             f"group {calls}, audio over 1 s on "
+                             f"{len(long_audio)} of {n_ltr}")
+    if not segs:
+        raise AssertionError("multibank: no AudioSegment")
+    return result
+
+
+def _nvidia_holders(pids) -> dict:
+    """Which of `pids` hold the card: the compute apps nvidia-smi lists,
+    and each pid's open /dev/nvidia* files (a CUDA context opens the
+    device files; importing torch does not)."""
+    import os
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    listed = {int(p) for p in out.split() if p.strip().isdigit()}
+    held = {}
+    for pid in pids:
+        fd_dir = f"/proc/{pid}/fd"
+        names = set()
+        for fd in os.listdir(fd_dir):
+            try:
+                target = os.readlink(os.path.join(fd_dir, fd))
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                names.add(target)
+        held[pid] = {"nvidia_smi": pid in listed,
+                     "device_files": sorted(names)}
+    return held
+
+
+def run_worker(card: str) -> dict:
+    """Phase 5's 1023-slot C4FM bank with host_process=True: the bank's
+    host layer in a worker process, 2 + 3 chunks, phase 5's coverage
+    checks. While it runs, the worker must hold no CUDA context: its pid
+    not among nvidia-smi's compute apps and no /dev/nvidia* file open,
+    where this process holds the device files."""
+    import os
+
+    ch, offsets, chunks, synth_s = _c4fm_scene()
+    orch, traffic_hz, voice_hz = _c4fm_orchestrator(chunks, offsets,
+                                                    host_process=True)
+    try:
+        worker_pid = orch.bank_host._proc.pid
+        seen = {}
+
+        def check_context(o):
+            seen.update(_nvidia_holders([os.getpid(), worker_pid]))
+
+        run = drive(orch, {"dqpsk": 1}, WORKER_WARMUP + WORKER_TIMED,
+                    WORKER_WARMUP, before_timed=check_context)
+        after = _nvidia_holders([os.getpid(), worker_pid])
+        found, check = _c4fm_checks(orch, traffic_hz, voice_hz)
+        phase5 = _C4FM.get("result", {})
+        result = {
+            "card": card, "decoder": "c4fm", "slots": SLOTS,
+            "host_process": True, "worker_pid": worker_pid,
+            "timed_chunks": WORKER_TIMED, **found,
+            "active_channels": run["metrics"].get("active_channels"),
+            **_loop_record(orch, chunks[-1], run),
+            "phase5_realtime_factor": phase5.get("realtime_factor"),
+            "phase5_host_ms_per_chunk": phase5.get("host_ms_per_chunk"),
+            "card_holders": {"during": {str(k): v for k, v in seen.items()},
+                             "after": {str(k): v for k, v in after.items()}},
+            "synthesis_s": synth_s}
+        print("[live worker] " + json.dumps(result), flush=True)
+        check()
+        for held in (seen, after):
+            me, worker = held[os.getpid()], held[worker_pid]
+            if not me["device_files"]:
+                raise AssertionError("worker: this process shows no "
+                                     "/dev/nvidia* file, so the check "
+                                     "cannot see a context")
+            if worker["nvidia_smi"] or worker["device_files"]:
+                raise AssertionError(f"worker: the worker process holds the "
+                                     f"card: {worker}")
+        if not orch.bank_host._proc.is_alive():
+            raise AssertionError("worker: the worker process died")
+    finally:
+        orch.close()
+    return result
+
+
 # phases a run can name, in the order a run takes them; the environment
 # and the build always run
 PHASES = ("edges", "bits", "psk", "c4fm", "p25p2", "lsm", "dmr", "nbfm", "am",
-          "ltr", "mpt1327")
-# each live loop, and the kernels line's entry that takes its launches
-_LIVE = {"c4fm": (run_c4fm, "dqpsk"), "p25p2": (run_p25p2, "gardner_p25p2"),
-         "lsm": (run_lsm, "gardner_lsm"), "dmr": (run_dmr, "dqpsk_dmr"),
-         "nbfm": (run_nbfm, None), "am": (run_am, None),
-         "ltr": (run_ltr, "bit_timing_ltr"),
-         "mpt1327": (run_mpt1327, "bit_timing_afsk")}
-_ENTRIES = ("dqpsk", "gardner_p25p2", "gardner_lsm", "dqpsk_dmr",
-            "bit_timing_ltr", "bit_timing_afsk")
+          "ltr", "mpt1327", "slots", "slots_p25p2", "multibank", "worker")
+_LIVE = {"c4fm": run_c4fm, "p25p2": run_p25p2, "lsm": run_lsm,
+         "dmr": run_dmr, "nbfm": run_nbfm, "am": run_am, "ltr": run_ltr,
+         "mpt1327": run_mpt1327, "slots": run_slots,
+         "slots_p25p2": run_slots_p25p2, "multibank": run_multibank,
+         "worker": run_worker}
+# the shapes the 31-slot paths give the kernels, below the 1023 channels of
+# phase 4: (live phase, kernels-line entry, C, T), each held bit for bit
+# against its plain loop after that phase's live loop
+_SMALL_SHAPES = (
+    ("slots", "dqpsk", SLOT_COUNT, KERNEL_T),
+    ("slots_p25p2", "gardner_p25p2", SLOT_COUNT, 2 * KERNEL_T),
+    ("multibank", "dqpsk", dict(MULTIBANK)["c4fm"], 2 * MIXED_BLOCKS),
+    ("multibank", "dqpsk_dmr", dict(MULTIBANK)["dmr"], 2 * MIXED_BLOCKS),
+    ("multibank", "bit_timing_ltr", dict(MULTIBANK)["ltr"], BIT_T["ltr"]))
+
+
+def check_small_shape(card: str, entry: str, c: int, t: int) -> dict:
+    """Kernels-line entry `entry`'s kernel held against its plain loop at
+    (c, t), as phase 4 holds it at 1023 channels (the bit-timing loop at
+    its T of BIT_T, without the profiler's device time: after the
+    multibank loop the profiler saw none of 20 launches at C = 10 on an
+    H100)."""
+    if entry.startswith("bit_timing_"):
+        return check_bit_timing(card, entry.removeprefix("bit_timing_"), c,
+                                device_time=False)
+    name, kind, rate, baud, gain, _ = next(k for k in KERNELS
+                                           if k[0] == entry)
+    return check_kernel(card, name, kind, rate, baud, gain, t, c)
 
 
 def main(argv: list[str]) -> int:
@@ -1812,15 +2531,27 @@ def main(argv: list[str]) -> int:
     if "psk" in phases:
         for k in KERNELS:
             entries[k[0]] = {**check_kernel(card, *k), "launches": None}
-    for name, (run, entry) in _LIVE.items():
-        if name in phases:
-            launches = run(card)["kernel_launches"]
-            if entry in entries:
-                entries[entry]["launches"] = launches
+    for name, run in _LIVE.items():
+        if name not in phases:
+            continue
+        launches = run(card)["kernel_launches"]
+        for entry, n in launches.items():
+            if n and entry in entries:
+                by_path = entries[entry].setdefault("launches_by_path", {})
+                by_path[name] = n
+                entries[entry]["launches"] = sum(by_path.values())
+        for path, entry, c, t in _SMALL_SHAPES:
+            if path == name:
+                held = check_small_shape(card, entry, c, t)
+                if entry in entries:
+                    entries[entry].setdefault("small_shapes", []).append({
+                        "path": path, **{k: held[k] for k in (
+                            "shape", "max_abs_err", "ms", "plain_ms",
+                            "bound_ms", "bound_by")}})
     ran = [p for p in PHASES if p in phases]
     print(f"[done] {'every phase' if len(ran) == len(PHASES) else ', '.join(ran)}"
           f" passed in {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [entries[n] for n in _ENTRIES
+    print(json.dumps({"kernels": [entries[n] for n in _ENTRY_KEYS
                                   if n in entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

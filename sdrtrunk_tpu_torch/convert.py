@@ -15,7 +15,7 @@ from .dsp.fsk import LTRFSKState
 from .dsp.psk import DQPSKState, GardnerState
 
 __all__ = ["tree_map", "receiver_state_from_numpy", "receiver_state_to_numpy",
-           "params_from_numpy"]
+           "params_from_numpy", "multibank_params_from_numpy"]
 
 
 _STATE_TYPES = {cls._fields: cls for cls in (DQPSKState, GardnerState,
@@ -52,7 +52,9 @@ def _from_numpy(tree, device):
 def receiver_state_from_numpy(tree: dict, device) -> dict:
     """The JAX receiver state as NumPy (``jax.tree.map(np.asarray, state)``
     of ``WidebandReceiver.init_state()``'s structure: chan, mixer_phase,
-    rot, dec) -> the port's tensors on device. ``dec`` is any decoder's
+    rot, dec; or of ``MultibankReceiver.init_state()``'s, where each bank's
+    decoder state stands under its key ``b<i>_<kind>`` in place of dec)
+    -> the port's tensors on device. ``dec`` (a bank's tree) is any decoder's
     state tree ({fir, agc, power, psk} for the DQPSK chains, {fir, prev,
     power, deemph, resamp} for NBFM, {fir, power, dc, resamp} for AM,
     {nbfm, fsk} for the LTR family, {nbfm, afsk} for MPT1327); a named
@@ -95,4 +97,19 @@ def params_from_numpy(hmat, baseband_taps, interp_bank=None,
         params[dec + "resampler_taps"] = f32(resampler_taps)
     for name, taps in (slicer_taps or {}).items():
         params["decoder." + name] = f32(taps)
+    return params
+
+
+def multibank_params_from_numpy(hmat, banks: dict) -> dict:
+    """Design arrays of a JAX ``MultibankReceiver`` as a state dict for the
+    port's ``MultibankReceiver.load_state_dict``: ``banks`` maps each bank
+    key (``b<i>_<kind>``) to that decoder's arrays as ``params_from_numpy``
+    gives them for a single-bank receiver (their ``decoder.`` names become
+    ``decoders.<key>.``); the one ``channelizer.hmat`` is ``hmat``."""
+    params = {"channelizer.hmat": torch.as_tensor(np.asarray(hmat,
+                                                             np.float32))}
+    for key, dec_params in banks.items():
+        for name, value in dec_params.items():
+            if name.startswith("decoder."):
+                params[f"decoders.{key}." + name[len("decoder."):]] = value
     return params

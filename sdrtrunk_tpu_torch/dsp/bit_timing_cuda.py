@@ -8,6 +8,7 @@ by ``dsp/nvcc.py``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -69,7 +70,10 @@ def bit_timing_cuda(geom, x: torch.Tensor, window: torch.Tensor,
         raise RuntimeError(f"bit_timing_launch failed with CUDA error {rc} "
                            f"(C={c}, T={t}, W={w})")
     bit_timing_cuda.launches += 1
+    bit_timing_cuda.launches_by[w] += 1
     return bits, valid, new_window, new_sp
 
 
+# launches in all, and by the loop's window length
 bit_timing_cuda.launches = 0
+bit_timing_cuda.launches_by = collections.Counter()

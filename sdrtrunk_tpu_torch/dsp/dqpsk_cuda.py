@@ -7,6 +7,7 @@ The library is built at first use by ``dsp/nvcc.py``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -59,7 +60,10 @@ def dqpsk_cuda(demod, x: torch.Tensor, state):
         raise RuntimeError(f"dqpsk_launch failed with CUDA error {rc} "
                            f"(C={c}, T={t}, W={w})")
     dqpsk_cuda.launches += 1
+    dqpsk_cuda.launches_by[demod.sample_counter_gain] += 1
     return out, new
 
 
+# launches in all, and by the loop's timing gain
 dqpsk_cuda.launches = 0
+dqpsk_cuda.launches_by = collections.Counter()

@@ -7,6 +7,7 @@ The library is built at first use by ``dsp/nvcc.py``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -68,7 +69,10 @@ def gardner_cuda(demod, x: torch.Tensor, state):
         raise RuntimeError(f"gardner_launch failed with CUDA error {rc} "
                            f"(C={c}, T={t}, W={w})")
     gardner_cuda.launches += 1
+    gardner_cuda.launches_by[w] += 1
     return out, new
 
 
+# launches in all, and by the loop's window length
 gardner_cuda.launches = 0
+gardner_cuda.launches_by = collections.Counter()

@@ -1,12 +1,14 @@
-"""WidebandReceiver slot bank (port of sdrtrunk_tpu/receiver.py:26-82,
-:171-331).
+"""WidebandReceiver and MultibankReceiver slot banks (port of
+sdrtrunk_tpu/receiver.py:26-168, :171-331).
 
 Wideband IQ -> polyphase channelize (all M bins) -> per-slot bin select,
-two-bin join and residual mix -> batched decoder chain. Only the parts the
-live bank step uses are ported: ``init_state``, ``build_dynamic`` and
+two-bin join and residual mix -> batched decoder chain(s). Only the parts
+the live step uses are ported: ``init_state``, ``build_dynamic`` and
 ``reset_slot``, for the DQPSK chain decoders (P25 Phase 1 C4FM and LSM,
 P25 Phase 2, DMR), the analog ones (NBFM, AM) and the analog-trunking ones
-(LTR, LTR-Net, Passport, MPT1327).
+(LTR, LTR-Net, Passport, MPT1327). ``MultibankReceiver`` runs several of
+them side by side, each over its own slice of the slot axis, behind one
+channelizer pass.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from .convert import tree_map
 from .dsp.channelizer import Channelizer, channelize_core
 from .dsp.synthesizer import rot4
 
-__all__ = ["WidebandReceiver", "make_channel_decoder", "dynamic_select_mix"]
+__all__ = ["MultibankReceiver", "WidebandReceiver", "dynamic_select_mix",
+           "make_channel_decoder"]
 
 _TWO_PI = 2.0 * math.pi
 
@@ -81,7 +84,60 @@ def dynamic_select_mix(y: torch.Tensor, rot: torch.Tensor,
     return streams, new_phase
 
 
-class WidebandReceiver(nn.Module):
+def _channelize_select(x, state: dict, hmat: torch.Tensor, bins, step_rad,
+                       rot_table: torch.Tensor):
+    """The front both receivers share: channelize x ((N,) complex64 or (N,
+    2) float32 I/Q pairs) behind the carried history, then select, join
+    and mix every slot. Returns (streams (C, K) complex64, the new
+    ``chan``, ``mixer_phase`` and ``rot`` entries)."""
+    if x.dim() == 2:
+        x = torch.view_as_complex(x.to(torch.float32).contiguous())
+    chan = state["chan"]
+    xp = torch.cat([chan, x.to(torch.complex64)])
+    y = channelize_core(xp, hmat)                          # (K, M)
+    k = y.shape[0]
+    streams, new_phase = dynamic_select_mix(
+        y, state["rot"], state["mixer_phase"], bins, step_rad, rot_table)
+    return streams, {"chan": xp[xp.shape[0] - chan.shape[0]:],
+                     "mixer_phase": new_phase,
+                     "rot": (state["rot"] + k) % 4}
+
+
+def _write_row(tree, init, row: int) -> None:
+    """Write one slot's state tree `init` into row `row` of `tree`'s
+    tensors, in place."""
+    def write(full, one):
+        full[row] = one
+
+    tree_map(write, tree, init)
+
+
+class _SlotReceiver(nn.Module):
+    """What both receivers hold: the channelizer, the two-bin join's rot4
+    table and the slot front's state (``chan``, ``mixer_phase``, ``rot``)."""
+
+    def __init__(self, sample_rate: float, channel_bandwidth: float,
+                 taps_per_channel: int, device):
+        super().__init__()
+        self.channelizer = Channelizer.design(
+            sample_rate, channel_bandwidth, taps_per_channel, device=device)
+        self.register_buffer("rot4", rot4(device), persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.channelizer.hmat.device
+
+    def _front_state(self, slots: int) -> dict:
+        dev = self.device
+        return {
+            "chan": self.channelizer.init_state(),
+            "mixer_phase": torch.zeros((slots,), dtype=torch.float32,
+                                       device=dev),
+            "rot": torch.zeros((), dtype=torch.int32, device=dev),
+        }
+
+
+class WidebandReceiver(_SlotReceiver):
     """Channelize + demodulate C slots from wideband IQ.
 
     Buffers: ``channelizer.hmat``, ``decoder.baseband_taps`` and
@@ -100,31 +156,19 @@ class WidebandReceiver(nn.Module):
                  channel_bandwidth: float = 12500.0,
                  taps_per_channel: int = 9, decoder: str = "c4fm",
                  device="cuda"):
-        super().__init__()
         device = resolve_device(device)
-        self.channelizer = Channelizer.design(
-            sample_rate, channel_bandwidth, taps_per_channel, device=device)
+        super().__init__(sample_rate, channel_bandwidth, taps_per_channel,
+                         device)
         self.num_channels = len(channel_offsets)
         self.decoder = make_channel_decoder(
             decoder, self.channelizer.channel_sample_rate,
             channel_bandwidth, device=device)
-        self.register_buffer("rot4", rot4(device), persistent=False)
-
-    @property
-    def device(self) -> torch.device:
-        return self.channelizer.hmat.device
 
     def init_state(self) -> dict:
         c = self.num_channels
-        dev = self.device
         dec = tree_map(lambda a: a.expand((c,) + a.shape).clone(),
                        self.decoder.init_state())
-        return {
-            "chan": self.channelizer.init_state(),
-            "mixer_phase": torch.zeros((c,), dtype=torch.float32, device=dev),
-            "rot": torch.zeros((), dtype=torch.int32, device=dev),
-            "dec": dec,
-        }
+        return {**self._front_state(c), "dec": dec}
 
     def build_dynamic(self):
         """step(x, state, bins (C, 2) int, step_rad (C,) float32) ->
@@ -135,33 +179,94 @@ class WidebandReceiver(nn.Module):
         rot_table = self.rot4
 
         def step(x, state, bins, step_rad):
-            if x.dim() == 2:
-                x = torch.view_as_complex(x.to(torch.float32).contiguous())
-            chan = state["chan"]
-            xp = torch.cat([chan, x.to(torch.complex64)])
-            y = channelize_core(xp, hmat)                  # (K, M)
-            k = y.shape[0]
-            streams, new_phase = dynamic_select_mix(
-                y, state["rot"], state["mixer_phase"], bins, step_rad,
-                rot_table)
-            outputs, dec_state = decode(streams, state["dec"])
-            return outputs, {
-                "chan": xp[xp.shape[0] - chan.shape[0]:],
-                "mixer_phase": new_phase,
-                "rot": (state["rot"] + k) % 4,
-                "dec": dec_state,
-            }
+            streams, new_state = _channelize_select(x, state, hmat, bins,
+                                                    step_rad, rot_table)
+            outputs, new_state["dec"] = decode(streams, state["dec"])
+            return outputs, new_state
 
         return step
 
     def reset_slot(self, state: dict, slot: int) -> dict:
         """Fresh decoder and mixer state for one slot, written IN PLACE
         into ``state``'s tensors (returned for convenience)."""
-        dec0 = self.decoder.init_state()
+        _write_row(state["dec"], self.decoder.init_state(), slot)
+        state["mixer_phase"][slot] = 0.0
+        return state
 
-        def write(full, init):
-            full[slot] = init
 
-        tree_map(write, state["dec"], dec0)
+class MultibankReceiver(_SlotReceiver):
+    """Heterogeneous slot banks behind one channelizer: each bank runs its
+    own decoder kind over its slice of the slot axis (reference
+    receiver.py:85-168).
+
+    banks: ordered [(kind, n_slots), ...]; the slot index is bank-major.
+    Each bank's decoder is the submodule ``decoders[key]`` under its key
+    ``b<i>_<kind>``, so ``.to(device)`` moves its buffers and the state
+    dict names them ``decoders.<key>.<buffer>``. State is a dict: ``chan``,
+    ``mixer_phase`` (over all slots), ``rot`` and, under each bank's key,
+    that decoder's state tree with a leading axis of the bank's slots.
+    """
+
+    def __init__(self, sample_rate: float, banks,
+                 channel_bandwidth: float = 12500.0,
+                 taps_per_channel: int = 9, device="cuda"):
+        device = resolve_device(device)
+        super().__init__(sample_rate, channel_bandwidth, taps_per_channel,
+                         device)
+        rate = self.channelizer.channel_sample_rate
+        self.decoders = nn.ModuleDict()
+        self.banks = []
+        for i, (kind, n) in enumerate(banks):
+            key = f"b{i}_{kind}"
+            self.decoders[key] = make_channel_decoder(
+                kind, rate, channel_bandwidth, device=device)
+            self.banks.append((key, kind, int(n), self.decoders[key]))
+        self.num_slots = sum(n for _, _, n, _ in self.banks)
+
+    def decoder_for(self, key: str):
+        return self.decoders[key]
+
+    def slot_key(self, index: int) -> tuple[str, int]:
+        """Global slot index -> (bank key, index within the bank)."""
+        off = 0
+        for key, _, n, _ in self.banks:
+            if index < off + n:
+                return key, index - off
+            off += n
+        raise IndexError(index)
+
+    def init_state(self) -> dict:
+        state = self._front_state(self.num_slots)
+        for key, _, n, dec in self.banks:
+            state[key] = tree_map(lambda a, n=n: a.expand((n,) + a.shape)
+                                  .clone(), dec.init_state())
+        return state
+
+    def build_dynamic(self):
+        """step(x, state, bins (C, 2), step_rad (C,)) -> ({bank key:
+        outputs}, new state): one channelizer pass and slot select for all
+        C slots, then each bank's ``batched_call`` over its rows."""
+        hmat = self.channelizer.hmat
+        rot_table = self.rot4
+        banks = self.banks
+
+        def step(x, state, bins, step_rad):
+            streams, new_state = _channelize_select(x, state, hmat, bins,
+                                                    step_rad, rot_table)
+            outputs = {}
+            off = 0
+            for key, _, n, dec in banks:
+                outputs[key], new_state[key] = dec.batched_call(
+                    streams[off:off + n], state[key])
+                off += n
+            return outputs, new_state
+
+        return step
+
+    def reset_slot(self, state: dict, slot: int) -> dict:
+        """Fresh decoder and mixer state for one slot, written IN PLACE
+        into its bank's tensors (returned for convenience)."""
+        key, local = self.slot_key(slot)
+        _write_row(state[key], self.decoders[key].init_state(), local)
         state["mixer_phase"][slot] = 0.0
         return state

@@ -1,1 +1,2 @@
-"""Live runtime of the port (bank-mode orchestrator)."""
+"""Live runtime of the port (the orchestrator, per-slot, bank-mode and
+multibank, and the bank worker process)."""

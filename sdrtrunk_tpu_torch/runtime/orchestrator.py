@@ -1,30 +1,41 @@
-"""Live bank-mode orchestrator (port of sdrtrunk_tpu/runtime/orchestrator.py).
+"""Live orchestrator (port of sdrtrunk_tpu/runtime/orchestrator.py).
 
-The continuous ring -> decode -> events -> traffic-following loop for one
-decoder kind, in bank mode: one slot-bank step on the device demodulates
-every slot of a chunk. For a digital kind (P25 Phase 1 C4FM or LSM, P25
-Phase 2, DMR) the step then compacts the symbol streams, correlates them
-against the protocol's sync patterns and packs the result into one flat
-uint8 transfer; the host frames the whole bank with the protocol's bank
-processor (``P25P1BankProcessor``, ``P25P2BankProcessor``,
-``DMRBankProcessor``) and routes messages into per-slot decoder states and
-the ``TrafficChannelManager``, which starts and stops traffic slots
-mid-stream. For an analog kind (NBFM, AM) the step packs companded 8-bit
-(or int16) PCM and the squelch gate bits into the transfer, and
-``AnalogBankProcessor`` assembles each slot's AudioSegments. For an
-analog-trunking kind (LTR, LTR-Net, Passport, MPT1327: the mixed bank) the
-step packs companded voice, gate bits and the compacted sub-audible or
-AFSK bit decisions, and ``MixedBankProcessor`` hands each slot's share to
-its per-slot processor (framer, decode events, AudioSegments; MPT1327's
-GTC grants drive the traffic manager through the ``channel_map``).
-"Starting a channel" is a write of (bin, mixer step) into the slot plan
-plus an in-place reset of that slot's device state.
+The continuous ring -> decode -> events -> traffic-following loop. One
+device step demodulates every slot of a chunk; the host layer frames and
+decodes, and the ``TrafficChannelManager`` starts and stops traffic slots
+mid-stream. "Starting a channel" is a write of (bin, mixer step) into the
+slot plan plus an in-place reset of that slot's device state. Three tiers,
+as in the reference:
 
-The host layer (``runtime`` bank processors, decoder states and traffic,
-``audio.mbe``, ``protocol``) is the port's byte-for-byte copy of the JAX
-package's (tests/test_torch_host_copy.py holds the copies equal).
-Time is the sample clock (samples processed / sample rate), so runs are
-deterministic and replayable.
+* the bank tier (``bank_mode``, by default at 32 slots or more), for one
+  decoder kind. For a digital kind (P25 Phase 1 C4FM or LSM, P25 Phase 2,
+  DMR) the step compacts the symbol streams, correlates them against the
+  protocol's sync patterns and packs the result into one flat uint8
+  transfer; the host frames the whole bank with the protocol's bank
+  processor (``P25P1BankProcessor``, ``P25P2BankProcessor``,
+  ``DMRBankProcessor``), in-process or, with ``host_process=True``, in a
+  worker process (``bank_worker.ProcessBankHost``). For an analog kind
+  (NBFM, AM) the step packs companded 8-bit (or int16) PCM and the squelch
+  gate bits, and ``AnalogBankProcessor`` assembles each slot's
+  AudioSegments. For an analog-trunking kind (LTR, LTR-Net, Passport,
+  MPT1327: the mixed bank) the step packs companded voice, gate bits and
+  the compacted sub-audible or AFSK bit decisions, and
+  ``MixedBankProcessor`` hands each slot's share to its per-slot
+  processor (MPT1327's GTC grants drive the traffic manager through the
+  ``channel_map``);
+* the per-slot path (below 32 slots), for one digital or analog kind: the
+  step returns each slot's dibits with their valid flags (or audio and
+  gate), and one channel processor a slot (``runtime/processors.py``)
+  frames and decodes them on the host;
+* ``banks=``: a heterogeneous mix behind one channelizer
+  (``MultibankReceiver``), served per slot as above, each bank's outputs
+  under its own key.
+
+The host layer (``runtime`` processors, bank processors, bank worker,
+decoder states and traffic, ``audio``, ``protocol``) is the port's
+byte-for-byte copy of the JAX package's (tests/test_torch_host_copy.py
+holds the copies equal). Time is the sample clock (samples processed /
+sample rate), so runs are deterministic and replayable.
 """
 from __future__ import annotations
 
@@ -42,23 +53,24 @@ from ..protocol.dmr.bankframer import DMR_SYNC_DIBIT_PATTERNS
 from ..protocol.dmr.framer import MAX_SYNC_BIT_ERRORS as _DMR_SYNC_MAX_ERRORS
 from ..protocol.p25p1.bankframer import SYNC_DIBIT_PATTERNS
 from ..protocol.p25p2.bankframer import P25P2_SYNC_DIBITS
-from ..receiver import WidebandReceiver
+from ..receiver import MultibankReceiver, WidebandReceiver
 from .bank_processor import (AnalogBankProcessor, DMRBankProcessor,
                              MixedBankProcessor, P25P1BankProcessor,
-                             P25P2BankProcessor)
+                             P25P2BankProcessor, unpack_dibits)
 from .events import DecodeEvent
 from .identifiers import IdentifierCollection
 from .metrics import FrequencyErrorMonitor
+from .processors import P25P2ChannelProcessor, make_channel_processor
 from .traffic import TrafficChannelManager
 
 __all__ = ["ChannelSlot", "Orchestrator", "compact_and_correlate", "ingest",
-           "pack_audio", "pack_mixed", "sync_patterns"]
+           "pack_audio", "pack_mixed", "pack_sym", "sync_patterns"]
 
 _P25P1_SYNC_MAX_ERRORS = 9          # bit errors over the 24-dibit sync
 _P25P2_SYNC_MAX_ERRORS = 4          # over the 20-dibit sync (P25P2SyncPattern)
 
 # decoder kind -> traffic-manager protocol label (reference
-# orchestrator.py:42-47); every kind here runs in bank mode
+# orchestrator.py:42-47); every kind here has a bank tier
 _PROTOCOL_LABELS = {"c4fm": "APCO25", "p25p1": "APCO25", "lsm": "APCO25",
                     "p25p1-lsm": "APCO25", "dmr": "DMR", "p25p2": "APCO25-P2",
                     "nbfm": "NBFM", "am": "AM", "ltr": "LTR",
@@ -73,9 +85,14 @@ class ChannelSlot:
     """One retunable channel slot of the running receiver."""
     index: int
     frequency_hz: float = 0.0
+    name: str | None = None      # playlist channel name (pinned slots)
+    processor: object | None = None     # per-slot host processor
     is_control: bool = False
     active: bool = False
     activated_at: float = 0.0
+    kind: str | None = None      # decoder kind (banks=)
+    bank_key: str | None = None  # the bank's output and state key
+    local: int = 0               # index within the bank
 
 
 def ingest(x: torch.Tensor) -> torch.Tensor:
@@ -84,6 +101,13 @@ def ingest(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.int8:
         return x.to(torch.float32) * (1.0 / 127.0)
     return x
+
+
+def pack_sym(symbols: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(C, K) symbols (dibits, or bits) and their valid mask -> int8
+    symbol | valid << 2, the per-slot path's transfer."""
+    return (symbols.to(torch.int32)
+            | (valid.to(torch.int32) << 2)).to(torch.int8)
 
 
 def sync_patterns(decoder: str) -> tuple[np.ndarray, int]:
@@ -221,7 +245,7 @@ def pack_mixed(audio: torch.Tensor, gate: torch.Tensor, bits: torch.Tensor,
 
 
 class Orchestrator:
-    """Continuous bank-mode decode loop with dynamic traffic following.
+    """Continuous decode loop with dynamic traffic-channel following.
 
     source: callable read(num_samples) -> NumPy IQ (int8 (n, 2) pairs,
             float32 (n, 2) pairs or complex), shorter or None at the end.
@@ -229,7 +253,16 @@ class Orchestrator:
     control_offsets_hz: baseband offsets of the control channel(s); each
             gets a pinned slot whose TrafficChannelManager activates and
             tears down the remaining slots (an analog bank's pinned slot
-            has no control channel: its slots are activated directly).
+            has no control channel: its slots are activated directly). An
+            entry may be an (offset_hz, kind) pair: with ``banks`` it pins
+            its slot in the bank of that kind.
+    bank_mode: None (the default) runs the bank tier at 32 slots or more
+            and the per-slot path below that (reference orchestrator.py:
+            181-190); True or False forces one.
+    banks: ordered [(kind, n_slots), ...]: a heterogeneous mix behind one
+            channelizer (``MultibankReceiver``), served per slot; the
+            control slots live in the first bank unless an (offset, kind)
+            entry names another. Exclusive with bank_mode=True.
     chunk_samples: wideband samples a chunk, a multiple of the bin count
             M; for nbfm, am and the analog-trunking kinds, K = 2 *
             chunk_samples / M must also be a multiple of the resampler's
@@ -238,11 +271,14 @@ class Orchestrator:
             resampler's; the rest of a chunk's audio would be dropped).
             The default is 16 * M, the smallest such chunk for nbfm and
             am, and 125 * M (K = 250, Ka = 80) for the analog-trunking
-            kinds.
+            kinds and for ``banks``.
     audio_format: the analog bank's PCM transfer, "mulaw8" or "int16"
             (the mixed bank always sends mu-law).
     channel_map: FrequencyBand that maps MPT1327 traffic channel numbers
             to frequencies (the reference's user channel map).
+    host_process: run a digital single-kind bank's host layer (framer,
+            decoder states, traffic manager) in a worker process
+            (``runtime/bank_worker.py``), which gets NumPy buffers only.
     device: where the slot bank runs ("cuda" by default; no fallback).
     """
 
@@ -268,12 +304,22 @@ class Orchestrator:
                  audio_format: str = "mulaw8",
                  host_process: bool = False,
                  device="cuda"):
-        if banks is not None:
-            raise NotImplementedError(
-                "heterogeneous banks are not ported yet (ROADMAP Queue 1 "
-                "item 14, slice F)")
-        if decoder not in _PROTOCOL_LABELS:
-            raise ValueError(f"unknown decoder kind {decoder!r}")
+        if isinstance(control_offsets_hz, (int, float, np.floating)):
+            control_offsets_hz = [control_offsets_hz]
+        control_entries = [
+            (float(e[0]), e[1]) if isinstance(e, tuple) else (float(e), None)
+            for e in control_offsets_hz]
+        self.banks = ([(kind, int(n)) for kind, n in banks]
+                      if banks is not None else None)
+        if self.banks is not None:
+            if bank_mode:
+                raise ValueError("banks and bank_mode are exclusive")
+            bank_mode = False
+            slots = sum(n for _, n in self.banks)
+            decoder = self.banks[0][0]
+        for kind in {decoder, *(k for k, _ in self.banks or ())}:
+            if kind not in _PROTOCOL_LABELS:
+                raise ValueError(f"unknown decoder kind {kind!r}")
         if ingest_format == "int4":
             raise NotImplementedError(
                 "the int4 wire format is not ported: it was a slow-link "
@@ -282,25 +328,23 @@ class Orchestrator:
             raise ValueError(f"unknown ingest_format {ingest_format!r}")
         if audio_format not in ("mulaw8", "int16"):
             raise ValueError(f"unknown audio_format {audio_format!r}")
-        if host_process:
-            raise NotImplementedError(
-                "host_process (the bank worker process) is not ported yet "
-                "(ROADMAP Queue 1 item 15)")
-        if isinstance(control_offsets_hz, (int, float, np.floating)):
-            control_offsets_hz = [control_offsets_hz]
-        # an entry may be an (offset_hz, kind) pair; the kind names the
-        # bank of a heterogeneous mix (banks=, not ported), so here it is
-        # ignored, as the reference ignores it without banks
-        control_offsets_hz = [float(e[0]) if isinstance(e, tuple)
-                              else float(e) for e in control_offsets_hz]
-        if slots < len(control_offsets_hz) + 1:
+        if slots < len(control_entries) + 1:
             raise ValueError("need at least one traffic slot")
         if bank_mode is None:
-            bank_mode = slots >= 32
-        if not bank_mode:
-            raise NotImplementedError(
-                "the per-slot (non-bank) path is not ported yet (ROADMAP "
-                "Queue 1 item 15); pass bank_mode=True")
+            bank_mode = slots >= 32          # every kind has a bank tier
+        if not bank_mode and self.banks is None and decoder in _MIXED_KINDS:
+            # the reference's per-slot leg sends these kinds' audio alone
+            # to a processor that only takes process_mixed
+            raise ValueError(
+                f"decoder {decoder!r} runs per slot only inside banks=: pass "
+                f"banks=[({decoder!r}, {slots})] or bank_mode=True")
+        self.bank_mode = bool(bank_mode)
+        self.bank_analog = self.bank_mode and decoder in _ANALOG_KINDS
+        self.bank_mixed = self.bank_mode and decoder in _MIXED_KINDS
+        if host_process and (not self.bank_mode or self.bank_analog
+                             or self.bank_mixed or self.banks is not None):
+            raise ValueError("host_process requires a digital single-kind "
+                             "bank mode")
         self.device = resolve_device(device)
         self.source = source
         self.sample_rate = float(sample_rate)
@@ -311,49 +355,15 @@ class Orchestrator:
         self.metrics_sink = metrics_sink
         self.channel_map = channel_map
         self.channel_bandwidth = float(channel_bandwidth)
-        self.banks = None
         self.ingest_format = ingest_format
-        self.bank_mode = True
 
-        self.rx = WidebandReceiver(sample_rate, [0.0] * slots,
-                                   channel_bandwidth=channel_bandwidth,
-                                   decoder=decoder, device=self.device)
+        self.rx = self._make_receiver(slots)
         m = self.rx.channelizer.channels
-        self.bank_analog = decoder in _ANALOG_KINDS
-        self.bank_mixed = decoder in _MIXED_KINDS
         self.chunk_samples = (chunk_samples if chunk_samples is not None
                               else self._default_chunk(m))
         if self.chunk_samples % m != 0:
             raise ValueError(f"chunk_samples must be a multiple of {m}")
-        self._bank_cap = None
-        self._bank_ka = None
-        self._bank_bit_cap = None
-        if self.bank_analog or self.bank_mixed:
-            # 8 kHz audio samples per slot per chunk; the resampler's
-            # phase pattern must repeat whole within a chunk
-            k = 2 * self.chunk_samples // m
-            up, down = self.rx.decoder.up, self.rx.decoder.down
-            if (k * up) % down:
-                raise ValueError(
-                    f"chunk gives non-integral audio length: per-channel "
-                    f"block {k} must be a multiple of {down}")
-            self._bank_ka = k * up // down
-            if self.bank_mixed:
-                # sub-audible/AFSK bit budget per chunk: baud * chunk
-                # seconds + margin (the timing loop emits about one bit a
-                # symbol period, whatever the noise)
-                baud = 1200.0 if decoder == "mpt1327" else 300.0
-                secs = self.chunk_samples / self.sample_rate
-                self._bank_bit_cap = int(
-                    np.ceil((secs * baud * 1.25 + 16) / 32)) * 32
-        else:
-            # symbols per slot per chunk at the fastest tracked timing,
-            # plus margin, rounded to the packing granule
-            k = 2 * self.chunk_samples // m * self.rx.decoder.upsample
-            demod = self.rx.decoder.demod
-            sps_min = demod.samples_per_symbol * (1.0 - demod.max_deviation)
-            self._bank_cap = int(np.ceil((k / sps_min + 8) / 64)) * 64
-
+        self._size_bank(m)
         self.step = self._build_live_step()
         self.state = self.rx.init_state()
 
@@ -361,36 +371,64 @@ class Orchestrator:
         self.steps = np.zeros(slots, np.float32)
         self._plan_dev = None
         self.slots = [ChannelSlot(i) for i in range(slots)]
+        if self.banks is not None:
+            for s in self.slots:
+                s.bank_key, s.local = self.rx.slot_key(s.index)
+                s.kind = s.bank_key.split("_", 1)[1]
 
         self.correction_ppm = 0.0
         self.event_logger = None
         if event_log_path is not None:
             from .eventlog import DecodeEventLogger
             self.event_logger = DecodeEventLogger(event_log_path)
+        label = _PROTOCOL_LABELS[decoder]
         self.traffic = TrafficChannelManager(
-            _PROTOCOL_LABELS[decoder],
-            idle_teardown_seconds=idle_teardown_seconds,
+            label, idle_teardown_seconds=idle_teardown_seconds,
             on_activate=self._activate, on_teardown=self._teardown)
         if self.event_logger is not None:
             self.traffic.event_sink = self.event_logger.receive
+        control_slots = set(range(len(control_entries)))
+        self.bank_proc = None
+        self.bank_host = None
         if self.bank_mixed:
             self.bank_proc = MixedBankProcessor(
-                slots, control_slots=set(range(len(control_offsets_hz))),
-                traffic=self.traffic, kind=decoder,
-                channel_map=self.channel_map)
+                slots, control_slots=control_slots, traffic=self.traffic,
+                kind=decoder, channel_map=self.channel_map)
         elif self.bank_analog:
             self.bank_proc = AnalogBankProcessor(slots)
-        else:
+        elif self.bank_mode and host_process:
+            # the worker is spawned: a fresh interpreter that imports this
+            # package (and torch) but is handed NumPy buffers only, so it
+            # never creates a CUDA context
+            from .bank_worker import ProcessBankHost
+            self.bank_host = ProcessBankHost(
+                decoder, slots, control_slots=control_slots,
+                codec=self.codec, protocol_label=label,
+                idle_teardown=idle_teardown_seconds,
+                bank_cap=self._bank_cap)
+            self._worker_events: list = []
+            self._worker_reply: dict = {}
+        elif self.bank_mode:
             bank_cls = {"dmr": DMRBankProcessor,
                         "p25p2": P25P2BankProcessor}.get(decoder,
                                                          P25P1BankProcessor)
             self.bank_proc = bank_cls(
-                slots, control_slots=set(range(len(control_offsets_hz))),
-                traffic=self.traffic, codec=self.codec)
-        for slot, off in zip(self.slots, control_offsets_hz):
+                slots, control_slots=control_slots, traffic=self.traffic,
+                codec=self.codec)
+        claimed: set[int] = set()
+        for off, want_kind in control_entries:
+            slot = next(s for s in self.slots if s.index not in claimed
+                        and (want_kind is None or self.banks is None
+                             or s.kind == want_kind))
+            claimed.add(slot.index)
             slot.is_control = True
             slot.active = True
             slot.frequency_hz = self.center_frequency_hz + off
+            if not self.bank_mode:
+                slot.processor = make_channel_processor(
+                    slot.kind or decoder, traffic=self.traffic,
+                    codec=self.codec, channel_map=self.channel_map)
+                self._wire_logger(slot.processor)
             self._tune(slot.index, off)
         self.rotation = None
         if control_rotation:
@@ -403,6 +441,10 @@ class Orchestrator:
         self.samples_processed = 0
         self._last_upload: tuple[float, int] | None = None
         self._pinned: dict = {}
+        # live recording taps: the wideband IQ and per-slot dibits can
+        # start and stop mid-run
+        self._iq_writer = None
+        self._bits_recorders: dict[int, object] = {}
         self.audio_segments: list = []
         self.skipped_grants: list[float] = []
         self.error_state: str | None = None
@@ -417,27 +459,101 @@ class Orchestrator:
 
     # --- control plane -------------------------------------------------
 
+    def _make_receiver(self, slots: int):
+        if self.banks is not None:
+            return MultibankReceiver(self.sample_rate, self.banks,
+                                     channel_bandwidth=self.channel_bandwidth,
+                                     device=self.device)
+        return WidebandReceiver(self.sample_rate, [0.0] * slots,
+                                channel_bandwidth=self.channel_bandwidth,
+                                decoder=self.decoder_name, device=self.device)
+
+    def _size_bank(self, m: int) -> None:
+        """The bank transfer's sizes a chunk: ``_bank_cap`` symbols a slot
+        (digital), ``_bank_ka`` audio samples a slot (analog and mixed) and
+        ``_bank_bit_cap`` bits a slot (mixed); None where not used."""
+        self._bank_cap = self._bank_ka = self._bank_bit_cap = None
+        if self.bank_analog or self.bank_mixed:
+            # 8 kHz audio samples per slot per chunk; the resampler's
+            # phase pattern must repeat whole within a chunk
+            k = 2 * self.chunk_samples // m
+            up, down = self.rx.decoder.up, self.rx.decoder.down
+            if (k * up) % down:
+                raise ValueError(
+                    f"chunk gives non-integral audio length: per-channel "
+                    f"block {k} must be a multiple of {down}")
+            self._bank_ka = k * up // down
+            if self.bank_mixed:
+                # sub-audible/AFSK bit budget per chunk: baud * chunk
+                # seconds + margin (the timing loop emits about one bit a
+                # symbol period, whatever the noise)
+                baud = 1200.0 if self.decoder_name == "mpt1327" else 300.0
+                secs = self.chunk_samples / self.sample_rate
+                self._bank_bit_cap = int(
+                    np.ceil((secs * baud * 1.25 + 16) / 32)) * 32
+        elif self.bank_mode:
+            # symbols per slot per chunk at the fastest tracked timing,
+            # plus margin, rounded to the packing granule
+            k = 2 * self.chunk_samples // m * self.rx.decoder.upsample
+            demod = self.rx.decoder.demod
+            sps_min = demod.samples_per_symbol * (1.0 - demod.max_deviation)
+            self._bank_cap = int(np.ceil((k / sps_min + 8) / 64)) * 64
+
     def _default_chunk(self, m: int) -> int:
-        """Default wideband chunk: 16 * M; for the analog kinds the
-        smallest chunk whose per-channel block K = 2 * chunk / M is a
-        multiple of the resampler's ``down``; for the analog-trunking
-        kinds 125 * M: K = 250 satisfies the 8 kHz resampler (K % 25) and
-        the AFSK correlator's audio step (Ka % 10)."""
-        if self.bank_mixed:
+        """Default wideband chunk (reference orchestrator.py:579-598): 16 *
+        M; for nbfm and am the smallest chunk whose per-channel block K =
+        2 * chunk / M is a multiple of the resampler's ``down``; for the
+        analog-trunking kinds and for ``banks`` 125 * M: K = 250 satisfies
+        the 8 kHz resampler (K % 25) and the AFSK correlator's audio step
+        (Ka % 10)."""
+        if self.banks is not None or self.decoder_name in _MIXED_KINDS:
             return m * 125
-        if self.bank_analog:
+        if self.decoder_name in _ANALOG_KINDS:
             down = self.rx.decoder.down
             return m * down if down % 2 else m * down // 2
         return 16 * m
 
     def _build_live_step(self):
-        """Live step = the receiver's dynamic step + on-device packing
-        into ONE flat uint8 tensor. Digital kinds: compaction and sync
-        correlation, then dib4 | hits | counts (le int32) | pll (le f32
-        of slot 0). Analog kinds: PCM | gate bits (``pack_audio``).
-        Analog-trunking kinds: mu-law PCM | gate bits | compacted bits |
-        counts (``pack_mixed``)."""
+        """Live step = the receiver's dynamic step + on-device packing.
+        Bank tier, ONE flat uint8 tensor: digital kinds compaction and sync
+        correlation, then dib4 | hits | counts (le int32) | pll (le f32 of
+        slot 0); analog kinds PCM | gate bits (``pack_audio``);
+        analog-trunking kinds mu-law PCM | gate bits | compacted bits |
+        counts (``pack_mixed``). Per-slot path: digital kinds ``sym`` =
+        dibit | valid << 2 as int8 (C, K) and ``pll_freq`` (C,); analog
+        kinds float32 ``audio`` and an int8 ``audio_gate``. ``banks``: per
+        bank, "<key>/sym" and "<key>/pll" (digital), "<key>/audio" and
+        "<key>/gate" (analog), or all of sym, audio and gate (the bits of
+        an analog-trunking bank ride in sym)."""
         base = self.rx.build_dynamic()
+        if self.banks is not None:
+            def fused_banks(x, state, bins, steps):
+                out, st = base(ingest(x), state, bins, steps)
+                flat = {}
+                for key, outs in out.items():
+                    if "dibits" in outs:
+                        flat[f"{key}/sym"] = pack_sym(outs["dibits"],
+                                                      outs["valid"])
+                        flat[f"{key}/pll"] = outs["pll_freq"]
+                        continue
+                    if "bits" in outs:
+                        flat[f"{key}/sym"] = pack_sym(outs["bits"],
+                                                      outs["valid"])
+                    flat[f"{key}/audio"] = outs["audio"].to(torch.float32)
+                    flat[f"{key}/gate"] = outs["audio_gate"].to(torch.int8)
+                return flat, st
+
+            return fused_banks
+        if not self.bank_mode:
+            def fused_slots(x, state, bins, steps):
+                out, st = base(ingest(x), state, bins, steps)
+                if "dibits" in out:
+                    return {"sym": pack_sym(out["dibits"], out["valid"]),
+                            "pll_freq": out["pll_freq"]}, st
+                return {"audio": out["audio"].to(torch.float32),
+                        "audio_gate": out["audio_gate"].to(torch.int8)}, st
+
+            return fused_slots
         if self.bank_mixed:
             bit_cap = self._bank_bit_cap
 
@@ -478,7 +594,7 @@ class Orchestrator:
         f_abs = self.center_frequency_hz + offset_hz
         offset_hz = offset_hz + self.correction_ppm * 1e-6 * f_abs
         ch = self.rx.channelizer
-        if self.decoder_name == "p25p2":
+        if (self.slots[slot].kind or self.decoder_name) == "p25p2":
             # P25 Phase 2 gets the reference's wide channel (50 kHz minimum
             # rate): the straddling bin pair (m, m+1), joined by the PR
             # synthesizer, serves a flat 25 kHz passband anywhere, bin
@@ -500,7 +616,22 @@ class Orchestrator:
         self._plan_dev = None
         self.state = self.rx.reset_slot(self.state, slot)   # in place
 
+    def _wire_logger(self, processor) -> None:
+        """Route a processor's decode-event history into the event-log
+        sink."""
+        if self.event_logger is None:
+            return
+        hist = getattr(getattr(processor, "state", None), "history",
+                       None) or getattr(processor, "history", None)
+        if hist is not None and hasattr(hist, "add_listener"):
+            hist.add_listener(self.event_logger.receive)
+
     def _bank_reset_slot(self, index: int, preload=None, **extra) -> None:
+        if self.bank_host is not None:
+            self.bank_host.reset_slot(
+                index, preload=preload, extra=extra or None,
+                frequency=self.slots[index].frequency_hz)
+            return
         self.bank_proc.reset_slot(index, preload=preload, **extra)
         state = self.bank_proc.states[index]
         if self.event_logger is not None and hasattr(state, "history"):
@@ -508,8 +639,15 @@ class Orchestrator:
 
     def _slot_flush_drain(self, slot) -> None:
         """Flush open calls on a slot and collect its audio segments."""
-        self.bank_proc.flush(slot.index, self.now)
-        self.audio_segments.extend(self.bank_proc.drain_audio(slot.index))
+        if self.bank_host is not None:
+            self.audio_segments.extend(
+                self.bank_host.flush(slot.index, self.now))
+        elif self.bank_mode:
+            self.bank_proc.flush(slot.index, self.now)
+            self.audio_segments.extend(self.bank_proc.drain_audio(slot.index))
+        elif slot.processor is not None:
+            slot.processor.flush(self.now)
+            self.audio_segments.extend(slot.processor.drain_audio())
 
     def _rotate_control(self, frequency_hz: float) -> None:
         """Move the control slot to the next candidate frequency."""
@@ -529,12 +667,26 @@ class Orchestrator:
                 self._tune(slot.index,
                            slot.frequency_hz - self.center_frequency_hz)
 
+    def on_source_event(self, event) -> None:
+        """Tuner notification: a center-frequency change retunes, a
+        sample-rate change rebuilds the receiver, an error state stops
+        every channel."""
+        from ..sources.tuner import SourceEventType
+        if event.type == SourceEventType.FREQUENCY_CHANGE:
+            self.retune(float(event.value))
+        elif event.type == SourceEventType.SAMPLE_RATE_CHANGE:
+            self.set_sample_rate(float(event.value))
+        elif event.type == SourceEventType.ERROR_STATE:
+            self.stop_all(reason=str(event.value))
+
     def stop_all(self, reason: str = "") -> None:
         """Tuner error state: stop every running channel, flushing open
         calls to AudioSegments."""
         self.error_state = reason or "error"
         for slot in self.slots:
             if not slot.active:
+                continue
+            if not self.bank_mode and slot.processor is None:
                 continue
             self._slot_flush_drain(slot)
             slot.active = False
@@ -561,15 +713,37 @@ class Orchestrator:
                 continue
             self._tune(slot.index, offset)
 
-    def _free_slot(self) -> ChannelSlot | None:
+    def set_sample_rate(self, new_sample_rate: float) -> None:
+        """Tuner sample rate changed: rebuild the receiver and the live
+        step on ``self.device`` for the new bin grid with the default chunk
+        and a fresh state, then remap the active slots."""
+        slots = len(self.slots)
+        self.sample_rate = float(new_sample_rate)
+        self.rx = self._make_receiver(slots)
+        m = self.rx.channelizer.channels
+        self.chunk_samples = self._default_chunk(m)
+        self._size_bank(m)
+        self.step = self._build_live_step()
+        self.state = self.rx.init_state()
+        self.bins = np.zeros((slots, 2), np.int32)
+        self.steps = np.zeros(slots, np.float32)
+        self._plan_dev = None
+        self._pinned = {}           # the upload ring's chunk shape changed
+        self.retune(self.center_frequency_hz)
+
+    def _free_slot(self, kind: str | None = None) -> ChannelSlot | None:
         for slot in self.slots:
-            if not slot.active and not slot.is_control:
+            if not slot.active and not slot.is_control \
+                    and (kind is None or slot.kind == kind):
                 return slot
         return None
 
     def _activate(self, frequency_hz: float,
-                  identifiers: IdentifierCollection) -> None:
-        """Traffic grant -> start decoding the granted frequency."""
+                  identifiers: IdentifierCollection,
+                  kind: str | None = None) -> None:
+        """Traffic grant -> start decoding the granted frequency. With
+        ``banks``, ``kind`` picks the bank (default: the first bank's
+        kind, whose control channel granted it)."""
         offset = frequency_hz - self.center_frequency_hz
         ch = self.rx.channelizer
         if abs(offset) > ch.channels * ch.channel_spacing / 2:
@@ -578,7 +752,9 @@ class Orchestrator:
         for slot in self.slots:
             if slot.active and slot.frequency_hz == frequency_hz:
                 return
-        slot = self._free_slot()
+        if kind is None and self.banks is not None:
+            kind = self.decoder_name
+        slot = self._free_slot(kind)
         if slot is None:
             self.skipped_grants.append(frequency_hz)
             return
@@ -589,11 +765,27 @@ class Orchestrator:
         # P25P2 traffic channels need the scramble key the control channel
         # learned (preload data, ChannelProcessingManager:403)
         extra = {}
-        key_fn = getattr(self.bank_proc, "scramble_key", None)
-        key = key_fn() if key_fn is not None else None
+        if self.bank_host is not None:
+            key = (self.bank_host.scramble_key()
+                   if self.decoder_name == "p25p2" else None)
+        elif self.bank_mode:
+            key_fn = getattr(self.bank_proc, "scramble_key", None)
+            key = key_fn() if key_fn is not None else None
+        else:
+            key = next((s.processor.state.scramble_key for s in self.slots
+                        if s.is_control
+                        and isinstance(s.processor, P25P2ChannelProcessor)
+                        and s.processor.state.scramble_key is not None),
+                       None)
         if key is not None:
             extra["scramble_key"] = key
-        self._bank_reset_slot(slot.index, preload=identifiers, **extra)
+        if self.bank_mode:
+            self._bank_reset_slot(slot.index, preload=identifiers, **extra)
+            return
+        slot.processor = make_channel_processor(
+            slot.kind or self.decoder_name, traffic=None, codec=self.codec,
+            preload=identifiers, **extra)
+        self._wire_logger(slot.processor)
 
     def _teardown(self, frequency_hz: float) -> None:
         for slot in self.slots:
@@ -602,12 +794,46 @@ class Orchestrator:
                 self._slot_flush_drain(slot)
                 slot.active = False
 
+    # --- live recording taps -------------------------------------------
+
+    def start_iq_recording(self, path) -> None:
+        """Record the wideband capture as an IQ wave while running; the
+        tap sits at ingest (``_prepare``), int8 scaled by 1/127."""
+        from ..io.wave import ComplexWaveWriter
+        self.stop_iq_recording()
+        self._iq_writer = ComplexWaveWriter(path, int(self.sample_rate))
+
+    def stop_iq_recording(self) -> None:
+        if self._iq_writer is not None:
+            self._iq_writer.close()
+            self._iq_writer = None
+
+    def start_bits_recording(self, slot_index: int, path) -> None:
+        """Record a slot's demodulated dibit stream mid-run as a
+        reference-format .bits file."""
+        from ..audio.recorder import BitsRecorder
+        self.stop_bits_recording(slot_index)
+        self._bits_recorders[slot_index] = BitsRecorder(path)
+
+    def stop_bits_recording(self, slot_index: int) -> None:
+        rec = self._bits_recorders.pop(slot_index, None)
+        if rec is not None:
+            rec.close()
+
+    def _tap_bits_bank(self, dib4: np.ndarray, counts: np.ndarray) -> None:
+        for idx, rec in list(self._bits_recorders.items()):
+            row = unpack_dibits(dib4[idx:idx + 1])[0]
+            rec.write(row[: int(counts[idx])])
+
     # --- data plane ----------------------------------------------------
 
     def _prepare(self, iq: np.ndarray) -> np.ndarray:
         """Host-side wire format: int8 (n, 2) passes raw, complex becomes
-        float32 (n, 2) pairs."""
+        float32 (n, 2) pairs. The IQ recording tap writes here."""
         iq = np.asarray(iq)
+        if self._iq_writer is not None:
+            self._iq_writer.write(iq.astype(np.float32) / 127.0
+                                  if iq.dtype == np.int8 else iq)
         if np.iscomplexobj(iq):
             iq = np.stack([iq.real, iq.imag], -1).astype(np.float32)
         return iq
@@ -713,10 +939,24 @@ class Orchestrator:
         counts = buf[pos: pos + 4 * c].view(np.int32)
         return audio, gate, bits, counts
 
+    def _pull(self, out: dict, now: float) -> dict:
+        """Download-worker half of a chunk (runs on the download thread of
+        run(), strictly in chunk order): the bank tier's transfer, unpack
+        and framing (``_pull_bank``), or the per-slot outputs to the
+        host."""
+        if self.bank_mode:
+            return self._pull_bank(out, now)
+        return {key: v.cpu().numpy() for key, v in out.items()}
+
     def _pull_bank(self, out: dict, now: float) -> dict:
-        """Download-worker half of a chunk: transfer + unpack (+ bank-frame
-        for the digital kinds; stateful, strictly in chunk order on the one
-        download thread)."""
+        """Transfer + unpack (+ bank-frame for the digital kinds, or the
+        worker process's round trip; stateful, in chunk order)."""
+        if self.bank_host is not None:
+            active = np.array([s.active for s in self.slots])
+            control_index = next(s.index for s in self.slots if s.is_control)
+            reply = self.bank_host.process_chunk(
+                out["packed"].cpu().numpy(), active, now, control_index)
+            return {"worker_reply": reply}
         if self.bank_mixed:
             return {"bank_mixed": self._split_packed_mixed(
                 out["packed_mixed"].cpu().numpy())}
@@ -726,15 +966,24 @@ class Orchestrator:
             return {"bank_audio": audio, "bank_gate": gate}
         dib4, hits, counts, pll_raw = self._split_packed(
             out["packed"].cpu().numpy())
+        if self._bits_recorders:
+            self._tap_bits_bank(dib4, counts)
         msgs = self.bank_proc.frame_chunk(dib4, counts, hits)
         return {"bank_msgs": msgs, "counts": counts, "pll_raw": pll_raw}
 
     def _process(self, out: dict, now: float) -> dict:
         self.now = now
-        if "packed" in out or "packed_audio" in out \
-                or "packed_mixed" in out:
-            out = self._pull_bank(out, now)        # un-pipelined path
+        if any(isinstance(v, torch.Tensor) for v in out.values()):
+            out = self._pull(out, now)                 # un-pipelined path
         pll_raw = out.get("pll_raw")
+        if self.banks is not None:
+            ctrl = self.slots[0]
+            if f"{ctrl.bank_key}/pll" in out:
+                pll_raw = float(out[f"{ctrl.bank_key}/pll"][ctrl.local])
+        elif "worker_reply" in out:
+            pll_raw = out["worker_reply"].get("pll")
+        elif "pll_freq" in out:
+            pll_raw = float(out["pll_freq"][0])
 
         pll_err_hz = None
         if self.ppm_monitor is not None and pll_raw is not None:
@@ -744,30 +993,25 @@ class Orchestrator:
             pll_err_hz = float(-pll_raw * rate / (2.0 * np.pi))
             self.ppm_monitor.update(pll_err_hz, self.now)
 
-        active = np.array([s.active for s in self.slots])
-        if self.bank_mixed:
-            per_slot = self.bank_proc.route_mixed(*out["bank_mixed"], active,
-                                                  self.now)
-        elif self.bank_analog:
-            per_slot = self.bank_proc.route_audio(
-                out["bank_audio"], out["bank_gate"], active, self.now)
+        if self.bank_host is not None:
+            frames = self._apply_worker_reply(out["worker_reply"])
+        elif self.bank_mode:
+            frames = self._route_bank(out)
         else:
-            per_slot = self.bank_proc.route(out["bank_msgs"], out["counts"],
-                                            active, self.now)
-        frames = int(per_slot.sum())
-        for slot in self.slots:
-            if not slot.active:
-                continue
-            if per_slot[slot.index] and not slot.is_control:
-                self.traffic.process_activity(slot.frequency_hz, self.now)
-            self.audio_segments.extend(
-                self.bank_proc.drain_audio(slot.index))
-        self.traffic.check_teardown(self.now)
+            frames = self._route_slots(out)
+        if self.bank_host is None:
+            self.traffic.check_teardown(self.now)
 
         if self.rotation is not None:
             ctrl = next(s for s in self.slots if s.is_control)
-            self.rotation.state(self.bank_proc.channel_state(ctrl.index),
-                                self.now)
+            if self.bank_host is not None:
+                self.rotation.state(self._worker_reply.get("control_state"),
+                                    self.now)
+            elif self.bank_mode:
+                self.rotation.state(self.bank_proc.channel_state(ctrl.index),
+                                    self.now)
+            elif hasattr(ctrl.processor, "channel_state"):
+                self.rotation.state(ctrl.processor.channel_state(), self.now)
             self.rotation.check(self.now)
 
         metrics = {
@@ -792,15 +1036,100 @@ class Orchestrator:
                     metrics[key] = int(v)
             if framer.pending:
                 metrics["pending_frames"] = len(framer.pending)
-        unk = sum(m.unknown_opcodes for m in self.bank_proc.metrics)
-        if unk:
-            metrics["unknown_opcodes"] = int(unk)
+        if self.bank_proc is not None:
+            unk = sum(m.unknown_opcodes for m in self.bank_proc.metrics)
+            if unk:
+                metrics["unknown_opcodes"] = int(unk)
+        if self.bank_host is not None:
+            metrics.update(self._worker_reply.get("degraded", {}))
+            if self._worker_reply.get("unknown_opcodes"):
+                metrics["unknown_opcodes"] = int(
+                    self._worker_reply["unknown_opcodes"])
         if pll_err_hz is not None:
             metrics["pll_error_hz"] = round(pll_err_hz, 1)
             metrics["correction_ppm"] = round(self.correction_ppm, 3)
         if self.metrics_sink is not None:
             self.metrics_sink(json.dumps(metrics))
         return metrics
+
+    def _route_bank(self, out: dict) -> int:
+        """The bank tier's host half: route the chunk's messages, audio or
+        mixed share to the slots' states; returns the frames."""
+        active = np.array([s.active for s in self.slots])
+        if self.bank_mixed:
+            per_slot = self.bank_proc.route_mixed(*out["bank_mixed"], active,
+                                                  self.now)
+        elif self.bank_analog:
+            per_slot = self.bank_proc.route_audio(
+                out["bank_audio"], out["bank_gate"], active, self.now)
+        else:
+            per_slot = self.bank_proc.route(out["bank_msgs"], out["counts"],
+                                            active, self.now)
+        for slot in self.slots:
+            if not slot.active:
+                continue
+            if per_slot[slot.index] and not slot.is_control:
+                self.traffic.process_activity(slot.frequency_hz, self.now)
+            self.audio_segments.extend(
+                self.bank_proc.drain_audio(slot.index))
+        return int(per_slot.sum())
+
+    def _route_slots(self, out: dict) -> int:
+        """The per-slot host half: each active slot's processor takes its
+        share of the chunk (dibits; audio and gate; or, in an
+        analog-trunking bank, the sliced bits beside them); returns the
+        frames."""
+        frames = 0
+        for slot in self.slots:
+            if not slot.active:
+                continue
+            i = slot.index
+            if self.banks is not None:
+                key, i = slot.bank_key, slot.local
+                sym = out.get(f"{key}/sym")
+                audio = out.get(f"{key}/audio")
+                gate = out.get(f"{key}/gate")
+            else:
+                sym, audio, gate = (out.get("sym"), out.get("audio"),
+                                    out.get("audio_gate"))
+            if sym is not None and audio is not None:
+                p = sym[i]
+                n = slot.processor.process_mixed(
+                    (p & 1)[(p >> 2) > 0], audio[i], gate[i] > 0, self.now)
+            elif sym is not None:
+                p = sym[i]
+                slot_dib = (p & 3)[(p >> 2) > 0]
+                rec = self._bits_recorders.get(slot.index)
+                if rec is not None:
+                    rec.write(slot_dib)
+                n = slot.processor.process(slot_dib, self.now)
+            else:
+                n = slot.processor.process_audio(audio[i], gate[i] > 0,
+                                                 self.now)
+            frames += n
+            if n and not slot.is_control:
+                # frames on a traffic channel = teardown-aging activity
+                self.traffic.process_activity(slot.frequency_hz, self.now)
+            self.audio_segments.extend(slot.processor.drain_audio())
+        return frames
+
+    def _apply_worker_reply(self, reply: dict) -> int:
+        """The worker process framed and routed the chunk: collect its
+        events and audio, and apply its traffic actions to the device
+        plan (one chunk of grant latency, as in-process pipelined)."""
+        self._worker_events.extend(reply["events"])
+        if self.event_logger is not None:
+            for e in reply["events"]:
+                self.event_logger.receive(e)
+        self.audio_segments.extend(reply["audio"])
+        self._worker_reply = reply
+        for action in reply["actions"]:
+            if action[0] == "activate":
+                _, freq, ids, kind = action
+                self._activate(freq, ids, kind)
+            else:
+                self._teardown(action[1])
+        return int(reply["per_slot"].sum())
 
     def run(self, max_chunks: int | None = None,
             pipelined: bool = True) -> dict:
@@ -809,7 +1138,7 @@ class Orchestrator:
         chunks from the source; a short read or an error state ends it.
 
         pipelined: an upload thread stages chunk n+1 while the device
-        computes chunk n and a download thread pulls and bank-frames
+        computes chunk n and a download thread pulls (and bank-frames)
         chunk n-1; control-plane writes from chunk n (grants, retunes)
         take effect from chunk n+2. Otherwise each chunk goes through
         ``run_chunk`` in turn and its writes take effect from chunk n+1."""
@@ -854,7 +1183,7 @@ class Orchestrator:
                 prep = next_prepared() if may_read(chunks + 1) else None
                 fut = up_pool.submit(self._upload, prep) \
                     if prep is not None else None
-                cur = (down_pool.submit(self._pull_bank, out, now), now)
+                cur = (down_pool.submit(self._pull, out, now), now)
                 if pending is not None:
                     metrics = self._process(pending[0].result(),
                                             pending[1])
@@ -870,18 +1199,37 @@ class Orchestrator:
 
     @property
     def events(self) -> list[DecodeEvent]:
+        if self.bank_host is not None:
+            return self._worker_events
         return self.traffic.events
 
     def close(self) -> None:
-        """Release the bank worker process, the one resource the reference
-        frees here. The port runs the bank host layer in-process
-        (host_process=True raises: ROADMAP Queue 1 item 9 + 15c), so there
-        is nothing to release; calling it again is harmless."""
+        """Stop the bank worker process, if there is one; calling it again
+        is harmless."""
+        if self.bank_host is not None:
+            self.bank_host.close()
+            self.bank_host = None
 
     def channel_status(self) -> list[dict]:
+        if self.bank_host is not None:
+            return [{
+                "slot": s.index, "active": s.active,
+                "control": s.is_control, "frequency_hz": s.frequency_hz,
+                "frames": int(self.bank_host.frame_counts[s.index]),
+                "metrics": None,
+            } for s in self.slots]
+        if self.bank_mode:
+            return [{
+                "slot": s.index, "active": s.active,
+                "control": s.is_control, "frequency_hz": s.frequency_hz,
+                "frames": int(self.bank_proc.frame_counts[s.index]),
+                "metrics": self.bank_proc.metrics[s.index].as_dict(),
+            } for s in self.slots]
         return [{
-            "slot": s.index, "active": s.active,
-            "control": s.is_control, "frequency_hz": s.frequency_hz,
-            "frames": int(self.bank_proc.frame_counts[s.index]),
-            "metrics": self.bank_proc.metrics[s.index].as_dict(),
+            "slot": s.index, "active": s.active, "control": s.is_control,
+            "frequency_hz": s.frequency_hz,
+            "frames": s.processor.frame_count if s.processor else 0,
+            "metrics": (s.processor.metrics.as_dict()
+                        if s.processor is not None
+                        and hasattr(s.processor, "metrics") else None),
         } for s in self.slots]

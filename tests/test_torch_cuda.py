@@ -58,8 +58,10 @@ def test_kernel_matches_plain_loop_on_card(card):
     demod = DQPSKDemodulator(25000.0, device=card)
     s0 = _state(demod, c)
     before = dqpsk_cuda.dqpsk_cuda.launches
+    by_gain = dqpsk_cuda.dqpsk_cuda.launches_by[0.3]
     dibits, valid, state = demod.batched(x, s0)
     assert dqpsk_cuda.dqpsk_cuda.launches == before + 1
+    assert dqpsk_cuda.dqpsk_cuda.launches_by[0.3] == by_gain + 1
     ref_dibits, ref_valid, ref_state = demod.scan_batched(x, s0)
     assert float(valid.float().mean()) > 0.15
     assert torch.equal(valid, ref_valid)
@@ -110,9 +112,11 @@ def test_gardner_kernel_matches_plain_loop_on_card(card, rate, baud, gain,
     assert demod.window_len == window
     s0 = _gstate(demod, c)
     before = gardner_cuda.gardner_cuda.launches
+    by_window = gardner_cuda.gardner_cuda.launches_by[window]
     d1, v1, s1 = demod.batched(x[:, :1000], s0)
     d2, v2, s2 = demod.batched(x[:, 1000:], s1)
     assert gardner_cuda.gardner_cuda.launches == before + 2
+    assert gardner_cuda.gardner_cuda.launches_by[window] == by_window + 2
     ref_d, ref_v, ref_s = demod.scan_batched(x, s0)
     assert float(ref_v.float().mean()) > 0.1
     assert torch.equal(torch.cat([v1, v2], 1), ref_v)
@@ -265,8 +269,11 @@ def test_bit_timing_kernel_matches_plain_loop_on_card(card, case):
     want = bit_timing_plain(geom, x, window, sp, invert)
     assert bool(want[1][::3, 0].all())
     before = bit_timing_cuda.bit_timing_cuda.launches
+    by_window = bit_timing_cuda.bit_timing_cuda.launches_by[geom.window_len]
     got = bit_timing(geom, x, window, sp, invert)
     assert bit_timing_cuda.bit_timing_cuda.launches == before + 1
+    assert (bit_timing_cuda.bit_timing_cuda.launches_by[geom.window_len]
+            == by_window + 1)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     for a, b in zip(bit_timing(geom, x[:, :1], window, sp, invert),

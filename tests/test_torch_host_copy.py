@@ -3,7 +3,8 @@ equal to the JAX package's.
 
 The port imports nothing of sdrtrunk_tpu. What it needs of the host layer
 (the protocol framers and parsers, the runtime's decoder states, bank
-processors, events and traffic manager, the audio segments and MBE
+processors, bank worker process, events and traffic manager, the tuner's
+source events, the audio segments and MBE
 module, the wave reader, the signal generators, and the filter design,
 window and interpolator helpers) is copied to the same relative path under
 sdrtrunk_tpu_torch/. MANIFEST lists every copy. A fix to the host layer
@@ -95,6 +96,7 @@ MANIFEST = (
     "protocol/passport.py",
     "runtime/aliases.py",
     "runtime/bank_processor.py",
+    "runtime/bank_worker.py",
     "runtime/dmr_state.py",
     "runtime/eventlog.py",
     "runtime/events.py",
@@ -108,6 +110,7 @@ MANIFEST = (
     "runtime/traffic.py",
     "signal/__init__.py",
     "signal/generators.py",
+    "sources/tuner.py",
 )
 # directories whose every file is a copy
 COPIED_TREES = ("audio", "io", "protocol", "signal")

@@ -8,11 +8,13 @@ and its kernel path never falls back.
   with the card has no JAX installed, and the port keeps its own copy of
   the host layer it needs: tests/test_torch_host_copy.py).
 * A fresh interpreter imports every port module and chip_smoke, then
-  drives the port's CPU Orchestrator for one chunk at a tiny width for
-  c4fm, p25p2, lsm, dmr, nbfm, am, ltr and mpt1327 (the bank
-  processors' lazy imports run there), and an AuxDecoder on a block of
-  silence;
-  neither 'jax' nor any sdrtrunk_tpu module is in sys.modules after.
+  drives the port's CPU Orchestrator for one chunk at a tiny width: the
+  bank tier for c4fm, p25p2, lsm, dmr, nbfm, am, ltr and mpt1327 (the bank
+  processors' lazy imports run there), the per-slot path for the six
+  kinds that have one, banks= over six kinds, and host_process=True (its
+  worker process spawned and stopped), and an AuxDecoder on a block of
+  silence; neither 'jax' nor any sdrtrunk_tpu module is in sys.modules
+  after.
 * batched() on a non-CPU tensor goes to the CUDA kernel, and so does
   bit_timing(); when the build fails, the call raises and the plain loop
   is never run. The shared nvcc helper raises when nvcc fails, and leaves
@@ -124,16 +126,31 @@ _DRIVE = """
 import sys
 import numpy as np
 from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+
+
+def drive(chunk, **kw):
+    orch = Orchestrator(lambda n: None, 64 * 12500.0, 460e6, [25000.0],
+                        chunk_samples=chunk, ppm_correction=False,
+                        device="cpu", **kw)
+    try:
+        m = orch.run_chunk(np.zeros((chunk, 2), np.int8))
+    finally:
+        orch.close()
+    assert m["samples"] == chunk, m
+    return orch
+
+
 for kind in ("c4fm", "p25p2", "lsm", "dmr", "nbfm", "am", "ltr", "mpt1327"):
     # the analog kinds resample 25 kHz to 8 kHz: K = 2 * chunk / M must
     # be a multiple of 25, and for mpt1327 the audio length one of 10
     chunk = (64 * 25 * 2 if kind in ("nbfm", "am") else
              64 * 125 if kind in ("ltr", "mpt1327") else 64 * 64)
-    orch = Orchestrator(lambda n: None, 64 * 12500.0, 460e6, [25000.0],
-                        slots=4, decoder=kind, chunk_samples=chunk,
-                        bank_mode=True, ppm_correction=False, device="cpu")
-    m = orch.run_chunk(np.zeros((chunk, 2), np.int8))
-    assert m["samples"] == chunk, m
+    drive(chunk, slots=4, decoder=kind, bank_mode=True)
+    if kind not in ("ltr", "mpt1327"):                 # the per-slot path
+        assert not drive(chunk, slots=4, decoder=kind).bank_mode
+drive(64 * 125, banks=[("c4fm", 2), ("dmr", 1), ("ltr", 1), ("nbfm", 1),
+                       ("mpt1327", 1), ("p25p2", 1)])
+drive(64 * 64, slots=4, bank_mode=True, host_process=True)
 from sdrtrunk_tpu_torch.decoders.auxdec import AuxDecoder
 assert AuxDecoder("fleetsync2", device="cpu").process(np.zeros(800)) == []
 """

@@ -178,15 +178,51 @@ def test_run_chunk_processes_one_chunk():
     assert json.loads(lines[-1]) == metrics
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"banks": [("c4fm", 4)]}, {"host_process": True},
-    {"ingest_format": "int4"}, {"bank_mode": False}])
+@pytest.mark.parametrize("kwargs", [{"ingest_format": "int4"}])
 def test_unported_options_raise(kwargs):
+    """The one option the port leaves out by decision: the int4 wire
+    format."""
     args = dict(slots=4, bank_mode=True, device="cpu")
     args.update(kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Orchestrator(lambda n: None, to.FS, to.CENTER_HZ, [to.CONTROL_OFF],
                      **args)
+
+
+def _mode(orch):
+    return {"bank_mode": orch.bank_mode, "banks": orch.banks,
+            "bank_proc": type(orch.bank_proc).__name__,
+            "worker": orch.bank_host is not None,
+            "kinds": [s.kind for s in orch.slots],
+            "processors": [type(s.processor).__name__ for s in orch.slots],
+            "bins": orch.bins.tolist(), "chunk": orch.chunk_samples}
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"banks": [("c4fm", 2), ("dmr", 2)]}, {"bank_mode": False},
+    {"bank_mode": None}, {"bank_mode": True, "host_process": True}],
+    ids=["banks", "per-slot", "per-slot-default", "host-process"])
+def test_formerly_refused_options_run_as_the_reference(kwargs):
+    """banks=, the per-slot path (bank_mode False, or None under 32
+    slots) and host_process=True build what the reference builds and run
+    a chunk (tests/test_torch_orchestrator_slots.py, test_torch_multibank
+    .py and test_torch_bank_worker.py hold their runs against it)."""
+    args = dict(slots=4, ppm_correction=False, **kwargs)
+    orch = Orchestrator(lambda n: None, to.FS, to.CENTER_HZ,
+                        [to.CONTROL_OFF], device="cpu", **args)
+    try:
+        metrics = orch.run_chunk(np.zeros((orch.chunk_samples, 2), np.int8))
+        assert metrics["samples"] == orch.chunk_samples
+        if not kwargs.get("host_process"):
+            # the reference's worker is a JAX process of its own: its
+            # constructor is held here, its run in test_torch_bank_worker
+            jorch = JOrchestrator(lambda n: None, to.FS, to.CENTER_HZ,
+                                  [to.CONTROL_OFF], **args)
+            assert _mode(orch) == _mode(jorch)
+        else:
+            assert orch.bank_host is not None and orch.bank_proc is None
+    finally:
+        orch.close()
 
 
 def test_unknown_decoder_kind_raises():
