@@ -9,7 +9,8 @@ phase below, which is the acceptance check; named phases (``edges``:
 phase 3 and the bit-timing edge cases, ``bits`` and ``psk``: phase 4's
 bit-timing and symbol-loop kernels, ``c4fm``, ``p25p2``, ``lsm``, ``dmr``,
 ``nbfm``, ``am``, ``ltr``, ``mpt1327``, ``slots``, ``slots_p25p2``,
-``multibank``, ``worker``: the live loops) run those alone, after the
+``multibank``, ``worker``: the live loops; ``cli``, ``monitor``,
+``monitor_mixed``: the application) run those alone, after the
 environment and the build, in this order; an unknown name
 raises. Each phase raises on failure (the exit code is then not 0):
 
@@ -101,11 +102,36 @@ raises. Each phase raises on failure (the exit code is then not 0):
    audio, one DQPSK launch a chunk at gain 0.3 and one at 0.4, one
    bit-timing launch;
 16. phase 5's bank with host_process=True, 2 + 3 chunks, phase 5's checks,
-   and no CUDA context in the worker process.
+   and no CUDA context in the worker process;
+17. ``cli``: the entry point users run, ``sdrtrunk_tpu_torch.cli.main``,
+   in this process: ``decode`` of a P25 Phase 1, DMR, P25 Phase 2, LTR
+   and MPT1327 capture (25 kHz, about 0.5 s each) and ``replay`` of
+   tests/test_cli.py's two-channel P25 capture, each on the card and
+   again with ``--platform cpu``: the same message lines, one launch a
+   decode (DQPSK at gain 0.3 and 0.4, Gardner W = 16, bit timing W = 53
+   and 12), one DQPSK launch at C = 2 for the replay, none on the CPU;
+   then each kernel held against its plain loop at the shape the CLI gave
+   it;
+18. ``monitor``: phase 5's scene written as a 16-bit IQ wave (3 + 4
+   chunks, about 147 MB), a playlist of its control channel alone, and
+   ``monitor --bank --traffic-slots 1022``: 1023 slots in bank mode, the
+   grant in the event log and followed (frames on the granted slot), a
+   call written as WAV and sidecar, 7 DQPSK launches at C = 1023;
+19. ``monitor_mixed``: a playlist of a P25, a DMR and an LTR control
+   channel, ``--traffic-slots 4``: banks [(c4fm, 5), (dmr, 5), (ltr, 5)];
+   each control channel decodes, both grants are followed (the P25 one
+   decoded), every call is written as a parsable MPEG-1 Layer II file,
+   the P25 channel's bits tap re-frames to TSBKs, one launch a chunk at
+   gain 0.3, 0.4 and W = 53.
 
-After phases 13-15 each kernel they launched is held bit for bit against
-its plain loop at the shape that phase gives it, as phase 4 holds it at
-1023 channels (``_SMALL_SHAPES``).
+During every live phase (5-19) a spy on the calls that reach the kernel
+wrappers records the (kernel, C, T) of each launch on the card; after the
+phase, each shape it recorded is held bit for bit against its plain loop
+as phase 4 holds the 1023-channel ones, unless this run held that shape
+already (phases 5, 6, 8, 11, 12, 16 and 18 give phase 4's shapes).
+
+Phases 17-19 write their captures, playlists and what the CLI writes
+under the git-ignored ``.scratch/chip_smoke/`` and remove it after.
 
 Every live loop prints its realtime factor, wall and host ms a chunk (the
 host layer: the bank framer's ``frame_chunk`` for the digital kinds,
@@ -126,9 +152,9 @@ and AFSK bit timing) has its own count from the launch itself. At the end
 the script prints its own run time, then the kernels' JSON record on the
 line before the last (the kernels a run checked; an entry's ``launches``
 is the sum over the live loops that ran it, ``launches_by_path`` each
-loop's count, ``launches`` null where no live loop ran it, and
-``small_shapes`` its holds at phases 13-15's shapes); the last line is
-{"ok": true, "device": {...}}.
+loop's count, ``launches`` null where no live loop ran it, and ``holds``
+each live loop's shapes with the phase that held them and that hold's
+numbers); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -189,29 +215,38 @@ def _cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _kernel_device_ms(fn, key: str, reps: int = 20) -> float:
-    """Mean device ms of the kernels whose name holds `key`, over `reps`
-    calls of fn, from torch.profiler's device-side events: a kernel's own
-    time, where a call through its wrapper is bound by the host's enqueue
-    (a few hundred us of Python) and CUDA events would time that. The
-    tracer may drop an activity record (19 of 20 launches were seen in one
-    run on an H100), so the mean is over the launches it reported: fewer
-    than half of the calls, or more than were made, fails."""
+# cycles of the sleep kernel that holds the stream while the host queues
+# the calls ``_device_span_ms`` times: 0.1 s at an H100's 1.98 GHz
+HOLD_QUEUE_CYCLES = 200_000_000
+
+
+def _device_span_ms(fn, reps: int = 20) -> float:
+    """Mean device ms of a call of fn, by CUDA events around `reps` calls
+    queued behind a sleep kernel: the card waits on the sleep until the
+    host has queued every call, so the events time the calls' device work
+    back to back and not the host's enqueue (a few hundred us of Python a
+    call through a wrapper). Raises if the sleep ended before the host had
+    queued the last call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if key in e.key]
-    count = sum(e.count for e in events)
-    if not reps // 2 <= count <= reps:
-        raise AssertionError(f"the profiler saw {count} launches of a "
-                             f"{key} kernel in {reps} calls")
-    return sum(e.device_time_total for e in events) / count / 1e3
+    held, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    held.record()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(HOLD_QUEUE_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if held.elapsed_time(start) <= queued_ms:
+        raise AssertionError(f"the sleep held the stream "
+                             f"{held.elapsed_time(start):.1f} ms, the host "
+                             f"took {queued_ms:.1f} ms to queue {reps} calls")
+    return start.elapsed_time(end) / reps
 
 
 def _launch_counters():
@@ -543,7 +578,7 @@ def _bit_audio(which: str, c: int, t_out: int):
     (+/-0.35) under an 800 Hz tone and noise; AFSK, phase-continuous 1200
     / 1800 Hz tones at 1200 baud with noise. The last 8 channels are noise
     only (fewer below 64 channels, ``_noise_channels``) and the one before
-    them all zero."""
+    them all zero (none when c is 1)."""
     import numpy as np
     import torch
 
@@ -565,7 +600,8 @@ def _bit_audio(which: str, c: int, t_out: int):
                             ).float()
     x = x + 0.02 * torch.randn((c, t), device="cuda", generator=gen)
     n_noise = _noise_channels(c)
-    x[c - n_noise - 1] = 0.0
+    if c > 1:                           # one channel carries the signal
+        x[c - n_noise - 1] = 0.0
     x[c - n_noise:] = 0.2 * torch.randn((n_noise, t), device="cuda",
                                         generator=gen)
     return x
@@ -587,18 +623,19 @@ def _hold_bits(name: str, got, want) -> float:
 
 
 def check_bit_timing(card: str, which: str, c: int = KERNEL_C,
-                     device_time: bool = True) -> dict:
-    """The bit-timing kernel at a live chunk's shape (c, T): reached
-    through the demodulator's public call, held bit for bit against the
-    plain loop on the same slicer input, and timed beside its bound; with
-    `device_time`, its own device time by torch.profiler too."""
+                     t: int | None = None) -> dict:
+    """The bit-timing kernel at a live chunk's shape (c, T), T = BIT_T
+    unless given: reached through the demodulator's public call, held bit
+    for bit against the plain loop on the same slicer input, and timed
+    beside its bound, a call through the wrapper and its device span
+    (``_device_span_ms``)."""
     import torch
 
     from sdrtrunk_tpu_torch.convert import tree_map
     from sdrtrunk_tpu_torch.dsp.bit_timing import bit_timing_plain
     from sdrtrunk_tpu_torch.dsp.bit_timing_cuda import bit_timing_cuda
 
-    t = BIT_T[which]
+    t = BIT_T[which] if t is None else t
     demod, replaces = _bit_demod(which)
     geom, invert = demod.geometry, getattr(demod, "invert", False)
     s0 = tree_map(lambda a: a.expand((c,) + a.shape).clone(),
@@ -623,15 +660,14 @@ def check_bit_timing(card: str, which: str, c: int = KERNEL_C,
         bit_timing_cuda(geom, x, s0.window, s0.sampling_point, invert)
     # a call through the wrapper (its allocations, the launch, the host's
     # enqueue) by CUDA events, as check_kernel times the others; the
-    # kernel's own device time beside it
+    # kernel's device span beside it (the wrapper queues no other work)
     kernel_ms = _cuda_ms(run_kernel, reps=20)
-    device_ms = (_kernel_device_ms(run_kernel, "bit_timing_kernel")
-                 if device_time else None)
+    device_ms = _device_span_ms(run_kernel)
     name = f"bit_timing_{which}"
     err = _hold_bits(name, (bits, valid, s1.window, s1.sampling_point),
                      plain["out"])
     symbols = int(valid.sum())
-    live = valid[:c - _noise_channels(c) - 1].sum(1)
+    live = valid[:max(c - _noise_channels(c) - 1, 1)].sum(1)
     nominal = t / geom.sps
     if int(live.min()) < 0.9 * nominal or int(live.max()) > 1.1 * nominal:
         raise AssertionError(f"{name}: {int(live.min())}-{int(live.max())} "
@@ -643,14 +679,12 @@ def check_bit_timing(card: str, which: str, c: int = KERNEL_C,
     by_ops = ops / FP32_OPS_PER_S * 1e3
     bound_ms, bound_by = ((by_bytes, "bytes") if by_bytes >= by_ops
                           else (by_ops, "operations"))
-    on_device = ("its device time not measured" if device_ms is None
-                 else f"{device_ms:.4f} ms of it the kernel on the device, "
-                 "profiler")
     print(f"[kernel] {card}: {name} W={geom.window_len} C={c} T={t}: "
           f"identical to the plain loop on all {c} channels (bits, valid, "
           f"window, sampling point; max err {err}), {symbols} symbols; "
           f"kernel {kernel_ms:.4f} ms a call through the wrapper (CUDA "
-          f"events; {on_device}) against a {bound_ms:.4f} ms {bound_by} "
+          f"events; {device_ms:.4f} ms of it the kernel on the device, "
+          f"queued behind a sleep) against a {bound_ms:.4f} ms {bound_by} "
           f"bound "
           f"({100 * bound_ms / kernel_ms:.2f}% of it), plain "
           f"{plain_ms:.1f} ms", flush=True)
@@ -785,9 +819,10 @@ def check_bit_timing_edges(card: str) -> None:
 # --- phases 5-7: the live loops -------------------------------------------
 
 def _p25_streams(total_dibits: int, base_hz: float,
-                 traffic_index: int = TRAFFIC_INDEX):
+                 traffic_index: int = TRAFFIC_INDEX, band_id: int = 1):
     """(control, traffic, voice superframe) P25P1 dibit streams; the
-    control channel grants channel traffic_index of the band at base_hz."""
+    control channel grants channel traffic_index of the band at base_hz,
+    which its IDEN_UP announces as band band_id."""
     import numpy as np
 
     from sdrtrunk_tpu_torch.protocol.bits import from_int
@@ -801,12 +836,12 @@ def _p25_streams(total_dibits: int, base_hz: float,
     rng = np.random.default_rng(11)
     asm = P25P1FrameAssembler(nac=0x293)
     iden = np.zeros(64, np.uint8)              # IDEN_UP, tsbk.py:348-355
-    iden[0:4] = from_int(1, 4)
+    iden[0:4] = from_int(band_id, 4)
     iden[4:13] = from_int(100, 9)              # bandwidth 12.5 kHz
     iden[22:32] = from_int(100, 10)            # spacing 12.5 kHz
     iden[32:64] = from_int(int(base_hz / 5), 32)
     grant = np.zeros(64, np.uint8)             # GROUP_VOICE_CHANNEL_GRANT
-    grant[8:12] = from_int(1, 4)
+    grant[8:12] = from_int(band_id, 4)
     grant[12:24] = from_int(traffic_index, 12)
     grant[24:40] = from_int(GROUP, 16)
     grant[40:64] = from_int(SOURCE, 24)
@@ -1829,25 +1864,17 @@ def run_ltr(card: str) -> dict:
     return result
 
 
-def run_mpt1327(card: str) -> dict:
-    """1023 slots with a channel map: slot 0 a control channel of AFSK
-    codewords (ALH, then GTC for channel MPT_TRAFFIC_INDEX, repeated), the
-    granted channel's slot left free for the grant, FM voice on it and on
-    the other 1021 slots."""
+def _mpt_control(n: int, rate: float, rng):
+    """n samples at rate of an NBFM control channel of MPT1327 AFSK
+    codewords: ALH, then GTC for channel MPT_TRAFFIC_INDEX, repeated, each
+    after 24 random bits and the control sync (1 -> 1200 Hz, 0 -> 1800 Hz
+    at 8 kHz, phase-continuous, at 0.35)."""
     import numpy as np
-    import torch
 
     from sdrtrunk_tpu_torch.protocol.bits import from_int
-    from sdrtrunk_tpu_torch.protocol.mpt1327 import (MPT1327MessageType,
-                                                     SYNC_CONTROL,
+    from sdrtrunk_tpu_torch.protocol.mpt1327 import (SYNC_CONTROL,
                                                      mpt_encode_codeword)
-    from sdrtrunk_tpu_torch.runtime.traffic import FrequencyBand
     from sdrtrunk_tpu_torch.signal.generators import nbfm_modulate
-
-    total = MPT_WARMUP + MPT_TIMED
-    rate = 25000.0
-    n_ch = (total + 1) * (2 * MIXED_BLOCKS)
-    rng = np.random.default_rng(13)
 
     def address_word(prefix, ident1):
         d = np.zeros(48, np.uint8)
@@ -1865,13 +1892,30 @@ def run_mpt1327(card: str) -> dict:
         part for word in (alh, gtc) for part in (
             rng.integers(0, 2, 24).astype(np.uint8), SYNC_CONTROL,
             mpt_encode_codeword(word))])
-    # audio FSK at 8 kHz: 1 -> 1200 Hz, 0 -> 1800 Hz, phase-continuous
-    need = int(n_ch / rate * 8000.0) + 100
+    need = int(n / rate * 8000.0) + 100
     bits = np.tile(frame, int(need * 1200 / 8000) // len(frame) + 2)
     sym = np.minimum((np.arange(need) * 1200 / 8000).astype(np.int64),
                      len(bits) - 1)
     tone = 2 * np.pi * np.cumsum(np.where(bits[sym] == 1, 1200.0, 1800.0))
-    control = nbfm_modulate(0.35 * np.sin(tone / 8000.0), 8000.0, rate)
+    return nbfm_modulate(0.35 * np.sin(tone / 8000.0), 8000.0, rate)[:n]
+
+
+def run_mpt1327(card: str) -> dict:
+    """1023 slots with a channel map: slot 0 a control channel of AFSK
+    codewords (ALH, then GTC for channel MPT_TRAFFIC_INDEX, repeated), the
+    granted channel's slot left free for the grant, FM voice on it and on
+    the other 1021 slots."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.protocol.mpt1327 import MPT1327MessageType
+    from sdrtrunk_tpu_torch.runtime.traffic import FrequencyBand
+
+    total = MPT_WARMUP + MPT_TIMED
+    rate = 25000.0
+    n_ch = (total + 1) * (2 * MIXED_BLOCKS)
+    rng = np.random.default_rng(13)
+    control = _mpt_control(n_ch, rate, rng)
 
     streams = _fm_streams(_voice(SLOTS, n_ch, rate, rng, 0.6), rate)
     streams[0] = torch.as_tensor(control[:n_ch].astype(np.complex64),
@@ -2462,35 +2506,644 @@ def run_worker(card: str) -> dict:
     return result
 
 
+# --- the application: cli, monitor, monitor_mixed --------------------------
+
+# where the application phases write their captures, playlists and what the
+# CLI writes (git-ignored; removed after each phase)
+APP_DIR = ROOT / ".scratch" / "chip_smoke"
+DECODE_RATE = 25000.0            # the decode captures' channel rate
+MONITOR_CHUNKS = WARMUP + TIMED  # phase 5's scene, 3 + 4 chunks
+MIXED_CHUNKS = 6                 # monitor_mixed: 6 chunks of M x 6250
+MIXED_SLOTS = 4                  # --traffic-slots: banks of 1 + 4 slots
+MIXED_CHANNELS = {"p25": 0, "p25_traffic": 610, "dmr": 300,
+                  "dmr_traffic": TRAFFIC_INDEX, "ltr": 900}
+LTR_IDENT = (3, 33)              # the LTR control channel's (home, group)
+
+
+def _write_iq(path: Path, iq, rate: float) -> Path:
+    from sdrtrunk_tpu_torch.io.wave import write_complex_wave
+    write_complex_wave(path, iq, int(rate))
+    return path
+
+
+def decode_scenes(directory: Path) -> list:
+    """The single-channel captures ``cli`` decodes, each at 25 kHz and at
+    most half a second: [(protocol, wave path, extra flags, kernels-line
+    entry its decode launches)]. P25 Phase 1, tests/test_cli.py's capture
+    (two TSBKs); DMR, the TSCC control stream of phase 8 (an aloha and
+    Tier III grants); P25 Phase 2, one call cycle of phase 6 (its scramble
+    key on the command line); LTR, an NBFM carrier with the voice tone and
+    sub-audible CALL words; MPT1327, phase 12's control channel."""
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.protocol.ltr.messages import ltr_encode_word
+    from sdrtrunk_tpu_torch.protocol.p25p1 import (DUID,
+                                                   P25P1FrameAssembler)
+    from sdrtrunk_tpu_torch.protocol.p25p1.tsbk import tsbk_encode
+    from sdrtrunk_tpu_torch.signal.generators import (c4fm_modulate,
+                                                      lsm_modulate,
+                                                      nbfm_modulate)
+
+    rate = DECODE_RATE
+    rng = np.random.default_rng(0)
+    asm = P25P1FrameAssembler(nac=0x2F7)
+    parts = [rng.integers(0, 4, 50).astype(np.uint8)]
+    for opcode in (0x3B, 0x00):
+        parts.append(asm.assemble(
+            DUID.TSBK, tsbk_encode(opcode, rng.integers(0, 2, 64))))
+        parts.append(rng.integers(0, 4, 20).astype(np.uint8))
+    p25 = c4fm_modulate(np.concatenate(parts), rate)
+    dmr = c4fm_modulate(_dmr_streams(2400)[0], rate)
+    p25p2 = lsm_modulate(_p25p2_cycle(), sample_rate=rate,
+                         symbol_rate=6000.0)
+    n_audio = int(0.5 * 8000)
+    word = ltr_encode_word(0, LTR_IDENT[0], *LTR_IDENT, LTR_IDENT[0])
+    bits = np.tile(word, n_audio // 26 // len(word) + 2)
+    sym = (np.arange(n_audio) * 300.0 / 8000.0).astype(np.int64)
+    audio = (0.35 * (2.0 * bits[sym] - 1.0)
+             + 0.5 * np.sin(2 * np.pi * VOICE_TONE_HZ / 8000.0
+                            * np.arange(n_audio)))
+    ltr = nbfm_modulate(audio, 8000.0, rate)
+    mpt = _mpt_control(int(0.5 * rate), rate, np.random.default_rng(13))
+    key = [str(k) for k in P25P2_KEY]
+    return [
+        ("p25p1", _write_iq(directory / "p25.wav", p25, rate), [], "dqpsk"),
+        ("dmr", _write_iq(directory / "dmr.wav", dmr, rate), [],
+         "dqpsk_dmr"),
+        ("p25p2", _write_iq(directory / "p25p2.wav", p25p2, rate),
+         ["--wacn", key[0], "--system", key[1], "--nac", key[2]],
+         "gardner_p25p2"),
+        ("ltr", _write_iq(directory / "ltr.wav", ltr, rate), [],
+         "bit_timing_ltr"),
+        ("mpt1327", _write_iq(directory / "mpt1327.wav", mpt, rate), [],
+         "bit_timing_afsk")]
+
+
+def replay_scene(directory: Path) -> tuple[Path, Path, float]:
+    """tests/test_cli.py's two-channel P25 capture (test_cli_replay_
+    batched_digital): the same TSBK twice behind an alternating preamble,
+    at +25 kHz and -50 kHz of a 400 kHz capture. Returns (capture,
+    playlist, center frequency)."""
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.config import (ChannelConfig, DecodeConfig,
+                                           Playlist, SourceConfig)
+    from sdrtrunk_tpu_torch.protocol.p25p1.duid import DUID
+    from sdrtrunk_tpu_torch.protocol.p25p1.framer import P25P1FrameAssembler
+    from sdrtrunk_tpu_torch.protocol.p25p1.tsbk import tsbk_encode
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    fs = 400_000.0
+    center = 851_000_000.0
+    rng = np.random.default_rng(2)
+    asm = P25P1FrameAssembler(nac=0x293)
+    tsbk = asm.assemble(DUID.TSBK, tsbk_encode(
+        0x3A, rng.integers(0, 2, 64).astype(np.uint8)))
+    preamble = np.tile([1, 3], 150).astype(np.uint8)
+    dibits = np.concatenate([
+        preamble, tsbk, rng.integers(0, 4, 20).astype(np.uint8),
+        tsbk, rng.integers(0, 4, 20).astype(np.uint8)])
+    chan_iq = c4fm_modulate(dibits, fs)
+    offs = [2 * 12500.0, -4 * 12500.0]
+    n = (len(chan_iq) // 32) * 32
+    t = np.arange(n)
+    wb = sum(chan_iq[:n] * np.exp(2j * np.pi * o * t / fs)
+             for o in offs).astype(np.complex64)
+    cap = _write_iq(directory / "wb2.wav", wb, fs)
+    playlist = directory / "pl2.json"
+    Playlist(channels=[
+        ChannelConfig(name=f"P25-{i}",
+                      source=SourceConfig(frequency_hz=center + o),
+                      decode=DecodeConfig(decoder="p25p1", nac=0x293))
+        for i, o in enumerate(offs)]).save(playlist)
+    return cap, playlist, center
+
+
+class _Lines:
+    """A stdout that keeps each printed line and the perf_counter time at
+    which it was printed."""
+
+    def __init__(self):
+        self.lines, self.times, self._part = [], [], ""
+
+    def write(self, text: str) -> int:
+        self._part += text
+        while "\n" in self._part:
+            line, self._part = self._part.split("\n", 1)
+            self.lines.append(line)
+            self.times.append(time.perf_counter())
+        return len(text)
+
+    def flush(self) -> None:
+        pass
+
+
+def _kernel_calls():
+    """Patch the calls that reach the kernel wrappers (the symbol loops'
+    ``_kernel``, the demodulators' ``bit_timing``) to record (kernels-line
+    entry, C, T) of each CUDA launch; returns (the list, undo)."""
+    from sdrtrunk_tpu_torch.dsp import afsk, fsk, psk
+
+    entry_of = {key: entry for entry, key in _ENTRY_KEYS.items()}
+    seen, undo = [], []
+
+    def patch(owner, name, key):
+        fn = getattr(owner, name)
+
+        def spy(*args, **kw):           # (demod or geometry, x, ...)
+            x = args[1]
+            if x.device.type == "cuda":
+                seen.append((entry_of[key(args)], *x.shape))
+            return fn(*args, **kw)
+        setattr(owner, name, spy)
+        undo.append(lambda: setattr(owner, name, fn))
+
+    patch(psk.DQPSKDemodulator, "_kernel",
+          lambda a: ("dqpsk", a[0].sample_counter_gain))
+    patch(psk.GardnerDQPSKDemodulator, "_kernel",
+          lambda a: ("gardner", a[0].window_len))
+    for mod in (fsk, afsk):
+        patch(mod, "bit_timing", lambda a: ("bit_timing",
+                                            a[0].window_len))
+    return seen, lambda: [u() for u in undo]
+
+
+def _run_cli(argv: list, on_session=None) -> dict:
+    """The port's CLI in this process, as ``python -m
+    sdrtrunk_tpu_torch.cli`` runs it (``cli.main``), its stdout captured;
+    every kernel's launch count set to 0 just before and read just after.
+    ``on_session(session)`` sees a monitor's MonitorSession as soon as it
+    is built. Returns the lines, their print times, the JSON lines, the
+    launches and the shapes of the launches; raises unless it exits 0."""
+    import contextlib
+
+    import torch
+
+    from sdrtrunk_tpu_torch import cli, monitor
+
+    out = _Lines()
+    init = monitor.MonitorSession.__init__
+
+    def spy_init(session, *args, **kw):
+        init(session, *args, **kw)
+        if on_session is not None:
+            on_session(session)
+    monitor.MonitorSession.__init__ = spy_init
+    shapes, undo = _kernel_calls()
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+    finally:
+        monitor.MonitorSession.__init__ = init
+        undo()
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(map(str, argv))} exited {rc}")
+    rows = []
+    for line in out.lines:
+        try:
+            rows.append(json.loads(line))
+        except json.JSONDecodeError:
+            rows.append(None)
+    return {"lines": out.lines, "times": out.times, "rows": rows,
+            "launches": launches, "shapes": shapes, "wall_s": wall}
+
+
+def _messages(run: dict) -> list:
+    return [line for line, row in zip(run["lines"], run["rows"])
+            if isinstance(row, dict) and not row.get("summary")]
+
+
+def run_cli(card: str) -> dict:
+    """``decode`` of each decode scene on the card and again with
+    ``--platform cpu`` (the plain loops), then ``replay`` of the
+    two-channel capture both ways: the message lines identical, one launch
+    a decode on the card (DQPSK at gain 0.3 and 0.4, Gardner W = 16, bit
+    timing W = 53 and W = 12) and one DQPSK launch at C = 2 for the
+    replay, none with ``--platform cpu``."""
+    import shutil
+
+    APP_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        runs = []
+        launches = {entry: 0 for entry in _ENTRY_KEYS}
+        shapes = set()
+        cap, playlist, center = replay_scene(APP_DIR)
+        commands = [(f"decode {p}", ["decode", path, "--protocol", p, *flags],
+                     {entry: 1})
+                    for p, path, flags, entry in decode_scenes(APP_DIR)]
+        commands.append(("replay p25p1 x2",
+                         ["replay", cap, "--playlist", playlist,
+                          "--center-frequency", center], {"dqpsk": 1}))
+        for name, argv, expect in commands:
+            card_run = _run_cli(argv)
+            cpu_run = _run_cli(["--platform", "cpu", *argv])
+            got, want = _messages(card_run), _messages(cpu_run)
+            want_launches = {e: expect.get(e, 0) for e in _ENTRY_KEYS}
+            record = {"command": name, "messages": len(got),
+                      "card_wall_ms": card_run["wall_s"] * 1e3,
+                      "cpu_wall_ms": cpu_run["wall_s"] * 1e3,
+                      "launches": {e: n for e, n in
+                                   card_run["launches"].items() if n},
+                      "shapes": card_run["shapes"]}
+            runs.append(record)
+            print("[cli] " + json.dumps(record), flush=True)
+            if not got:
+                raise AssertionError(f"cli {name}: no messages decoded")
+            if got != want:
+                raise AssertionError(f"cli {name}: the card's messages differ "
+                                     f"from --platform cpu's:\n{got}\n{want}")
+            if card_run["launches"] != want_launches:
+                raise AssertionError(f"cli {name}: launches "
+                                     f"{card_run['launches']}, expected "
+                                     f"{want_launches}")
+            if any(cpu_run["launches"].values()) or cpu_run["shapes"]:
+                raise AssertionError(f"cli {name}: a kernel launched under "
+                                     "--platform cpu")
+            for entry, n in card_run["launches"].items():
+                launches[entry] += n
+            shapes.update(card_run["shapes"])
+        if ("dqpsk", 2) not in {(e, c) for e, c, _ in shapes}:
+            raise AssertionError(f"cli: replay launched no DQPSK kernel at "
+                                 f"C = 2 ({sorted(shapes)})")
+    finally:
+        shutil.rmtree(APP_DIR, ignore_errors=True)
+    return {"card": card, "commands": runs, "kernel_launches": launches}
+
+
+def _host_cpu() -> dict:
+    """The host's CPU model and core count: lscpu's model name, else
+    /proc/cpuinfo's (an x86 'model name', an Arm 'CPU part'), with the
+    machine's architecture."""
+    import os
+    import platform
+    model = None
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        model = next((line.split(":", 1)[1].strip()
+                      for line in out.splitlines()
+                      if line.startswith("Model name")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if model is None:
+        try:
+            info = Path("/proc/cpuinfo").read_text().splitlines()
+        except OSError:
+            info = []
+        model = next((line.split(":", 1)[1].strip() for key in
+                      ("model name", "CPU part") for line in info
+                      if line.startswith(key)), None)
+    return {"cpu": model, "machine": platform.machine(),
+            "cores": os.cpu_count()}
+
+
+def _timed_host(orch, calls: list, framed: list) -> None:
+    """Time the live loop's host layer (``_host_layer``) call by call into
+    `calls`, count the messages a bank framer's ``frame_chunk`` returns
+    into `framed`, and check that every live-step output lies on the
+    card."""
+    host_obj, layer = _host_layer(orch)
+    fn = getattr(host_obj, layer)
+    step = orch.step
+
+    def timed(*args):
+        f0 = time.perf_counter()
+        try:
+            out = fn(*args)
+        finally:
+            calls.append(time.perf_counter() - f0)
+        if isinstance(out, list):
+            framed.append(len(out))
+        return out
+    setattr(host_obj, layer, timed)
+
+    def spy_step(*args):
+        out, st = step(*args)
+        devices = {v.device.type for v in out.values()}
+        if devices != {"cuda"}:
+            raise AssertionError(f"live step outputs on {devices}")
+        return out, st
+    orch.step = spy_step
+
+
+def _monitor_record(run: dict, orch, host_calls: list, chunk: int,
+                    warmup: int, iq) -> dict:
+    """Realtime factor, wall and host ms a chunk over the timed chunks of
+    a monitor run (from the print times of its per-chunk metrics lines),
+    the device's busy ms a chunk and idle share, the host's CPU."""
+    times = [t for t, row in zip(run["times"], run["rows"])
+             if isinstance(row, dict) and "t" in row]
+    timed = len(times) - warmup
+    wall = (times[-1] - times[warmup - 1]) / timed
+    busy = device_busy_ms(orch, iq)
+    return {"chunks": len(times), "timed_chunks": timed,
+            "realtime_factor": chunk / wall / orch.sample_rate,
+            "wall_ms_per_chunk": wall * 1e3,
+            "host_layer": _host_layer(orch)[1],
+            "host_ms_per_chunk": sum(host_calls[-timed:]) * 1e3 / timed,
+            "device_busy_ms_per_chunk": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3),
+            **_host_cpu()}
+
+
+def _event_rows(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()
+            if line.strip()]
+
+
+def run_monitor(card: str) -> dict:
+    """The slice's path at full width: phase 5's scene (12.8 MS/s, M =
+    1024, a P25 control channel granting a traffic channel, voice carriers
+    on the other bins) as a 16-bit IQ wave of 3 + 4 chunks, a playlist of
+    the control channel alone, and ``monitor --bank --traffic-slots
+    1022``: 1023 slots in bank mode, one DQPSK launch a chunk at C = 1023.
+    The grant must be in the event log and followed (frames on the granted
+    slot, a call written as WAV and sidecar)."""
+    import shutil
+
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.config import (ChannelConfig, DecodeConfig,
+                                           Playlist, SourceConfig)
+
+    ch, offsets, chunks, synth_s = _c4fm_scene()
+    APP_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        iq = np.concatenate([c[:, 0] + 1j * c[:, 1] for c in chunks]
+                            ).astype(np.complex64) / 128.0
+        wave = _write_iq(APP_DIR / "scene.wav", iq, FS)
+        del iq
+        write_s = time.perf_counter() - t0
+        playlist = APP_DIR / "p.json"
+        Playlist(channels=[ChannelConfig(
+            name="Control", system="Scene", site="Site1",
+            source=SourceConfig(frequency_hz=CENTER_HZ + offsets[0]),
+            decode=DecodeConfig(decoder="p25p1"))]).save(playlist)
+        audio = APP_DIR / "audio"
+        events = audio / "events.jsonl"
+        sessions, host_calls, framed = [], [], []
+
+        def on_session(session):
+            sessions.append(session)
+            _timed_host(session.orch, host_calls, framed)
+        chunk = M * CHUNK_BLOCKS
+        run = _run_cli(["monitor", "--playlist", playlist, "--input", wave,
+                        "--center-frequency", CENTER_HZ, "--bank",
+                        "--traffic-slots", SLOTS - 1,
+                        "--chunk-samples", chunk,
+                        "--max-chunks", MONITOR_CHUNKS,
+                        "--audio-dir", audio, "--event-log", events],
+                       on_session)
+        orch = sessions[0].orch
+        header = next(r for r in run["rows"] if r and r.get("monitor"))
+        summary = run["rows"][-1]
+        traffic_hz = CENTER_HZ + offsets[TRAFFIC_INDEX]
+        status = orch.channel_status()
+        traffic_frames = sum(
+            s["frames"] for s in status
+            if not s["control"] and abs(s["frequency_hz"] - traffic_hz) < 1.0)
+        grant_rows = [r for r in _event_rows(events)
+                      if abs((r.get("frequency_hz") or 0) - traffic_hz) < 1.0]
+        wavs = sorted(audio.glob("call_*.wav"))
+        sidecars = [w for w in wavs if w.with_suffix(".wav.json").exists()]
+        last = (chunks[-1][:, 0] + 1j * chunks[-1][:, 1]).astype(
+            np.complex64) / 128.0
+        phase5 = _C4FM.get("result", {})
+        result = {
+            "card": card, "slots": header["slots"],
+            "bank_mode": header["bank_mode"], "chunk_samples": chunk,
+            "grant_events": len(grant_rows), "traffic_frames": traffic_frames,
+            "active_slots": sum(s["active"] for s in status),
+            "frames": sum(s["frames"] for s in status),
+            "frames_on_inactive_slots": sum(s["frames"] for s in status
+                                            if not s["active"]),
+            "messages_framed": sum(framed),
+            "calls_written": len(wavs), "sidecars": len(sidecars),
+            "events": summary.get("events"),
+            "launches": {e: n for e, n in run["launches"].items() if n},
+            **_monitor_record(run, orch, host_calls, chunk, WARMUP, last),
+            "phase5_realtime_factor": phase5.get("realtime_factor"),
+            "phase5_host_ms_per_chunk": phase5.get("host_ms_per_chunk"),
+            "wave_write_s": write_s, "synthesis_s": synth_s}
+        print("[app monitor] " + json.dumps(result), flush=True)
+        if header["bank_mode"] is not True or header["slots"] != SLOTS:
+            raise AssertionError(f"monitor: header {header}")
+        if not grant_rows:
+            raise AssertionError("monitor: the grant is not in the event log")
+        if not traffic_frames:
+            raise AssertionError("monitor: no frames on the granted slot")
+        if not sidecars:
+            raise AssertionError("monitor: no call written as WAV and "
+                                 "sidecar")
+        want = {e: MONITOR_CHUNKS * (e == "dqpsk") for e in _ENTRY_KEYS}
+        if run["launches"] != want:
+            raise AssertionError(f"monitor: launches {run['launches']}, "
+                                 f"expected {want}")
+        if {(e, c) for e, c, _ in run["shapes"]} != {("dqpsk", SLOTS)}:
+            raise AssertionError(f"monitor: kernel shapes {run['shapes']}")
+    finally:
+        shutil.rmtree(APP_DIR, ignore_errors=True)
+    return {**result, "kernel_launches": run["launches"]}
+
+
+def _parse_mp2(data: bytes) -> int:
+    """The number of MPEG-1 Layer II frames in data, each checked: 432
+    bytes (96 kbps at 32 kHz, no padding), sync 0xFFF, MPEG-1, layer II,
+    no CRC, bitrate index 6, 32 kHz, single channel."""
+    if not data or len(data) % 432:
+        raise AssertionError(f"mp2: {len(data)} bytes, not whole frames")
+    for i in range(0, len(data), 432):
+        h = int.from_bytes(data[i:i + 4], "big")
+        fields = (h >> 20, (h >> 19) & 1, (h >> 17) & 3, (h >> 16) & 1,
+                  (h >> 12) & 15, (h >> 10) & 3, (h >> 6) & 3)
+        if fields != (0xFFF, 1, 0b10, 1, 6, 0b10, 0b11):
+            raise AssertionError(f"mp2: frame {i // 432} header {h:08x}")
+    return len(data) // 432
+
+
+def run_monitor_mixed(card: str) -> dict:
+    """A playlist of three control channels, one of each bank kind: P25
+    Phase 1 (phase 5's control stream, its IDEN_UP announcing band 0 and
+    granting a channel there), DMR (phase 8's TSCC: an aloha and Tier III
+    grants, which the traffic manager's one band plan maps) and LTR (a
+    voice carrier with CALL words of its own group); the two granted
+    channels carry their calls. ``monitor --traffic-slots 4`` gives banks
+    [(c4fm, 5), (dmr, 5), (ltr, 5)] through MultibankReceiver; the LTR
+    channel records mp2 (so every call is written as MPEG-1 Layer II) and
+    the P25 channel its dibits (the bits tap).
+
+    Both grants must be followed (a slot tuned to the channel, the grant
+    in the event log) and the P25 one decoded there. With ``banks=`` every
+    grant starts a slot of the first bank's kind (``Orchestrator._activate``
+    as in the reference, ROADMAP Queue 3), so the DMR grant's slot is a
+    C4FM one and decodes nothing; the record shows its kind."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.audio.recorder import BitsReader
+    from sdrtrunk_tpu_torch.config import (ChannelConfig, DecodeConfig,
+                                           Playlist, RecordConfig,
+                                           SourceConfig)
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+    from sdrtrunk_tpu_torch.protocol.ltr.messages import ltr_encode_word
+    from sdrtrunk_tpu_torch.protocol.p25p1 import P25P1Framer
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    rate = 25000.0
+    n_ch = (MIXED_CHUNKS + 1) * (2 * MIXED_BLOCKS)
+    idx = MIXED_CHANNELS
+    hz = {k: CENTER_HZ + _offset(i) for k, i in idx.items()}
+    t0 = time.perf_counter()
+    control, traffic, _ = _p25_streams(
+        int(n_ch / rate * 4800) + 64, hz["p25"],
+        traffic_index=idx["p25_traffic"] - idx["p25"], band_id=0)
+    dmr_control, dmr_traffic, _ = _dmr_streams(int(n_ch / rate * 4800) + 64)
+    rng = np.random.default_rng(23)
+    word = torch.as_tensor(ltr_encode_word(0, LTR_IDENT[0], *LTR_IDENT,
+                                           LTR_IDENT[0])[None],
+                           device="cuda")
+    data = 0.35 * _square_fsk(word, n_ch, rate / 300.0,
+                              torch.zeros(1, dtype=torch.long,
+                                          device="cuda"))
+    mod = lambda d: c4fm_modulate(d, rate)  # noqa: E731
+    streams = torch.cat([
+        _dibit_rows((control, traffic, dmr_control, dmr_traffic), mod, n_ch),
+        _fm_streams(data.double() + _voice(1, n_ch, rate, rng, 0.5), rate)])
+    offsets = [_offset(idx[k]) for k in ("p25", "p25_traffic", "dmr",
+                                         "dmr_traffic", "ltr")]
+    ch = Channelizer.design(FS, 12500.0, device="cuda")
+    chunks = synthesize_chunks(ch, streams, offsets, MIXED_CHUNKS,
+                               MIXED_BLOCKS)
+    del streams
+    synth_s = time.perf_counter() - t0
+    APP_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        iq = np.concatenate([c[:, 0] + 1j * c[:, 1] for c in chunks]
+                            ).astype(np.complex64) / 128.0
+        wave = _write_iq(APP_DIR / "mixed.wav", iq, FS)
+        del iq
+        playlist = APP_DIR / "mixed.json"
+        Playlist(channels=[
+            ChannelConfig(name="P25", source=SourceConfig(
+                frequency_hz=hz["p25"]), decode=DecodeConfig(
+                decoder="p25p1"), record=RecordConfig(demodulated_bits=True)),
+            ChannelConfig(name="DMR", source=SourceConfig(
+                frequency_hz=hz["dmr"]), decode=DecodeConfig(decoder="dmr")),
+            ChannelConfig(name="LTR", source=SourceConfig(
+                frequency_hz=hz["ltr"]), decode=DecodeConfig(decoder="ltr"),
+                record=RecordConfig(audio=True, audio_format="mp2"))]
+        ).save(playlist)
+        audio = APP_DIR / "audio"
+        events = audio / "events.jsonl"
+        sessions, host_calls = [], []
+
+        def on_session(session):
+            sessions.append(session)
+            _timed_host(session.orch, host_calls, [])
+        chunk = M * MIXED_BLOCKS
+        run = _run_cli(["monitor", "--playlist", playlist, "--input", wave,
+                        "--center-frequency", CENTER_HZ,
+                        "--traffic-slots", MIXED_SLOTS,
+                        "--chunk-samples", chunk,
+                        "--max-chunks", MIXED_CHUNKS,
+                        "--audio-dir", audio, "--event-log", events],
+                       on_session)
+        session = sessions[0]
+        orch = session.orch
+        header = next(r for r in run["rows"] if r and r.get("monitor"))
+        controls = {s.name: s for s in orch.slots if s.is_control}
+        decoded = {
+            "p25_frames": controls["P25"].processor.frame_count,
+            "dmr_frames": controls["DMR"].processor.frame_count,
+            "ltr_own_call_words": sum(
+                1 for m in controls["LTR"].processor.messages
+                if m.message_type.name == "CALL"
+                and (m.home, m.group) == LTR_IDENT)}
+        rows = _event_rows(events)
+        followed = {}
+        for grant in ("p25_traffic", "dmr_traffic"):
+            slot = _granted(orch, hz[grant])
+            followed[grant] = {
+                "events": sum(abs((r.get("frequency_hz") or 0) - hz[grant])
+                              < 1.0 for r in rows),
+                "slot_kind": None if slot is None else slot.kind,
+                "frames": 0 if slot is None else slot.processor.frame_count}
+        mp2 = sorted(audio.glob("call_*.mp2"))
+        mp2_frames = [_parse_mp2(p.read_bytes()) for p in mp2]
+        dibits = BitsReader.read(audio / "P25.bits")
+        tsbks = sum(1 for m in P25P1Framer().process(dibits)
+                    if m.duid.name == "TSBK")
+        last = (chunks[-1][:, 0] + 1j * chunks[-1][:, 1]).astype(
+            np.complex64) / 128.0
+        result = {
+            "card": card, "banks": [list(b) for b in orch.banks],
+            "slots": header["slots"], "bank_mode": header["bank_mode"],
+            "chunk_samples": chunk, **decoded, "followed": followed,
+            "skipped_grants": len(orch.skipped_grants),
+            "mp2_calls": len(mp2), "mp2_frames": mp2_frames,
+            "bits_tap_dibits": len(dibits), "bits_tap_tsbks": tsbks,
+            "launches": {e: n for e, n in run["launches"].items() if n},
+            **_monitor_record(run, orch, host_calls, chunk, 2, last),
+            "synthesis_s": synth_s}
+        print("[app monitor_mixed] " + json.dumps(result), flush=True)
+        want_banks = [("c4fm", 1 + MIXED_SLOTS), ("dmr", 1 + MIXED_SLOTS),
+                      ("ltr", 1 + MIXED_SLOTS)]
+        if orch.banks != want_banks:
+            raise AssertionError(f"monitor_mixed: banks {orch.banks}")
+        if not all(decoded.values()):
+            raise AssertionError(f"monitor_mixed: a control channel decoded "
+                                 f"nothing: {decoded}")
+        for grant, seen in followed.items():
+            if not seen["events"] or seen["slot_kind"] is None:
+                raise AssertionError(f"monitor_mixed: the {grant} grant was "
+                                     f"not followed: {seen}")
+        if followed["p25_traffic"]["slot_kind"] != "c4fm" \
+                or not followed["p25_traffic"]["frames"]:
+            raise AssertionError(f"monitor_mixed: no P25 frames on the "
+                                 f"granted slot: {followed}")
+        if not mp2 or not all(mp2_frames):
+            raise AssertionError("monitor_mixed: no parsable .mp2 call")
+        if len(dibits) < 0.9 * MIXED_CHUNKS * chunk / FS * 4800 or not tsbks:
+            raise AssertionError(f"monitor_mixed: the bits tap holds "
+                                 f"{len(dibits)} dibits, {tsbks} TSBKs")
+        want = {e: MIXED_CHUNKS * (e in ("dqpsk", "dqpsk_dmr",
+                                         "bit_timing_ltr"))
+                for e in _ENTRY_KEYS}
+        if run["launches"] != want:
+            raise AssertionError(f"monitor_mixed: launches "
+                                 f"{run['launches']}, expected {want}")
+    finally:
+        shutil.rmtree(APP_DIR, ignore_errors=True)
+    return {**result, "kernel_launches": run["launches"]}
+
+
 # phases a run can name, in the order a run takes them; the environment
 # and the build always run
 PHASES = ("edges", "bits", "psk", "c4fm", "p25p2", "lsm", "dmr", "nbfm", "am",
-          "ltr", "mpt1327", "slots", "slots_p25p2", "multibank", "worker")
+          "ltr", "mpt1327", "slots", "slots_p25p2", "multibank", "worker",
+          "cli", "monitor", "monitor_mixed")
 _LIVE = {"c4fm": run_c4fm, "p25p2": run_p25p2, "lsm": run_lsm,
          "dmr": run_dmr, "nbfm": run_nbfm, "am": run_am, "ltr": run_ltr,
          "mpt1327": run_mpt1327, "slots": run_slots,
          "slots_p25p2": run_slots_p25p2, "multibank": run_multibank,
-         "worker": run_worker}
-# the shapes the 31-slot paths give the kernels, below the 1023 channels of
-# phase 4: (live phase, kernels-line entry, C, T), each held bit for bit
-# against its plain loop after that phase's live loop
-_SMALL_SHAPES = (
-    ("slots", "dqpsk", SLOT_COUNT, KERNEL_T),
-    ("slots_p25p2", "gardner_p25p2", SLOT_COUNT, 2 * KERNEL_T),
-    ("multibank", "dqpsk", dict(MULTIBANK)["c4fm"], 2 * MIXED_BLOCKS),
-    ("multibank", "dqpsk_dmr", dict(MULTIBANK)["dmr"], 2 * MIXED_BLOCKS),
-    ("multibank", "bit_timing_ltr", dict(MULTIBANK)["ltr"], BIT_T["ltr"]))
+         "worker": run_worker, "cli": run_cli, "monitor": run_monitor,
+         "monitor_mixed": run_monitor_mixed}
 
 
-def check_small_shape(card: str, entry: str, c: int, t: int) -> dict:
+def check_shape(card: str, entry: str, c: int, t: int) -> dict:
     """Kernels-line entry `entry`'s kernel held against its plain loop at
-    (c, t), as phase 4 holds it at 1023 channels (the bit-timing loop at
-    its T of BIT_T, without the profiler's device time: after the
-    multibank loop the profiler saw none of 20 launches at C = 10 on an
-    H100)."""
+    (c, t), as phase 4 holds it at 1023 channels."""
     if entry.startswith("bit_timing_"):
         return check_bit_timing(card, entry.removeprefix("bit_timing_"), c,
-                                device_time=False)
+                                t)
     name, kind, rate, baud, gain, _ = next(k for k in KERNELS
                                            if k[0] == entry)
     return check_kernel(card, name, kind, rate, baud, gain, t, c)
@@ -2521,6 +3174,8 @@ def main(argv: list[str]) -> int:
 
     build_kernels()
     entries = {}
+    # (entry, C, T) -> (the phase that held it, its record)
+    held = {}
     if "edges" in phases:
         check_edges(card)
         check_bit_timing_edges(card)
@@ -2528,26 +3183,35 @@ def main(argv: list[str]) -> int:
         for which in ("ltr", "afsk"):
             entry = check_bit_timing(card, which)
             entries[entry["name"]] = {**entry, "launches": None}
+            held[(entry["name"], *entry["shape"])] = ("bits", entry)
     if "psk" in phases:
         for k in KERNELS:
-            entries[k[0]] = {**check_kernel(card, *k), "launches": None}
+            entry = check_kernel(card, *k)
+            entries[k[0]] = {**entry, "launches": None}
+            held[(k[0], *entry["shape"])] = ("psk", entry)
     for name, run in _LIVE.items():
         if name not in phases:
             continue
-        launches = run(card)["kernel_launches"]
-        for entry, n in launches.items():
-            if n and entry in entries:
+        shapes, undo = _kernel_calls()
+        try:
+            result = run(card)
+        finally:
+            undo()
+        for shape in sorted(set(shapes)):
+            if shape not in held:
+                held[shape] = (name, check_shape(card, *shape))
+            held_in, record = held[shape]
+            entry = entries.setdefault(shape[0], {**record, "launches": None})
+            entry.setdefault("holds", []).append({
+                "path": name, "held_in": held_in,
+                **{k: record[k] for k in ("shape", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms",
+                                          "bound_by")}})
+        for entry, n in result["kernel_launches"].items():
+            if n:
                 by_path = entries[entry].setdefault("launches_by_path", {})
                 by_path[name] = n
                 entries[entry]["launches"] = sum(by_path.values())
-        for path, entry, c, t in _SMALL_SHAPES:
-            if path == name:
-                held = check_small_shape(card, entry, c, t)
-                if entry in entries:
-                    entries[entry].setdefault("small_shapes", []).append({
-                        "path": path, **{k: held[k] for k in (
-                            "shape", "max_abs_err", "ms", "plain_ms",
-                            "bound_ms", "bound_by")}})
     ran = [p for p in PHASES if p in phases]
     print(f"[done] {'every phase' if len(ran) == len(PHASES) else ', '.join(ran)}"
           f" passed in {time.perf_counter() - t0:.1f} s", flush=True)

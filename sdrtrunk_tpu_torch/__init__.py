@@ -21,8 +21,13 @@ the boolean bit-timing loop that the reference's FSK and AFSK demodulators
 run as a ``lax.scan`` (``csrc/bit_timing.cu``); all three are built with
 nvcc at first use.
 
-The device is explicit: every public constructor takes ``device``; the
-main path defaults to ``"cuda"`` and raises when CUDA is absent.
+The device is explicit: every public constructor takes ``device`` and
+defaults to ``"cuda"``, raising when CUDA is absent. The two classes that
+the copied host code builds without a device (``Orchestrator`` and
+``AuxDecoder``, reached from ``monitor.py`` and ``runtime/processors.py``)
+default to ``None``, which ``resolve_device`` reads as ``default_device()``:
+the card, unless a caller has entered ``use_device("cpu")`` (the CLI's
+``--platform cpu``). There is no "CUDA if present" choice anywhere.
 """
 from __future__ import annotations
 
@@ -34,13 +39,38 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["resolve_device"]
+import contextlib
+
+__all__ = ["default_device", "resolve_device", "use_device"]
+
+# a plain module global, not a context variable: the live loop's upload
+# and download threads must see the device the caller chose
+_DEFAULT_DEVICE = "cuda"
+
+
+def default_device():
+    """The device a constructor given ``device=None`` runs on: ``"cuda"``
+    unless a ``use_device`` block says otherwise."""
+    return _DEFAULT_DEVICE
+
+
+@contextlib.contextmanager
+def use_device(device):
+    """Make ``device`` the default for the block (process-wide, as the
+    reference's ``jax_platforms`` switch is); restores it on exit."""
+    global _DEFAULT_DEVICE
+    prev, _DEFAULT_DEVICE = _DEFAULT_DEVICE, device
+    try:
+        yield
+    finally:
+        _DEFAULT_DEVICE = prev
 
 
 def resolve_device(device) -> torch.device:
-    """The explicit device a constructor was given; raises when it names
-    CUDA and no CUDA device is available (there is no CPU fallback)."""
-    device = torch.device(device)
+    """The device a constructor was given, ``None`` meaning
+    ``default_device()``; raises when it names CUDA and no CUDA device is
+    available (there is no CPU fallback)."""
+    device = torch.device(default_device() if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device} requested but torch.cuda.is_available() is "

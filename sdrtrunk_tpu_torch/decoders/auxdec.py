@@ -36,9 +36,11 @@ class AuxDecoder:
 
     MDC-1200 uses the inverted slicer output (MDCDecoder.java:44,
     AFSK1200Decoder.Output.INVERTED); its framer NRZ-decodes internally.
+    ``device=None`` is ``default_device()``: the copied channel processors
+    build it without one (``runtime/processors.py`` ``add_aux``).
     """
 
-    def __init__(self, protocol: str, device="cuda"):
+    def __init__(self, protocol: str, device=None):
         if protocol not in _FRAMERS:
             raise ValueError(
                 f"unknown aux protocol {protocol!r}; one of {AUX_PROTOCOLS}")

@@ -279,7 +279,9 @@ class Orchestrator:
     host_process: run a digital single-kind bank's host layer (framer,
             decoder states, traffic manager) in a worker process
             (``runtime/bank_worker.py``), which gets NumPy buffers only.
-    device: where the slot bank runs ("cuda" by default; no fallback).
+    device: where the slot bank runs; None (the default) is
+            ``default_device()``, the card unless a ``use_device`` block
+            says otherwise (no fallback).
     """
 
     def __init__(self, source, sample_rate: float,
@@ -303,7 +305,7 @@ class Orchestrator:
                  ingest_format: str = "auto",
                  audio_format: str = "mulaw8",
                  host_process: bool = False,
-                 device="cuda"):
+                 device=None):
         if isinstance(control_offsets_hz, (int, float, np.floating)):
             control_offsets_hz = [control_offsets_hz]
         control_entries = [

@@ -379,3 +379,29 @@ def test_ltr_live_decoder_on_card_matches_cpu(card):
         assert torch.equal(got["bits"], want["bits"])
         symbols += int(want["valid"].sum())
     assert abs(symbols - c * 4000 * 300 / 8000) <= 2 * c
+
+
+@pytest.mark.cuda
+def test_cli_decode_on_card_matches_cpu(card, tmp_path):
+    """``decode --protocol p25p1`` prints the same messages on the card (one
+    DQPSK launch) as with --platform cpu (the plain loop)."""
+    import contextlib
+    import io
+
+    import chip_smoke
+    from sdrtrunk_tpu_torch import cli
+
+    path = next(p for name, p, _, _ in chip_smoke.decode_scenes(tmp_path)
+                if name == "p25p1")
+
+    def decode(*platform):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert cli.main([*platform, "decode", str(path),
+                             "--protocol", "p25p1"]) == 0
+        return out.getvalue().splitlines()
+    before = dqpsk_cuda.dqpsk_cuda.launches
+    on_card = decode()
+    assert dqpsk_cuda.dqpsk_cuda.launches == before + 1
+    assert on_card == decode("--platform", "cpu")
+    assert '"messages": 2' in on_card[-1]

@@ -4,14 +4,17 @@ equal to the JAX package's.
 The port imports nothing of sdrtrunk_tpu. What it needs of the host layer
 (the protocol framers and parsers, the runtime's decoder states, bank
 processors, bank worker process, events and traffic manager, the tuner's
-source events, the audio segments and MBE
-module, the wave reader, the signal generators, and the filter design,
-window and interpolator helpers) is copied to the same relative path under
-sdrtrunk_tpu_torch/. MANIFEST lists every copy. A fix to the host layer
-must change the original, the copy and, where a file is added or removed,
-the manifest together: the port and the reference then keep giving the
-same answers, the known faults of the host layer included (ROADMAP Queue
-3, "Waiting").
+source events, the audio segments and MBE module, the wave reader, the
+signal generators, and the filter design, window and interpolator
+helpers; and for the application: the playlist config and importer, the
+monitor session, the map service, alias actions and heartbeat, audio
+streaming, the service clients, the native ingest bindings, the DFT
+processor and instrument taps, and every sample source) is copied to the
+same relative path under sdrtrunk_tpu_torch/. MANIFEST lists every copy.
+A fix to the host layer must change the original, the copy and, where a
+file is added or removed, the manifest together: the port and the
+reference then keep giving the same answers, the known faults of the host
+layer included (ROADMAP Queue 3, "Waiting").
 """
 from pathlib import Path
 
@@ -29,11 +32,20 @@ MANIFEST = (
     "audio/playback.py",
     "audio/recorder.py",
     "audio/segments.py",
+    "audio/shoutcast_v2.py",
+    "audio/streaming.py",
+    "config.py",
     "dsp/design.py",
+    "dsp/dft_processor.py",
+    "dsp/instrument.py",
     "dsp/interpolator.py",
     "dsp/windows.py",
     "io/__init__.py",
+    "io/native.py",
     "io/wave.py",
+    "map_service.py",
+    "monitor.py",
+    "playlist_import.py",
     "protocol/__init__.py",
     "protocol/auxdec/__init__.py",
     "protocol/auxdec/fleetsync2.py",
@@ -94,12 +106,14 @@ MANIFEST = (
     "protocol/p25p2/scrambler.py",
     "protocol/p25p2/timeslot.py",
     "protocol/passport.py",
+    "runtime/alias_actions.py",
     "runtime/aliases.py",
     "runtime/bank_processor.py",
     "runtime/bank_worker.py",
     "runtime/dmr_state.py",
     "runtime/eventlog.py",
     "runtime/events.py",
+    "runtime/heartbeat.py",
     "runtime/identifiers.py",
     "runtime/metrics.py",
     "runtime/p25_state.py",
@@ -108,12 +122,31 @@ MANIFEST = (
     "runtime/rotation.py",
     "runtime/state.py",
     "runtime/traffic.py",
+    "service/__init__.py",
+    "service/radioreference.py",
     "signal/__init__.py",
     "signal/generators.py",
+    "sources/__init__.py",
+    "sources/airspy.py",
+    "sources/converters.py",
+    "sources/e4k.py",
+    "sources/fcd.py",
+    "sources/hackrf.py",
+    "sources/libusb.py",
+    "sources/recording.py",
+    "sources/rtl2832.py",
+    "sources/rtl_live.py",
+    "sources/soundcard.py",
+    "sources/test_tuner.py",
     "sources/tuner.py",
+    "sources/usb.py",
 )
-# directories whose every file is a copy
-COPIED_TREES = ("audio", "io", "protocol", "signal")
+# directories whose every file is a copy, but for the files of REWRITTEN
+COPIED_TREES = ("audio", "io", "protocol", "service", "signal", "sources")
+# files of a copied tree that the port rewrites: audio/mpeg.py is the
+# reference's but for its resample, which runs on the port's PyTorch
+# polyphase_resample (tests/test_torch_mpeg.py holds it to the reference)
+REWRITTEN = ("audio/mpeg.py",)
 
 
 @pytest.mark.parametrize("rel", MANIFEST)
@@ -123,10 +156,19 @@ def test_copy_equals_original(rel):
 
 
 def test_manifest_lists_every_copy():
-    """Every file of a copied tree is in the manifest, so none is edited
-    or added in the port alone."""
+    """Every file of a copied tree is in the manifest or is one of the
+    REWRITTEN files, so none is edited or added in the port alone."""
     found = {str(p.relative_to(PORT)) for tree in COPIED_TREES
              for p in (PORT / tree).rglob("*.py")}
     assert found == {rel for rel in MANIFEST
-                     if rel.split("/")[0] in COPIED_TREES}
+                     if rel.split("/")[0] in COPIED_TREES} | set(REWRITTEN)
     assert len(set(MANIFEST)) == len(MANIFEST)
+    assert not set(REWRITTEN) & set(MANIFEST)
+
+
+@pytest.mark.parametrize("rel", REWRITTEN)
+def test_rewritten_file_differs_from_its_original(rel):
+    """A rewritten file of a copied tree exists beside its original and is
+    not a copy (a copy belongs in MANIFEST)."""
+    assert (REFERENCE / rel).exists()
+    assert (PORT / rel).read_bytes() != (REFERENCE / rel).read_bytes()

@@ -7,14 +7,20 @@ and its kernel path never falls back.
   sdrtrunk_tpu or of any sdrtrunk_tpu.* module is allowed (the machine
   with the card has no JAX installed, and the port keeps its own copy of
   the host layer it needs: tests/test_torch_host_copy.py).
-* A fresh interpreter imports every port module and chip_smoke, then
+* A fresh interpreter imports every port module (the CLI, the monitor,
+  the copied sources, service and application modules among them) and
+  chip_smoke, then
   drives the port's CPU Orchestrator for one chunk at a tiny width: the
   bank tier for c4fm, p25p2, lsm, dmr, nbfm, am, ltr and mpt1327 (the bank
   processors' lazy imports run there), the per-slot path for the six
   kinds that have one, banks= over six kinds, and host_process=True (its
   worker process spawned and stopped), and an AuxDecoder on a block of
   silence; neither 'jax' nor any sdrtrunk_tpu module is in sys.modules
-  after.
+  after. ``python -m sdrtrunk_tpu_torch.cli --platform cpu playlist
+  list`` loads neither either (its import log, ``-X importtime``).
+* The device rule: ``resolve_device(None)`` is ``default_device()``,
+  "cuda" unless a ``use_device`` block, which restores it on exit (an
+  exception included), says otherwise; an explicit device wins.
 * batched() on a non-CPU tensor goes to the CUDA kernel, and so does
   bit_timing(); when the build fails, the call raises and the plain loop
   is never run. The shared nvcc helper raises when nvcc fails, and leaves
@@ -169,6 +175,46 @@ def test_fresh_interpreter_loads_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_cli_module_loads_no_jax(tmp_path):
+    from sdrtrunk_tpu_torch.config import (ChannelConfig, DecodeConfig,
+                                           Playlist, SourceConfig)
+    path = tmp_path / "p.json"
+    Playlist(channels=[ChannelConfig(
+        name="Ctrl", source=SourceConfig(frequency_hz=460_025_000.0),
+        decode=DecodeConfig(decoder="p25p1"))]).save(path)
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "sdrtrunk_tpu_torch.cli",
+         "--platform", "cpu", "playlist", "list", "--playlist", str(path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert '"name": "Ctrl"' in proc.stdout
+    loaded = [line.rsplit("|", 1)[-1].strip()
+              for line in proc.stderr.splitlines()
+              if line.startswith("import time:")]
+    assert "sdrtrunk_tpu_torch.config" in loaded      # the log is read
+    bad = [m for m in loaded if m.split(".")[0] in ("jax", "sdrtrunk_tpu")]
+    assert not bad, bad
+
+
+def test_device_rule():
+    import sdrtrunk_tpu_torch as port
+    assert port.default_device() == "cuda"
+    with port.use_device("cpu"):
+        assert port.resolve_device(None) == torch.device("cpu")
+        assert port.resolve_device("meta") == torch.device("meta")
+        with port.use_device("meta"):
+            assert port.default_device() == "meta"
+        assert port.default_device() == "cpu"
+    assert port.default_device() == "cuda"
+    with pytest.raises(KeyError):
+        with port.use_device("cpu"):
+            raise KeyError("inside")
+    assert port.default_device() == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            port.resolve_device(None)
 
 
 def test_kernel_build_failure_raises_without_fallback(monkeypatch):

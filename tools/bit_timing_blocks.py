@@ -12,10 +12,10 @@ read around its three phases (pack, walk, write), by the text edits
 geometry on 1023 x 4000 and the AFSK geometry on 1023 x 3600
 (chip_smoke.py's inputs). Each copy is held bit for bit against the plain
 loop. It prints one JSON line per geometry and copy: the kernel's device
-ms (torch.profiler, as chip_smoke.py takes it) and, for the clock64 copy,
-the mean cycles a channel of each phase (lane 0 of each warp), the
-symbols a channel and the walk's cycles a symbol, with the card's SM
-clock beside them.
+ms (torch.profiler: the kernel alone, not the zero fills) and, for the
+clock64 copy, the mean cycles a channel of each phase (lane 0 of each
+warp), the symbols a channel and the walk's cycles a symbol, with the
+card's SM clock beside them.
 
 --csrc DIR also times the bit_timing.cu of another kernel generation (e.g.
 an older commit's csrc/ unpacked with git archive into a git-ignored
@@ -123,6 +123,28 @@ def _launch(lib, geom, x, window, sp, invert):
     return bits, valid, new_window, new_sp
 
 
+def _kernel_device_ms(fn, reps: int = 20) -> float:
+    """Mean device ms of the kernels named bit_timing_kernel over `reps`
+    calls of fn, from torch.profiler's device-side events (the tracer may
+    drop some: the mean is over the launches it reported; fewer than half
+    of the calls, or more than all, raises)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "bit_timing_kernel" in e.key]
+    count = sum(e.count for e in events)
+    if not reps // 2 <= count <= reps:
+        raise AssertionError(f"the profiler saw {count} launches of the "
+                             f"kernel in {reps} calls")
+    return sum(e.device_time_total for e in events) / count / 1e3
+
+
 def _sm_clock_mhz() -> list[str]:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -172,9 +194,8 @@ def main() -> int:
             torch.cuda.synchronize()
             cs._hold_bits(f"{which} {name}", got, want)
             rec = {"geometry": which, "copy": name, "shape": [c, t],
-                   "device_ms": cs._kernel_device_ms(
-                       lambda lib=lib: _launch(lib, *args_),
-                       "bit_timing_kernel"),
+                   "device_ms": _kernel_device_ms(
+                       lambda lib=lib: _launch(lib, *args_)),
                    "identical_to_plain": True}
             if copies[name][1]:
                 buf = torch.zeros(CLK_WORDS, dtype=torch.int64)
