@@ -10,7 +10,8 @@ phase 3 and the bit-timing edge cases, ``bits`` and ``psk``: phase 4's
 bit-timing and symbol-loop kernels, ``c4fm``, ``p25p2``, ``lsm``, ``dmr``,
 ``nbfm``, ``am``, ``ltr``, ``mpt1327``, ``slots``, ``slots_p25p2``,
 ``multibank``, ``worker``: the live loops; ``cli``, ``monitor``,
-``monitor_mixed``: the application) run those alone, after the
+``monitor_mixed``: the application; ``parity``, ``receiver``: the
+per-channel path and the static receiver) run those alone, after the
 environment and the build, in this order; an unknown name
 raises. Each phase raises on failure (the exit code is then not 0):
 
@@ -122,16 +123,42 @@ raises. Each phase raises on failure (the exit code is then not 0):
    each control channel decodes, both grants are followed (the P25 one
    decoded), every call is written as a parsable MPEG-1 Layer II file,
    the P25 channel's bits tap re-frames to TSBKs, one launch a chunk at
-   gain 0.3, 0.4 and W = 53.
+   gain 0.3, 0.4 and W = 53;
+20. ``parity``: the per-channel decode path (``dec(x, state)`` on one
+   channel's 1-D block, each kernel at C = 1). The golden captures:
+   ``parity.write_golden`` writes .bits files and a manifest equal in
+   bytes to tests/golden/ (the float64 host oracle), and the card's
+   decode of each capture (C4FM and LSM about 4760 samples, DMR about
+   7050) frames manifest.json's events. The reference's four parity
+   reports (C4FM clean and at 12 dB, DMR, the Gardner LSM) with the device
+   half on the card, each held to the reference's pass rule. The NBFM,
+   AM, LTR and MPT1327 per-channel calls on the card against the CPU's
+   (bits and valid exact, audio within 1e-4). A checkpoint round trip:
+   a C4FM decode in two chunks, saved after the first and resumed from
+   the file, bit for bit the same as without the save. Launches: DQPSK 6
+   at gain 0.3 and 2 at 0.4, Gardner 2 at W = 11, bit timing 1 at W = 53
+   and 1 at W = 12;
+21. ``receiver``: ``WidebandReceiver.build()`` (the static plan) at full
+   width on phase 5's C4FM scene, 1023 channels, 1 + 4 chunks of 1024 x
+   5120 as device-resident float32 pairs: its MS/s and realtime factor
+   (host clock around work that ends in a synchronize), outputs and state
+   equal to ``build_dynamic()``'s with the plan's bins and steps bit for
+   bit, TSBKs on the control slot and frames on >= 99% of the sampled
+   voice slots, one DQPSK launch a chunk; a 25 kHz NBFM channel between
+   two bins through ``build()`` with ``channel_bandwidths`` (the tone
+   within 20 Hz); the oscillator, CIC, Goertzel, biquad, CMA, IQ
+   correction, Hilbert and two-bin synthesizer on the card against the
+   CPU within tests/test_torch_misc_dsp.py's tolerances.
 
-During every live phase (5-19) a spy on the calls that reach the kernel
+During every live phase (5-21) a spy on the calls that reach the kernel
 wrappers records the (kernel, C, T) of each launch on the card; after the
 phase, each shape it recorded is held bit for bit against its plain loop
 as phase 4 holds the 1023-channel ones, unless this run held that shape
 already (phases 5, 6, 8, 11, 12, 16 and 18 give phase 4's shapes).
 
-Phases 17-19 write their captures, playlists and what the CLI writes
-under the git-ignored ``.scratch/chip_smoke/`` and remove it after.
+Phases 17-20 write their captures, playlists, what the CLI writes, the
+golden set and the checkpoint under the git-ignored
+``.scratch/chip_smoke/`` and remove them after.
 
 Every live loop prints its realtime factor, wall and host ms a chunk (the
 host layer: the bank framer's ``frame_chunk`` for the digital kinds,
@@ -3125,17 +3152,421 @@ def run_monitor_mixed(card: str) -> dict:
     return {**result, "kernel_launches": run["launches"]}
 
 
+# --- parity: the golden captures, the parity reports, per-channel calls ---
+
+GOLDEN_DIR = ROOT / "tests" / "golden"
+# (kernels-line entry -> launches) of the parity phase: the three golden
+# decodes, the four reports, the LTR and MPT1327 per-channel calls and the
+# checkpoint round trip's three C4FM chunks (the first, the resumed second
+# and the second without the save)
+PARITY_LAUNCHES = {"dqpsk": 6, "dqpsk_dmr": 2, "gardner_lsm": 2,
+                   "bit_timing_ltr": 1, "bit_timing_afsk": 1}
+PER_CHANNEL_K = 12500            # 0.5 s at 25 kHz: Ka = 4000, T = 3600 AFSK
+AUDIO_TOL = 1e-4                 # tests/test_torch_per_channel.py's
+
+
+def _golden(card: str) -> list:
+    """The three golden captures on the card: the port's float64 oracle
+    writes .bits files equal in bytes to tests/golden/ (write_golden into
+    a scratch directory), and the card's per-channel decode of each
+    capture, one launch at C = 1, frames manifest.json's events."""
+    from sdrtrunk_tpu_torch import parity
+
+    with open(GOLDEN_DIR / "manifest.json") as f:
+        manifest = json.load(f)
+    out = APP_DIR / "golden"
+    written = parity.write_golden(str(out))
+    for name in ("c4fm.bits", "dmr.bits", "lsm.bits", "manifest.json"):
+        if (out / name).read_bytes() != (GOLDEN_DIR / name).read_bytes():
+            raise AssertionError(f"parity: {name} differs from "
+                                 f"tests/golden/{name}")
+    rows = []
+    for protocol, (iq, dec, oracle) in parity.golden_captures().items():
+        if dec.baseband_taps.device.type != "cuda":
+            raise AssertionError("parity: a golden decoder is not on the card")
+        device = parity.decode_dibits(dec, iq)
+        events = parity.golden_events(protocol, device)
+        n = min(len(device), len(oracle))
+        row = {"protocol": protocol, "samples": len(iq),
+               "oracle_dibits": len(oracle), "device_dibits": len(device),
+               "agreement": float((device[100:n] == oracle[100:n]).mean()),
+               "events": len(events),
+               "events_match": events == manifest[protocol]["events"]}
+        rows.append(row)
+        if not row["events_match"] or written[protocol] != manifest[protocol]:
+            raise AssertionError(f"parity: golden {protocol}: {row}")
+    print(f"[parity] {card}: golden .bits equal in bytes to tests/golden/; "
+          + json.dumps(rows), flush=True)
+    return rows
+
+
+def _reports(card: str) -> list:
+    """The reference's four parity reports with the device half on the
+    card, each printed and held to the reference's main() rule."""
+    from sdrtrunk_tpu_torch import parity
+
+    APP_DIR.mkdir(parents=True, exist_ok=True)
+    reports = [parity.parity_report(seed=0,
+                                    bits_path=str(APP_DIR / "parity.bits")),
+               parity.parity_report(seed=1, snr_db=12.0),
+               parity.parity_report_dmr(), parity.parity_report_gardner()]
+    for rep in reports:
+        print("[parity] " + json.dumps(rep), flush=True)
+        ok = (rep["events_match"]
+              and rep["frames_device"] == rep["frames_expected"]
+              and rep.get("device_ber_vs_truth", 0.0) < 0.01)
+        if not ok:
+            raise AssertionError(f"parity: report fails the rule: {rep}")
+    if not reports[0]["bits_roundtrip_ok"]:
+        raise AssertionError("parity: the .bits round trip failed")
+    return reports
+
+
+def _per_channel_scenes() -> dict:
+    """kind -> (decoder maker (device) -> decoder, one channel's 25 kHz
+    block of PER_CHANNEL_K samples)."""
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.decoders.am import AMDecoder
+    from sdrtrunk_tpu_torch.decoders.ltr import (LTRLiveDecoder,
+                                                 MPT1327LiveDecoder)
+    from sdrtrunk_tpu_torch.decoders.nbfm import NBFMDecoder
+    from sdrtrunk_tpu_torch.signal.generators import nbfm_modulate
+
+    rng = np.random.default_rng(31)
+    k = PER_CHANNEL_K
+    n = np.arange(k * 8 // 25 + 80)
+    bits = rng.integers(0, 2, 400)
+    fsk = 0.35 * (2.0 * bits[np.minimum((n * 300 / 8000).astype(np.int64),
+                                        399)] - 1.0)
+    tone = 0.5 * np.sin(2 * np.pi * VOICE_TONE_HZ * n / 8000.0)
+    freq = np.where(bits[np.minimum((n * 1200 / 8000).astype(np.int64),
+                                    399)] == 1, 1200.0, 1800.0)
+    afsk = 0.5 * np.sin(2 * np.pi * np.cumsum(freq) / 8000.0)
+    t = np.arange(k) / 25000.0
+    am = (1.0 + 0.5 * np.sin(2 * np.pi * AM_TONE_HZ * t)) * np.exp(1j * 0.4)
+
+    def fm(audio):
+        return nbfm_modulate(audio, 8000.0, 25000.0)[:k].astype(np.complex64)
+
+    return {"nbfm": (lambda d: NBFMDecoder(device=d), fm(tone)),
+            "am": (lambda d: AMDecoder(device=d), am.astype(np.complex64)),
+            "ltr": (lambda d: LTRLiveDecoder(device=d), fm(fsk + tone)),
+            "mpt1327": (lambda d: MPT1327LiveDecoder(device=d), fm(afsk))}
+
+
+def _per_channel(card: str) -> dict:
+    """The per-channel NBFM, AM, LTR and MPT1327 calls on the card against
+    the same calls on the CPU: bits and valid exact, audio within
+    AUDIO_TOL, the gate exact."""
+    import torch
+
+    found = {}
+    for kind, (make, iq) in _per_channel_scenes().items():
+        got = {}
+        for dev in ("cpu", "cuda"):
+            dec = make(dev)
+            out, _ = dec(torch.as_tensor(iq, device=dev), dec.init_state())
+            got[dev] = {key: v.cpu() for key, v in out.items()}
+        card_out, cpu_out = got["cuda"], got["cpu"]
+        err = float((card_out["audio"] - cpu_out["audio"]).abs().max())
+        found[kind] = {"audio_max_abs_err": err,
+                       "audio_samples": int(card_out["audio"].shape[0]),
+                       "symbols": int(cpu_out["valid"].sum())
+                       if "valid" in cpu_out else None}
+        if err > AUDIO_TOL or not torch.equal(card_out["audio_gate"],
+                                              cpu_out["audio_gate"]):
+            raise AssertionError(f"parity: {kind} on the card: {found[kind]}")
+        for key in ("bits", "valid"):
+            if key in cpu_out and not torch.equal(card_out[key],
+                                                  cpu_out[key]):
+                raise AssertionError(f"parity: {kind} {key} on the card "
+                                     "differ from the CPU's")
+    print(f"[parity] {card}: per-channel calls on the card equal the CPU's "
+          + json.dumps(found), flush=True)
+    return found
+
+
+def _checkpoint(card: str) -> dict:
+    """A per-channel C4FM decode on the card in two chunks, saved with
+    save_state after the first and resumed with load_state: the same
+    dibits and valid, and every state leaf, bit for bit, as the same two
+    chunks without the save."""
+    import torch
+
+    from sdrtrunk_tpu_torch import parity
+    from sdrtrunk_tpu_torch.runtime.checkpoint import load_state, save_state
+    from sdrtrunk_tpu_torch.tree import tree_leaves
+
+    iq, dec, _ = parity.golden_captures()["c4fm"]
+    x = torch.as_tensor(iq, device="cuda")
+    split = x.shape[0] // 2
+    _, state = dec(x[:split], dec.init_state())
+    APP_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(APP_DIR / "c4fm_state.npz")
+    save_state(path, state, {"position": split})
+    restored, meta = load_state(path, dec.init_state())
+    if meta["position"] != split or any(
+            a.device.type != "cuda" for a in tree_leaves(restored)):
+        raise AssertionError("parity: the checkpoint did not load onto the "
+                             "card")
+    got, got_state = dec(x[split:], restored)
+    want, want_state = dec(x[split:], state)
+    same = (all(torch.equal(got[k], want[k]) for k in ("dibits", "valid"))
+            and all(torch.equal(a, b) for a, b in
+                    zip(tree_leaves(got_state), tree_leaves(want_state))))
+    record = {"split": split, "symbols": int(want["valid"].sum()),
+              "bit_for_bit": same}
+    print(f"[parity] {card}: checkpoint round trip " + json.dumps(record),
+          flush=True)
+    if not same or record["symbols"] < 100:
+        raise AssertionError(f"parity: checkpoint resume differs: {record}")
+    return record
+
+
+def run_parity(card: str) -> dict:
+    """The golden captures, the four parity reports, the per-channel
+    analog and trunking calls and a checkpoint round trip, all on the
+    card; every kernel's launch count set to 0 just before and read just
+    after, and held to PARITY_LAUNCHES."""
+    import shutil
+
+    import torch
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = {"card": card, "golden": _golden(card),
+                  "reports": _reports(card),
+                  "per_channel": _per_channel(card),
+                  "checkpoint": _checkpoint(card)}
+    finally:
+        shutil.rmtree(APP_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    result["wall_s"] = time.perf_counter() - t0
+    launches = _read_launches()
+    want = {entry: PARITY_LAUNCHES.get(entry, 0) for entry in _ENTRY_KEYS}
+    if launches != want:
+        raise AssertionError(f"parity: launches {launches}, expected {want}")
+    return {**result, "kernel_launches": launches}
+
+
+# --- receiver: the static build at full width, and the rest of the DSP ----
+
+RECEIVER_WARMUP, RECEIVER_TIMED = 1, 4
+FRAMED_VOICE_SLOTS = 64          # voice slots framed on the host (of 1021)
+
+
+def _framed(dibits, valid, row: int) -> list:
+    """The valid P25 Phase 1 frames of row `row` of the chunks' dibits."""
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.protocol.p25p1.framer import P25P1Framer
+    from sdrtrunk_tpu_torch.protocol.p25p1.messages import decode_frame
+
+    d = np.concatenate([a[row].cpu().numpy()[v[row].cpu().numpy()]
+                        for a, v in zip(dibits, valid)])
+    return [m for m in map(decode_frame, P25P1Framer().process(d))
+            if m.valid]
+
+
+def _static_build(card: str) -> dict:
+    """WidebandReceiver.build() at full width on phase 5's C4FM scene:
+    1023 channels at 12.8 MS/s, M = 1024, 1 + 4 chunks of 1024 x 5120 as
+    device-resident float32 I/Q pairs (the upload left out, as bench.py's
+    receiver bench leaves it). MS/s and the realtime factor of the timed
+    chunks by the host clock around work that ends in a synchronize; the
+    outputs equal build_dynamic()'s on the same chunks and plan bit for
+    bit; the control slot frames its TSBKs, the voice slots their voice
+    frames."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.receiver import WidebandReceiver
+    from sdrtrunk_tpu_torch.tree import tree_leaves
+
+    ch, offsets, chunks, _ = _c4fm_scene()
+    total = RECEIVER_WARMUP + RECEIVER_TIMED
+    xs = [torch.as_tensor(c, device="cuda").float() / 127.0
+          for c in chunks[:total]]
+    rx = WidebandReceiver(FS, offsets, decoder="c4fm", device="cuda")
+    if rx.num_channels != SLOTS or rx.plan.wide.any():
+        raise AssertionError("receiver: the plan is not 1023 single bins")
+    step = rx.build()
+    _reset_launches()
+    state = rx.init_state()
+    outs = []
+    for i, x in enumerate(xs):
+        if i == RECEIVER_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out, state = step(x, state)
+        outs.append(out)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _read_launches()
+    want = {e: total if e == "dqpsk" else 0 for e in _ENTRY_KEYS}
+    if launches != want:
+        raise AssertionError(f"receiver: launches {launches}, expected "
+                             f"{want}")
+    msps = M * CHUNK_BLOCKS * RECEIVER_TIMED / elapsed / 1e6
+
+    dynamic = rx.build_dynamic()
+    bins = torch.as_tensor(rx.plan.bins, device="cuda")
+    step_rad = torch.as_tensor((2.0 * np.pi * rx.plan.offsets / rx.plan.rate)
+                               .astype(np.float32), device="cuda")
+    d_state = rx.init_state()
+    for x, out in zip(xs, outs):
+        d_out, d_state = dynamic(x, d_state, bins, step_rad)
+        if not all(torch.equal(out[k], d_out[k]) for k in out):
+            raise AssertionError("receiver: build() differs from "
+                                 "build_dynamic()")
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(state),
+                                                 tree_leaves(d_state))):
+        raise AssertionError("receiver: build()'s state differs from "
+                             "build_dynamic()'s")
+
+    dibits = [o["dibits"] for o in outs]
+    valid = [o["valid"] for o in outs]
+    control = {int(m.content.opcode) for m in _framed(dibits, valid, 0)
+               if hasattr(m.content, "opcode")}
+    voice_rows = [i for i in range(1, SLOTS) if i != TRAFFIC_INDEX]
+    sampled = voice_rows[::len(voice_rows) // FRAMED_VOICE_SLOTS]
+    framed = sum(bool(_framed(dibits, valid, i)) for i in sampled)
+    result = {"card": card, "channels": rx.num_channels,
+              "wideband_msps": FS / 1e6,
+              "chunk_samples": M * CHUNK_BLOCKS, "timed_chunks":
+              RECEIVER_TIMED, "msps": msps, "realtime_factor":
+              msps * 1e6 / FS, "wall_ms_per_chunk":
+              elapsed * 1e3 / RECEIVER_TIMED,
+              "equals_build_dynamic": True,
+              "control_opcodes": sorted(control),
+              "voice_slots_framed": framed, "voice_slots_sampled":
+              len(sampled), "kernel_launches": launches}
+    print(f"[receiver] {card}: build() " + json.dumps(result), flush=True)
+    # the control channel's TSBKs: IDEN_UP, the grant, RFSS status
+    if not {0x3D, 0x00, 0x3A} <= control:
+        raise AssertionError(f"receiver: control slot framed {control}")
+    if framed < 0.99 * len(sampled):
+        raise AssertionError(f"receiver: frames on {framed} of "
+                             f"{len(sampled)} sampled voice slots")
+    return result
+
+
+def _twobin(card: str) -> dict:
+    """tests/test_twobin.py::test_25khz_nbfm_on_12p5_grid on the card: a
+    25 kHz NBFM channel between two 12.5 kHz bins through build() with
+    channel_bandwidths; its dominant tone within 20 Hz."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.decoders.nbfm import NBFMConfig, NBFMDecoder
+    from sdrtrunk_tpu_torch.receiver import WidebandReceiver
+    from sdrtrunk_tpu_torch.signal.generators import nbfm_modulate
+
+    fs, center, tone_hz = 32 * 12500.0, 31250.0, 1100.0
+    audio = np.sin(2 * np.pi * tone_hz * np.arange(2000) / 8000)
+    iq = nbfm_modulate(audio, 8000, fs, deviation_hz=5000.0)
+    n = len(iq) // 32 * 32
+    wide = (iq[:n] * np.exp(2j * np.pi * center * np.arange(n) / fs)
+            ).astype(np.complex64)
+    rx = WidebandReceiver(fs, [center], channel_bandwidths=[25000.0],
+                          decoder=NBFMDecoder(NBFMConfig(
+                              sample_rate=25000.0, bandwidth=25000.0),
+                              device="cuda"), device="cuda")
+    out, _ = rx.build()(torch.as_tensor(wide, device="cuda"),
+                        rx.init_state())
+    got = _dominant_hz(out["audio"][0].cpu().numpy())
+    record = {"bins": rx.plan.bins[0].tolist(), "dominant_hz": got}
+    print(f"[receiver] {card}: 25 kHz NBFM on two bins " + json.dumps(record),
+          flush=True)
+    if not rx.plan.wide[0] or abs(got - tone_hz) > 20.0:
+        raise AssertionError(f"receiver: two-bin NBFM {record}")
+    return record
+
+
+# tolerances of tests/test_torch_misc_dsp.py, card against CPU
+_DSP_TOL = {"oscillate": 1e-6, "mix_down": 1e-5, "fs4_down_convert": 0.0,
+            "cic_channel": 1e-5, "goertzel_power": 1e-6, "biquad": 1e-5,
+            "cma_equalize": 1e-4, "iq_correction": 1e-5,
+            "real_to_complex": 1e-6, "synthesize_two": 1e-5}
+
+
+def _dsp(card: str) -> dict:
+    """The rest of the DSP (dsp/oscillator.py, cic.py, misc.py and
+    synthesize_two) once each on CUDA tensors against the same call on the
+    CPU, within tests/test_torch_misc_dsp.py's tolerances; the biquad and
+    the CMA equalizer, Python loops over samples, at 3000 samples."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.dsp import cic, design, misc, oscillator
+    from sdrtrunk_tpu_torch.dsp.synthesizer import synthesize_two
+
+    rng = np.random.default_rng(37)
+    z = (rng.standard_normal(96 * 400) + 1j * rng.standard_normal(96 * 400)
+         ).astype(np.complex64)
+    # QPSK through a mild static channel, which the equalizer converges on
+    qpsk = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, 3000)))
+    qpsk = np.convolve(qpsk, [1.0, 0.25 - 0.1j])[:3000].astype(np.complex64)
+    r = rng.standard_normal(3000).astype(np.float32)
+    b, a = misc.biquad_design("bandpass", 1200.0, 8000.0, q=5.0)
+    hb = design.half_band(22)
+    calls = {
+        "oscillate": lambda d, t: oscillator.oscillate(
+            1234.5, 48000.0, 3000, 0.5, device=d)[0],
+        "mix_down": lambda d, t: oscillator.mix_down(
+            t(z), 2500.0, 48000.0)[0],
+        "fs4_down_convert": lambda d, t: oscillator.fs4_down_convert(t(z)),
+        "cic_channel": lambda d, t: cic.CICChannel.design(
+            2_400_000.0, 300e3, 25e3, device=d)(t(z))[0],
+        "goertzel_power": lambda d, t: misc.goertzel_power(
+            t(r), 1000.0, 8000.0),
+        "biquad": lambda d, t: misc.biquad_apply(t(r), b, a)[0],
+        "cma_equalize": lambda d, t: misc.cma_equalize(t(qpsk),
+                                                       mu=0.003)[0],
+        "iq_correction": lambda d, t: misc.iq_correction(t(z), 0.005)[0],
+        "real_to_complex": lambda d, t: misc.real_to_complex(t(r), hb)[0],
+        "synthesize_two": lambda d, t: synthesize_two(
+            t(z[:3000]), t(z[3000:6000]))[0],
+    }
+    errs = {}
+    for name, call in calls.items():
+        got = {}
+        for dev in ("cpu", "cuda"):
+            got[dev] = call(dev, lambda a, dev=dev: torch.as_tensor(
+                a, device=dev)).cpu()
+        if got["cuda"].shape != got["cpu"].shape:
+            raise AssertionError(f"receiver: {name} shapes differ")
+        errs[name] = float((got["cuda"] - got["cpu"]).abs().max())
+    print(f"[receiver] {card}: DSP on the card against the CPU, max abs "
+          "err " + json.dumps(errs), flush=True)
+    bad = {k: v for k, v in errs.items() if v > _DSP_TOL[k]}
+    if bad:
+        raise AssertionError(f"receiver: beyond tolerance {bad} "
+                             f"({_DSP_TOL})")
+    return errs
+
+
+def run_receiver(card: str) -> dict:
+    """The static receiver build at full width, the two-bin NBFM channel
+    through it, and the rest of the DSP on the card."""
+    result = _static_build(card)
+    return {**result, "twobin": _twobin(card), "dsp": _dsp(card)}
+
+
 # phases a run can name, in the order a run takes them; the environment
 # and the build always run
 PHASES = ("edges", "bits", "psk", "c4fm", "p25p2", "lsm", "dmr", "nbfm", "am",
           "ltr", "mpt1327", "slots", "slots_p25p2", "multibank", "worker",
-          "cli", "monitor", "monitor_mixed")
+          "cli", "monitor", "monitor_mixed", "parity", "receiver")
 _LIVE = {"c4fm": run_c4fm, "p25p2": run_p25p2, "lsm": run_lsm,
          "dmr": run_dmr, "nbfm": run_nbfm, "am": run_am, "ltr": run_ltr,
          "mpt1327": run_mpt1327, "slots": run_slots,
          "slots_p25p2": run_slots_p25p2, "multibank": run_multibank,
          "worker": run_worker, "cli": run_cli, "monitor": run_monitor,
-         "monitor_mixed": run_monitor_mixed}
+         "monitor_mixed": run_monitor_mixed, "parity": run_parity,
+         "receiver": run_receiver}
 
 
 def check_shape(card: str, entry: str, c: int, t: int) -> dict:

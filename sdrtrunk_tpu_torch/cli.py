@@ -23,8 +23,8 @@ but the port's entry points run on the card unless asked. ``--platform
 device`` is the default spelled out. Without CUDA and without ``--platform
 cpu`` a command that touches a device raises; nothing falls back.
 
-``decode`` runs one channel as a (1, T) block through the decoders'
-batched calls (the symbol and bit-timing kernels at C = 1); ``replay``
+``decode`` runs one channel through the decoders' per-channel call (the
+symbol and bit-timing kernels at C = 1); ``replay``
 runs each protocol group of a playlist as one (C, T) ``batched_call``, one
 kernel launch a group. All structured output is JSON lines on stdout;
 audio and bitstream artifacts are written next to the input or to
@@ -55,15 +55,6 @@ def _device():
     return resolve_device(None)
 
 
-def _one_channel(fn, x, state):
-    """fn over one channel: x (T,) as a (1, T) block and each state leaf
-    with a leading axis of 1; returns fn's result with that axis dropped
-    from every leaf (outputs and state)."""
-    from .convert import tree_map
-    out = fn(x[None], tree_map(lambda a: a[None], state))
-    return tree_map(lambda a: a[0], out)
-
-
 # ------------------------------------------------------------------ decode
 
 def _decode_single(iq: np.ndarray, fs: float, protocol: str,
@@ -84,8 +75,7 @@ def _decode_single(iq: np.ndarray, fs: float, protocol: str,
             dibits = pre
         else:
             dec = decoder_cls(config, device=dev)
-            out, _ = _one_channel(dec.batched_call, channel(),
-                                  dec.init_state())
+            out, _ = dec(channel(), dec.init_state())
             dibits = out["dibits"].cpu().numpy()[out["valid"].cpu().numpy()]
         for frame in framer.process(dibits):
             result["messages"].append(describe(frame))
@@ -100,7 +90,7 @@ def _decode_single(iq: np.ndarray, fs: float, protocol: str,
                 device=dev)
         else:
             dec = AMDecoder(AMConfig(sample_rate=fs), device=dev)
-        out, _ = _one_channel(dec.batched_call, channel(), dec.init_state())
+        out, _ = dec(channel(), dec.init_state())
         result["audio"] = out["audio"].cpu().numpy()
     elif protocol in ("p25p1", "p25p1-lsm"):
         from .protocol.p25p1 import P25P1Framer
@@ -174,8 +164,7 @@ def _decode_single(iq: np.ndarray, fs: float, protocol: str,
         nbfm = NBFMDecoder(NBFMConfig(sample_rate=fs,
                                       squelch_threshold_db=-120.0),
                            device=dev)
-        out, _ = _one_channel(nbfm.batched_call, channel(),
-                              nbfm.init_state())
+        out, _ = nbfm(channel(), nbfm.init_state())
         audio = out["audio"]
         result["audio"] = audio.cpu().numpy()
         if protocol == "mpt1327":
@@ -183,8 +172,7 @@ def _decode_single(iq: np.ndarray, fs: float, protocol: str,
             from .protocol.mpt1327 import MPT1327Framer
             n = (audio.shape[0] // 10) * 10
             demod = AFSK1200Demodulator(device=dev)
-            bits, valid, _ = _one_channel(demod.batched, audio[:n],
-                                          demod.init_state())
+            bits, valid, _ = demod(audio[:n])
             rx = bits.cpu().numpy()[valid.cpu().numpy()]
             for m in MPT1327Framer("control").process(rx):
                 result["messages"].append(
@@ -194,7 +182,7 @@ def _decode_single(iq: np.ndarray, fs: float, protocol: str,
         else:
             from .decoders.ltr import LTRDecoder
             dec = LTRDecoder(device=dev)
-            o2, _ = _one_channel(dec.batched_call, audio, dec.init_state())
+            o2, _ = dec(audio, dec.init_state())
             rx = o2["bits"].cpu().numpy()[o2["valid"].cpu().numpy()]
             if protocol == "ltr":
                 from .protocol.ltr import LTRFramer

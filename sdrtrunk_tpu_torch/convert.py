@@ -13,6 +13,7 @@ import torch
 from .dsp.afsk import AFSKState
 from .dsp.fsk import LTRFSKState
 from .dsp.psk import DQPSKState, GardnerState
+from .tree import tree_map
 
 __all__ = ["tree_map", "receiver_state_from_numpy", "receiver_state_to_numpy",
            "params_from_numpy", "multibank_params_from_numpy"]
@@ -20,21 +21,6 @@ __all__ = ["tree_map", "receiver_state_from_numpy", "receiver_state_to_numpy",
 
 _STATE_TYPES = {cls._fields: cls for cls in (DQPSKState, GardnerState,
                                              LTRFSKState, AFSKState)}
-
-
-def tree_map(fn, tree, *rest):
-    """Map fn over the leaves of nested dicts, tuples and named tuples
-    (DQPSKState, GardnerState, LTRFSKState, AFSKState): the receiver
-    state's structure for every decoder kind; ``rest`` are trees of the
-    same structure."""
-    if isinstance(tree, dict):
-        return {key: tree_map(fn, tree[key], *[r[key] for r in rest])
-                for key in tree}
-    if isinstance(tree, tuple):
-        leaves = [tree_map(fn, *leaves) for leaves in zip(tree, *rest)]
-        return type(tree)(*leaves) if hasattr(tree, "_fields") \
-            else tuple(leaves)
-    return fn(tree, *rest)
 
 
 def _from_numpy(tree, device):

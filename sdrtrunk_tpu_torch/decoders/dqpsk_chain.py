@@ -1,7 +1,8 @@
 """Shared DQPSK decoder chain (port of sdrtrunk_tpu/decoders/dqpsk_chain.py).
 
 Baseband FIR -> power monitor -> 32-sample feed-forward AGC -> DQPSK
-symbol recovery, batched over a (C, T) block of channels. Subclasses set
+symbol recovery, batched over a (C, T) block of channels; called on one
+channel's 1-D block, it runs that path at C = 1. Subclasses set
 ``config`` (with ``agc_window``), the ``baseband_taps`` buffer and the
 ``demod`` submodule (a ``DQPSKDemodulator`` or a
 ``GardnerDQPSKDemodulator``). A subclass may set ``upsample`` = 2 to
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from ..dsp import agc, demod, fir
+from ..tree import per_channel
 
 __all__ = ["DQPSKChainDecoder"]
 
@@ -58,3 +60,9 @@ class DQPSKChainDecoder(nn.Module):
         outputs = {"dibits": dibits, "valid": valid,
                    "power_db": power_trace, "pll_freq": psk_state.pll_freq}
         return outputs, {**front_state, "psk": psk_state}
+
+    def forward(self, x: torch.Tensor, state: dict) -> tuple[dict, dict]:
+        """Decode one channel's 1-D block; the state in ``init_state``'s
+        layout. ``batched_call`` at C = 1, so a CUDA tensor launches the
+        symbol kernel once."""
+        return per_channel(self.batched_call, x, state)

@@ -5,7 +5,8 @@ sdrtrunk_tpu/decoders/ltr.py): NBFM-demodulated 8 kHz audio -> bit slicer
 Reference chain: ltrstandard/LTRStandardDecoder.java wires the NBFM
 demodulated audio into dsp/fsk/LTRDecoder.java at 8 kHz / 300 baud;
 mpt1327/MPT1327Decoder.java into the 1200-baud AFSK correlator. Batched
-over a (C, T) block of channels, state leaves with a leading C axis.
+over a (C, T) block of channels, state leaves with a leading C axis; a
+call on one channel's 1-D block runs that path at C = 1.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from torch import nn
 
 from ..dsp.afsk import AFSK1200Demodulator
 from ..dsp.fsk import LTRFSKDemodulator, LTRFSKState
+from ..tree import per_channel
 from .nbfm import NBFMConfig, NBFMDecoder
 
 __all__ = ["LTRConfig", "LTRDecoder", "LTRLiveDecoder", "MPT1327LiveDecoder"]
@@ -45,6 +47,10 @@ class LTRDecoder(nn.Module):
         new state)."""
         bits, valid, new_state = self.fsk.batched(audio, state)
         return {"bits": bits, "valid": valid}, new_state
+
+    def forward(self, audio: torch.Tensor, state: LTRFSKState):
+        """One channel's 1-D audio block: ``batched_call`` at C = 1."""
+        return per_channel(self.batched_call, audio, state)
 
 
 class _LiveTrunkDecoder(nn.Module):
@@ -84,6 +90,10 @@ class _LiveTrunkDecoder(nn.Module):
         return ({"audio": out["audio"], "audio_gate": out["audio_gate"],
                  "bits": bits, "valid": valid},
                 {"nbfm": nbfm_state, self.slicer: slicer_state})
+
+    def forward(self, x: torch.Tensor, state: dict):
+        """One channel's 1-D block: ``batched_call`` at C = 1."""
+        return per_channel(self.batched_call, x, state)
 
 
 class LTRLiveDecoder(_LiveTrunkDecoder):

@@ -20,6 +20,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..dsp import demod, design, fir, iir
+from ..tree import per_channel
 
 __all__ = ["AUDIO_RATE", "NBFMConfig", "NBFMDecoder"]
 
@@ -75,6 +76,11 @@ class _AnalogDecoder(nn.Module):
         outputs = {"audio": audio, "audio_gate": audio_gate,
                    "power_db": power_trace}
         return outputs, {**front_state, "resamp": audio_full[:, -self._tpp:]}
+
+    def forward(self, x: torch.Tensor, state: dict) -> tuple[dict, dict]:
+        """Decode one channel's 1-D block (the state in ``init_state``'s
+        layout): ``batched_call`` at C = 1."""
+        return per_channel(self.batched_call, x, state)
 
 
 class NBFMDecoder(_AnalogDecoder):

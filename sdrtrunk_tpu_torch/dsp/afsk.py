@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..tree import per_channel
 from . import fir
 from .bit_timing import BitTimingGeometry, bit_timing
 
@@ -128,3 +129,11 @@ class AFSK1200Demodulator(nn.Module):
             self.geometry, diff, state.window, state.sampling_point,
             invert=self.invert)
         return bits, valid, AFSKState(rstate, corr, window, sp)
+
+    def forward(self, audio: torch.Tensor, state: AFSKState | None = None):
+        """One channel's 1-D 8 kHz audio block, its length a multiple of
+        10 -> (bits, valid, new state), the state in ``init_state``'s
+        layout (None: a fresh one); ``batched`` at C = 1."""
+        if state is None:
+            state = self.init_state()
+        return per_channel(self.batched, audio, state)

@@ -20,8 +20,8 @@ from . import design
 
 from .. import resolve_device
 
-__all__ = ["Channelizer", "channel_count_for_rate", "channelize_core",
-           "polyphase_branch_filters"]
+__all__ = ["Channelizer", "channel_count_for_rate", "channelize",
+           "channelize_core", "polyphase_branch_filters"]
 
 
 def channel_count_for_rate(sample_rate: float,
@@ -110,6 +110,14 @@ class Channelizer(nn.Module):
         return cls(polyphase_branch_filters(proto, channels), sample_rate,
                    device=device)
 
+    @classmethod
+    def from_taps(cls, taps: np.ndarray, sample_rate: float, channels: int,
+                  device="cuda") -> "Channelizer":
+        """A channelizer of M = ``channels`` bins over the prototype
+        low-pass ``taps``."""
+        return cls(polyphase_branch_filters(taps, channels), sample_rate,
+                   device=device)
+
     @property
     def channel_spacing(self) -> float:
         return self.sample_rate / self.channels
@@ -145,3 +153,11 @@ class Channelizer(nn.Module):
                              f"of M={m}")
         xp = torch.cat([state, x.to(torch.complex64)])
         return channelize_core(xp, self.hmat), xp[-state.shape[0]:]
+
+
+def channelize(x: torch.Tensor, taps: np.ndarray, channels: int,
+               sample_rate: float = 1.0) -> torch.Tensor:
+    """One-shot channelization of x with zero history, on x's device."""
+    y, _ = Channelizer.from_taps(taps, sample_rate, channels,
+                                 device=x.device)(x)
+    return y

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..tree import per_channel
 from . import design, fir, iir
 from .bit_timing import BitTimingGeometry, bit_timing
 
@@ -96,3 +97,11 @@ class LTRFSKDemodulator(nn.Module):
         bits, valid, window, sp = bit_timing(
             self.geometry, filtered, state.window, state.sampling_point)
         return bits, valid, LTRFSKState(window, sp, dc, fir_state)
+
+    def forward(self, audio: torch.Tensor, state: LTRFSKState | None = None):
+        """One channel's 1-D 8 kHz audio block -> (bits, valid, new state),
+        the state in ``init_state``'s layout (None: a fresh one);
+        ``batched`` at C = 1."""
+        if state is None:
+            state = self.init_state()
+        return per_channel(self.batched, audio, state)

@@ -15,7 +15,8 @@ Two per-sample feedback loops, each inherently sequential per channel:
 Each has a plain PyTorch version, ``scan_batched``: a Python loop over
 samples, batched over channels. ``batched`` picks the path from where the
 input lies: a CPU tensor runs the plain loop, any other tensor launches the
-kernel or raises. There is no fallback from a kernel to its loop.
+kernel or raises. There is no fallback from a kernel to its loop. Calling
+a demodulator on one channel's 1-D block is ``batched`` at C = 1.
 
 The plain loops are written in real arithmetic, one PyTorch op per
 arithmetic step, in their kernel's order, so on the card each loop and its
@@ -45,6 +46,7 @@ from torch import nn
 from .interpolator import CENTER, NSTEPS, NTAPS, interpolator_bank
 
 from .. import resolve_device
+from ..tree import per_channel
 
 __all__ = ["DQPSKDemodulator", "DQPSKState", "GardnerDQPSKDemodulator",
            "GardnerState", "costas_gains"]
@@ -254,6 +256,15 @@ class _SymbolLoop(nn.Module):
             return self.scan_batched(x, state)
         packed, new_state = self._kernel(x, state)
         return (*unpack_symbols(packed), new_state)
+
+    def forward(self, x: torch.Tensor, state=None):
+        """Demodulate one channel's 1-D block (the reference's per-channel
+        call): (dibits (T,) uint8, valid (T,) bool, new state), the state
+        in ``init_state``'s layout, None for a fresh one. It is
+        ``batched`` at C = 1: a CUDA tensor launches the kernel."""
+        if state is None:
+            state = self.init_state()
+        return per_channel(self.batched, x, state)
 
     def scan_batched(self, x: torch.Tensor, state):
         """Plain PyTorch version of the kernel: a loop over samples."""

@@ -1,15 +1,31 @@
-"""Synthesis helpers (port of sdrtrunk_tpu/dsp/synthesizer.py:46, :82-123).
+"""Synthesis helpers (port of sdrtrunk_tpu/dsp/synthesizer.py).
 
-``ROT4`` is the two-bin join's e^{-i pi k/2} cycle. ``synthesize_bank`` is
-the full M-channel polyphase synthesis bank, the exact dual of the
-channelizer's analysis bank; it builds wideband captures from per-bin
-streams on the device (the reference does this in NumPy on the host).
+The two-channel M/2 synthesizer re-joins two adjacent 2x-oversampled
+channelizer bins into one wider stream (the role of the reference's
+TwoChannelSynthesizerM2.java:45). Against this package's channelizer
+convention (bin m centered at +m*fs/M, hop M/2) it reduces to a closed
+form with no synthesis filter:
+
+    z[k] = e^{-i pi k/2} c_m[k]  -  e^{+i pi k/2} c_{m+1}[k]
+
+the lower bin shifted down and the upper up by fs_ch/4 and summed; the
+analysis prototype's perfect-reconstruction band edge makes the joint
+response flat (tests/test_misc_dsp.py measures it). ``ROT4`` is that
+e^{-i pi k/2} cycle. ``synthesize_bank`` is the full M-channel polyphase
+synthesis bank, the exact dual of the channelizer's analysis bank; it
+builds wideband captures from per-bin streams on the device (the
+reference does this in NumPy on the host).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
-__all__ = ["ROT4", "rot4", "synthesize_bank"]
+from .. import resolve_device
+
+__all__ = ["ROT4", "rot4", "synthesize_two", "TwoChannelSynthesizer",
+           "synthesize_bank"]
 
 # e^{-i pi k / 2} cycle
 ROT4 = (1 + 0j, -1j, -1 + 0j, 1j)
@@ -17,6 +33,41 @@ ROT4 = (1 + 0j, -1j, -1 + 0j, 1j)
 
 def rot4(device) -> torch.Tensor:
     return torch.tensor(ROT4, dtype=torch.complex64, device=device)
+
+
+def synthesize_two(c_lo: torch.Tensor, c_hi: torch.Tensor, state=None):
+    """Combine adjacent bin streams (lower, upper) into one wide stream.
+
+    c_lo, c_hi: (..., K) complex at the 2x-oversampled channel rate (equal
+    shapes; leading axes are a batch of channel pairs). state: the
+    rotator index k0 (mod 4), a 0-d int32 tensor, or None for 0.
+    Returns (z complex64 (..., K) centered midway between the two bins,
+    the next rotator index).
+    """
+    dev = c_lo.device
+    k = c_lo.shape[-1]
+    if state is None:
+        state = torch.zeros((), dtype=torch.int32, device=dev)
+    rot = rot4(dev)[(state + torch.arange(k, device=dev)) % 4]
+    z = rot * c_lo.to(torch.complex64) \
+        - torch.conj(rot) * c_hi.to(torch.complex64)
+    return z, (state + k) % 4
+
+
+@dataclass
+class TwoChannelSynthesizer:
+    """Streaming ``synthesize_two`` carrying the rotator index across
+    chunks. channel_sample_rate is informational (the output rate equals
+    it)."""
+    channel_sample_rate: float
+    device: str = "cuda"
+
+    def init_state(self) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.int32,
+                           device=resolve_device(self.device))
+
+    def __call__(self, c_lo, c_hi, state=None):
+        return synthesize_two(c_lo, c_hi, state)
 
 
 def synthesize_bank(u: torch.Tensor, hmat: torch.Tensor) -> torch.Tensor:

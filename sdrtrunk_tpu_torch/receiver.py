@@ -2,25 +2,30 @@
 sdrtrunk_tpu/receiver.py:26-168, :171-331).
 
 Wideband IQ -> polyphase channelize (all M bins) -> per-slot bin select,
-two-bin join and residual mix -> batched decoder chain(s). Only the parts
-the live step uses are ported: ``init_state``, ``build_dynamic`` and
-``reset_slot``, for the DQPSK chain decoders (P25 Phase 1 C4FM and LSM,
-P25 Phase 2, DMR), the analog ones (NBFM, AM) and the analog-trunking ones
-(LTR, LTR-Net, Passport, MPT1327). ``MultibankReceiver`` runs several of
-them side by side, each over its own slice of the slot axis, behind one
-channelizer pass.
+two-bin join and residual mix -> batched decoder chain(s), for the DQPSK
+chain decoders (P25 Phase 1 C4FM and LSM, P25 Phase 2, DMR), the analog
+ones (NBFM, AM) and the analog-trunking ones (LTR, LTR-Net, Passport,
+MPT1327). ``WidebandReceiver.build_dynamic`` takes the slot plan as data
+on every call (the live step); ``build`` fixes a channel plan at
+construction and runs the same step over it. ``MultibankReceiver`` runs
+several decoders side by side, each over its own slice of the slot axis,
+behind one channelizer pass. The reference's ``build_safe`` and
+``build_dynamic_safe`` (complex-safe wrappers for the TPU backend) are
+not ported.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 from . import resolve_device
-from .convert import tree_map
 from .dsp.channelizer import Channelizer, channelize_core
+from .dsp.extract import plan_channels
 from .dsp.synthesizer import rot4
+from .tree import tree_map
 
 __all__ = ["MultibankReceiver", "WidebandReceiver", "dynamic_select_mix",
            "make_channel_decoder"]
@@ -138,7 +143,14 @@ class _SlotReceiver(nn.Module):
 
 
 class WidebandReceiver(_SlotReceiver):
-    """Channelize + demodulate C slots from wideband IQ.
+    """Channelize + demodulate C channels from wideband IQ.
+
+    ``plan`` (``dsp/extract.py::plan_channels`` of the offsets and
+    ``channel_bandwidths``) maps each channel to its bin, or, for a
+    channel wider than one bin, to the adjacent pair joined by the
+    two-bin synthesizer; ``num_channels`` is its count. ``decoder`` is a
+    kind (``make_channel_decoder``) or a decoder object with
+    ``init_state`` and ``batched_call``.
 
     Buffers: ``channelizer.hmat``, ``decoder.baseband_taps`` and
     ``decoder.demod.bank`` (DQPSK chains) or ``decoder.resampler_taps``
@@ -154,21 +166,46 @@ class WidebandReceiver(_SlotReceiver):
 
     def __init__(self, sample_rate: float, channel_offsets,
                  channel_bandwidth: float = 12500.0,
-                 taps_per_channel: int = 9, decoder: str = "c4fm",
-                 device="cuda"):
+                 taps_per_channel: int = 9, decoder="c4fm",
+                 channel_bandwidths=None, device="cuda"):
         device = resolve_device(device)
         super().__init__(sample_rate, channel_bandwidth, taps_per_channel,
                          device)
-        self.num_channels = len(channel_offsets)
-        self.decoder = make_channel_decoder(
-            decoder, self.channelizer.channel_sample_rate,
-            channel_bandwidth, device=device)
+        self.plan = plan_channels(self.channelizer, channel_offsets,
+                                  channel_bandwidths)
+        if isinstance(decoder, str):
+            decoder = make_channel_decoder(
+                decoder, self.channelizer.channel_sample_rate,
+                channel_bandwidth, device=device)
+        self.decoder = decoder
+
+    @property
+    def num_channels(self) -> int:
+        return self.plan.count
 
     def init_state(self) -> dict:
         c = self.num_channels
         dec = tree_map(lambda a: a.expand((c,) + a.shape).clone(),
                        self.decoder.init_state())
         return {**self._front_state(c), "dec": dec}
+
+    def build(self):
+        """step(x, state) -> (outputs, new state) over ``plan``: the
+        plan's bins (a single-bin channel takes its bin, a wide one the
+        two-bin join) and residual mixer steps fixed here, then
+        ``build_dynamic``'s step. x is (N,) complex64 or (N, 2) float32
+        I/Q pairs."""
+        plan = self.plan
+        bins = torch.as_tensor(plan.bins, device=self.device)
+        step_rad = torch.as_tensor(
+            (2.0 * np.pi * plan.offsets / plan.rate).astype(np.float32),
+            device=self.device)
+        dynamic = self.build_dynamic()
+
+        def step(x, state):
+            return dynamic(x, state, bins, step_rad)
+
+        return step
 
     def build_dynamic(self):
         """step(x, state, bins (C, 2) int, step_rad (C,) float32) ->

@@ -24,6 +24,7 @@ from sdrtrunk_tpu_torch.dsp.bit_timing import (BitTimingGeometry, bit_timing,
 from sdrtrunk_tpu_torch.dsp.fsk import LTRFSKDemodulator
 from sdrtrunk_tpu_torch.dsp.psk import (DQPSKDemodulator, DQPSKState,
                                         GardnerDQPSKDemodulator, GardnerState)
+from sdrtrunk_tpu_torch.tree import tree_leaves
 import test_torch_bit_timing_walk as walk
 
 torch.set_num_threads(1)
@@ -405,3 +406,98 @@ def test_cli_decode_on_card_matches_cpu(card, tmp_path):
     assert dqpsk_cuda.dqpsk_cuda.launches == before + 1
     assert on_card == decode("--platform", "cpu")
     assert '"messages": 2' in on_card[-1]
+
+
+def _per_channel_input(kind: str) -> np.ndarray:
+    """One channel's 25 kHz block: C4FM at 30 dB, LSM at 30 dB, or NBFM
+    carrying sub-audible LTR FSK under a voice tone."""
+    rng = np.random.default_rng(23)
+    if kind == "c4fm":
+        x = c4fm_modulate(random_dibits(900, seed=23), 25000.0)[:4000]
+    elif kind == "lsm":
+        x = lsm_modulate(random_dibits(900, seed=23), sample_rate=25000.0,
+                         symbol_rate=4800.0)[:4000]
+    else:
+        n = np.arange(12500 * 8 // 25 + 80)
+        bits = rng.integers(0, 2, 200)
+        audio = 0.35 * (2.0 * bits[np.minimum(
+            (n * 300 / 8000).astype(np.int64), 199)] - 1.0) \
+            + 0.5 * np.sin(2 * np.pi * 700.0 * n / 8000.0)
+        return nbfm_modulate(audio, 8000.0, 25000.0)[:12500].astype(
+            np.complex64)
+    return awgn(x, snr_db=30.0, rng=rng).astype(np.complex64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["c4fm", "lsm", "ltr"])
+def test_per_channel_call_on_card_matches_cpu(card, kind):
+    """``dec(x, state)`` on one channel's 1-D block, two chunks with carried
+    state: on the card one launch a chunk at C = 1 (DQPSK, Gardner W = 11,
+    bit timing W = 53), each launch's (C, T) recorded; the symbols (dibits
+    or bits, and valid) equal the same call's on the CPU (the plain loops)
+    exactly, as the batched chains' card tests hold them: the front's
+    float sums differ between the devices by far less than any decision
+    margin on this seed. The state comes back in init_state()'s layout."""
+    from sdrtrunk_tpu_torch.decoders.c4fm import C4FMDecoder
+    from sdrtrunk_tpu_torch.decoders.lsm import LSMDecoder
+
+    cls, wrapper, sym = {
+        "c4fm": (C4FMDecoder, dqpsk_cuda.dqpsk_cuda, "dibits"),
+        "lsm": (LSMDecoder, gardner_cuda.gardner_cuda, "dibits"),
+        "ltr": (LTRLiveDecoder, bit_timing_cuda.bit_timing_cuda, "bits"),
+    }[kind]
+    x = _per_channel_input(kind)
+    split = len(x) // 2 // 125 * 125
+    out = {}
+    before = wrapper.launches
+    for dev in ("cpu", card):
+        dec = cls(device=dev)
+        state = dec.init_state()
+        shapes = [tuple(a.shape) for a in tree_leaves(state)]
+        chunks = []
+        for part in (x[:split], x[split:]):
+            o, state = dec(torch.as_tensor(part, device=dev), state)
+            chunks.append({k: v.cpu() for k, v in o.items()})
+        assert [tuple(a.shape) for a in tree_leaves(state)] == shapes
+        out[str(dev)] = chunks
+    assert wrapper.launches == before + 2
+    symbols = 0
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(got["valid"], want["valid"])
+        assert torch.equal(got[sym][got["valid"]], want[sym][want["valid"]])
+        symbols += int(want["valid"].sum())
+    assert symbols > 100
+
+
+@pytest.mark.cuda
+def test_static_build_equals_build_dynamic_on_card(card):
+    """``WidebandReceiver.build()`` and ``build_dynamic()`` with the plan's
+    bins and steps give the same outputs and state bit for bit on the
+    card (the DQPSK kernel under both), over two chunks."""
+    from sdrtrunk_tpu_torch.receiver import WidebandReceiver
+
+    m, fs = 32, 32 * 12500.0
+    offsets = [-37500.0, 0.0, 12500.0 * 5 + 700.0]
+    rx = WidebandReceiver(fs, offsets, decoder="c4fm", device=card)
+    rng = np.random.default_rng(29)
+    n = m * 400
+    t = np.arange(n) / fs
+    x = sum(c4fm_modulate(random_dibits(600, seed=i), fs)[:n]
+            * np.exp(2j * np.pi * f * t) for i, f in enumerate(offsets))
+    x = torch.as_tensor(awgn(x, 30.0, rng=rng).astype(np.complex64),
+                        device=card)
+    bins = torch.as_tensor(rx.plan.bins, device=card)
+    step_rad = torch.as_tensor((2.0 * np.pi * rx.plan.offsets / rx.plan.rate)
+                               .astype(np.float32), device=card)
+    static, dynamic = rx.build(), rx.build_dynamic()
+    s_state, d_state = rx.init_state(), rx.init_state()
+    before = dqpsk_cuda.dqpsk_cuda.launches
+    for part in (x[:n // 2], x[n // 2:]):
+        s_out, s_state = static(part, s_state)
+        d_out, d_state = dynamic(part, d_state, bins, step_rad)
+        for key in s_out:
+            assert torch.equal(s_out[key], d_out[key]), key
+        for a, b in zip(tree_leaves(s_state), tree_leaves(d_state)):
+            assert torch.equal(a, b)
+    assert dqpsk_cuda.dqpsk_cuda.launches == before + 4
+    assert int(s_out["valid"].sum()) > 100

@@ -15,9 +15,14 @@ and its kernel path never falls back.
   processors' lazy imports run there), the per-slot path for the six
   kinds that have one, banks= over six kinds, and host_process=True (its
   worker process spawned and stopped), and an AuxDecoder on a block of
-  silence; neither 'jax' nor any sdrtrunk_tpu module is in sys.modules
-  after. ``python -m sdrtrunk_tpu_torch.cli --platform cpu playlist
-  list`` loads neither either (its import log, ``-X importtime``).
+  silence, then a per-channel C4FM decode saved and loaded as a
+  checkpoint, the static ``build()`` over a single-bin and a two-bin
+  channel, a CIC channel, the biquad, the CMA equalizer and a mixer;
+  neither 'jax' nor any sdrtrunk_tpu module is in sys.modules after.
+  ``python -m sdrtrunk_tpu_torch.cli --platform cpu playlist list`` and
+  ``python -m sdrtrunk_tpu_torch.parity --platform cpu`` (which must pass
+  on all three protocols) load neither either (their import logs, ``-X
+  importtime``).
 * The device rule: ``resolve_device(None)`` is ``default_device()``,
   "cuda" unless a ``use_device`` block, which restores it on exit (an
   exception included), says otherwise; an explicit device wins.
@@ -30,6 +35,7 @@ and its kernel path never falls back.
   csrc/bit_timing.cu.
 """
 import ast
+import json
 import re
 import subprocess
 import sys
@@ -159,6 +165,27 @@ drive(64 * 125, banks=[("c4fm", 2), ("dmr", 1), ("ltr", 1), ("nbfm", 1),
 drive(64 * 64, slots=4, bank_mode=True, host_process=True)
 from sdrtrunk_tpu_torch.decoders.auxdec import AuxDecoder
 assert AuxDecoder("fleetsync2", device="cpu").process(np.zeros(800)) == []
+
+import os
+import tempfile
+import torch
+from sdrtrunk_tpu_torch.decoders.c4fm import C4FMDecoder
+from sdrtrunk_tpu_torch.dsp import cic, misc, oscillator
+from sdrtrunk_tpu_torch.receiver import WidebandReceiver
+from sdrtrunk_tpu_torch.runtime.checkpoint import load_state, save_state
+dec = C4FMDecoder(device="cpu")                 # the per-channel call
+_, st = dec(torch.zeros(300, dtype=torch.complex64), dec.init_state())
+with tempfile.TemporaryDirectory() as tmp:
+    save_state(os.path.join(tmp, "s.npz"), st)
+    load_state(os.path.join(tmp, "s.npz"), dec.init_state())
+rx = WidebandReceiver(64 * 12500.0, [0.0, 18750.0], decoder="nbfm",
+                      channel_bandwidths=[12500.0, 25000.0], device="cpu")
+rx.build()(torch.zeros(64 * 50, dtype=torch.complex64), rx.init_state())
+cic.CICChannel.design(2.4e6, 3e5, 25e3, device="cpu")(
+    torch.zeros(96 * 4, dtype=torch.complex64))
+misc.biquad_apply(torch.zeros(10), *misc.biquad_design("lowpass", 1e3, 8e3))
+misc.cma_equalize(torch.zeros(10, dtype=torch.complex64))
+oscillator.mix_down(torch.zeros(10, dtype=torch.complex64), 100.0, 8000.0)
 """
 
 
@@ -194,6 +221,25 @@ def test_cli_module_loads_no_jax(tmp_path):
               for line in proc.stderr.splitlines()
               if line.startswith("import time:")]
     assert "sdrtrunk_tpu_torch.config" in loaded      # the log is read
+    bad = [m for m in loaded if m.split(".")[0] in ("jax", "sdrtrunk_tpu")]
+    assert not bad, bad
+
+
+def test_parity_main_runs_on_the_cpu_without_jax():
+    """``python -m sdrtrunk_tpu_torch.parity --platform cpu`` passes the
+    reference's rule on all three protocols (one JSON line each, exit 0)
+    and loads neither jax nor sdrtrunk_tpu (its import log)."""
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "sdrtrunk_tpu_torch.parity",
+         "--platform", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert len(rows) == 3 and all(r["events_match"] for r in rows)
+    loaded = [line.rsplit("|", 1)[-1].strip()
+              for line in proc.stderr.splitlines()
+              if line.startswith("import time:")]
+    assert "sdrtrunk_tpu_torch.decoders.c4fm" in loaded      # the log is read
     bad = [m for m in loaded if m.split(".")[0] in ("jax", "sdrtrunk_tpu")]
     assert not bad, bad
 

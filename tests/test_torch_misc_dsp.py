@@ -1,0 +1,338 @@
+"""The rest of the port's DSP against the JAX package on the CPU:
+dsp/oscillator.py, dsp/cic.py, dsp/misc.py, the two-channel synthesizer
+(dsp/synthesizer.py) and the channelizer's ``from_taps`` / ``channelize``.
+
+Each case of tests/test_misc_dsp.py runs on the port (the same input,
+made from the same seed, and the same property asserted) and the port's
+output is held against the JAX function's on that input.
+
+Tolerances, all float32: the oscillator, mixers and Goertzel probe
+within 1e-6 (cos and sin of the same float32 angles from two libraries,
+an ulp apart); the CIC means and the Hilbert filter within 1e-6 (sums in
+another order); the IQ correction's running mean within 1e-6 (the port
+solves the single pole by blocked matmuls, the reference by its own
+blocked form); the biquad within 1e-5 relative (a feedback loop: XLA:CPU
+contracts ``b * x + z`` into fused multiply-adds, the port's loop rounds
+the product and the sum apart, and the loop carries the difference);
+the CMA equalizer within 1e-4 over 1000 samples for the same reason
+(its taps adapt on every sample); the synthesizer, the channelizer and
+the CIC channel's cleanup FIR within 1e-5.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy import signal as sps
+
+from sdrtrunk_tpu.dsp import cic as jcic
+from sdrtrunk_tpu.dsp import misc as jmisc
+from sdrtrunk_tpu.dsp import oscillator as josc
+from sdrtrunk_tpu.dsp import synthesizer as jsyn
+from sdrtrunk_tpu.dsp.channelizer import Channelizer as JChannelizer
+from sdrtrunk_tpu.dsp.channelizer import channelize as jchannelize
+from sdrtrunk_tpu_torch.dsp import design
+from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer, channelize
+from sdrtrunk_tpu_torch.dsp.cic import CICChannel, cic_decimate, prime_factors
+from sdrtrunk_tpu_torch.dsp.misc import (biquad_apply, biquad_design,
+                                         biquad_init, cma_equalize, cma_init,
+                                         goertzel_magnitude, goertzel_power,
+                                         hilbert_taps, iq_correction,
+                                         real_to_complex)
+from sdrtrunk_tpu_torch.dsp.oscillator import (fs4_down_convert, mix_down,
+                                               mix_up, oscillate)
+from sdrtrunk_tpu_torch.dsp.synthesizer import (TwoChannelSynthesizer,
+                                                synthesize_two)
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _close(got, want, tol, rtol=0.0):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol,
+                               atol=tol)
+
+
+# --- oscillator ---------------------------------------------------------
+
+@pytest.mark.parametrize("phase", [0.0, 1.25])
+def test_oscillator_and_mixers_match_reference(phase):
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal(3000) + 1j * rng.standard_normal(3000)
+         ).astype(np.complex64)
+    s, nxt = oscillate(1234.5, 48000.0, 3000, phase, device="cpu")
+    js, jnxt = josc.oscillate(1234.5, 48000.0, 3000, phase)
+    assert s.dtype == torch.complex64
+    _close(s, js, 1e-6)
+    _close(nxt, jnxt, 1e-6)
+    for fn, jfn in ((mix_down, josc.mix_down), (mix_up, josc.mix_up)):
+        y, p = fn(_t(x), -2500.0, 48000.0, torch.tensor(phase))
+        jy, jp = jfn(jnp.asarray(x), -2500.0, 48000.0, jnp.float32(phase))
+        _close(y, jy, 1e-5)
+        _close(p, jp, 1e-6)
+    _close(fs4_down_convert(_t(x[:1001])), josc.fs4_down_convert(
+        jnp.asarray(x[:1001])), 0.0)
+
+
+def test_mix_down_streams_phase_continuously():
+    x = torch.ones(2000, dtype=torch.complex64)
+    full, _ = mix_down(x, 300.0, 8000.0)
+    a, p = mix_down(x[:700], 300.0, 8000.0)
+    b, _ = mix_down(x[700:], 300.0, 8000.0, p)
+    _close(torch.cat([a, b]), full.numpy(), 2e-4)
+
+
+# --- Goertzel, biquad, CMA, IQ correction, Hilbert -----------------------
+
+def test_goertzel_detects_tone():
+    fs = 8000.0
+    t = np.arange(1024) / fs
+    x = (0.8 * np.sin(2 * np.pi * 1000.0 * t)).astype(np.float32)
+    assert float(goertzel_magnitude(_t(x), 1000.0, fs)) == pytest.approx(
+        0.8, abs=0.02)
+    assert float(goertzel_power(_t(x), 2500.0, fs)) < 1e-4
+    for f in (1000.0, 2500.0):
+        _close(goertzel_power(_t(x), f, fs),
+               jmisc.goertzel_power(jnp.asarray(x), f, fs), 1e-6)
+    # leading axes reduce the last one
+    xx = np.stack([x, 0.5 * x])
+    _close(goertzel_magnitude(_t(xx), 1000.0, fs),
+           jmisc.goertzel_magnitude(jnp.asarray(xx), 1000.0, fs), 1e-6)
+
+
+@pytest.mark.parametrize("kind", ["lowpass", "highpass", "bandpass", "notch"])
+def test_biquad_design_equals_reference(kind):
+    for got, want in zip(biquad_design(kind, 1000.0, 8000.0, 2.0),
+                         jmisc.biquad_design(kind, 1000.0, 8000.0, 2.0)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_biquad_matches_scipy_lfilter_and_reference():
+    b, a = biquad_design("lowpass", 1000.0, 8000.0)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(500).astype(np.float32)
+    y, st = biquad_apply(_t(x), b, a)
+    np.testing.assert_allclose(y.numpy(), sps.lfilter(b, a, x), atol=1e-4)
+    jy, jst = jmisc.biquad_apply(jnp.asarray(x), b, a)
+    _close(y, jy, 1e-5, rtol=1e-5)
+    _close(st, jst, 1e-5, rtol=1e-5)
+    assert torch.equal(biquad_init(device="cpu"), torch.zeros(2))
+
+
+def test_biquad_streaming_equals_oneshot_and_batches():
+    b, a = biquad_design("bandpass", 1200.0, 8000.0, q=5.0)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(400).astype(np.float32)
+    full, _ = biquad_apply(_t(x), b, a)
+    st, parts = None, []
+    for chunk in np.split(x, 4):
+        y, st = biquad_apply(_t(chunk), b, a, st)
+        parts.append(y)
+    # the same operations in the same order: equal, not only close
+    assert torch.equal(torch.cat(parts), full)
+    jfull, _ = jmisc.biquad_apply(jnp.asarray(x), b, a)
+    _close(full, jfull, 1e-5, rtol=1e-5)
+    # two channels at once, each as it runs alone
+    xx = np.stack([x, x[::-1].copy()])
+    yy, sst = biquad_apply(_t(xx), b, a)
+    assert yy.shape == (2, 400) and sst.shape == (2, 2)
+    assert torch.equal(yy[0], full)
+    assert torch.equal(yy[1], biquad_apply(_t(xx[1]), b, a)[0])
+
+
+def test_cma_equalizer_restores_modulus_like_reference():
+    rng = np.random.default_rng(5)
+    syms = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, 4000)))
+    chan = np.array([1.0, 0.25 - 0.1j])
+    x = np.convolve(syms, chan)[: len(syms)].astype(np.complex64)
+    y, taps = cma_equalize(_t(x), mu=0.003)
+    tail = np.abs(y.numpy()[-500:])
+    head = np.abs(x[:500])
+    assert tail.std() < head.std() * 0.5
+    assert tail.mean() == pytest.approx(1.0, abs=0.05)
+    jy, jtaps = jmisc.cma_equalize(jnp.asarray(x[:1000]), mu=0.003)
+    y1, taps1 = cma_equalize(_t(x[:1000]), cma_init(device="cpu"), mu=0.003)
+    _close(y1, jy, 1e-4)
+    _close(taps1, jtaps, 1e-4)
+    _close(cma_init(device="cpu"), jmisc.cma_init(), 0.0)
+
+
+def test_iq_correction_removes_dc_like_reference():
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal(20000) + 1j * rng.standard_normal(20000)
+         + (0.3 - 0.2j)).astype(np.complex64)
+    y, mean = iq_correction(_t(x), ratio=0.005)
+    assert abs(y.numpy()[-2000:].mean()) < 0.02
+    assert complex(mean) == pytest.approx(0.3 - 0.2j, abs=0.15)
+    jy, jmean = jmisc.iq_correction(jnp.asarray(x), ratio=0.005)
+    _close(y, jy, 1e-5)
+    _close(mean, jmean, 1e-6)
+    # streaming: the second block continues from the first's mean
+    y1, m1 = iq_correction(_t(x[:9000]), 0.005)
+    y2, _ = iq_correction(_t(x[9000:]), 0.005, m1)
+    _close(torch.cat([y1, y2]), y.numpy(), 1e-5)
+
+
+def test_hilbert_produces_analytic_signal_like_reference():
+    fs = 100e3
+    hb = design.half_band(22)  # 23 taps: (23+1)%4==0
+    jc, jg, jq = jmisc.hilbert_taps(hb)
+    c, g, q = hilbert_taps(hb)
+    assert (c, g) == (jc, jg)
+    np.testing.assert_array_equal(q, jq)
+    t = np.arange(8192) / fs
+    f = 20e3
+    x = np.cos(2 * np.pi * f * t).astype(np.float32)
+    y, st = real_to_complex(_t(x), hb)
+    jy, jst = jmisc.real_to_complex(jnp.asarray(x), hb)
+    _close(y, jy, 1e-6)
+    _close(st, jst, 0.0)
+    y = y.numpy()[200:-200]
+    spec = np.fft.fftshift(np.fft.fft(y * np.hanning(len(y))))
+    freqs = np.fft.fftshift(np.fft.fftfreq(len(y), 1 / fs))
+    pos = np.abs(spec[np.argmin(np.abs(freqs - f))])
+    neg = np.abs(spec[np.argmin(np.abs(freqs + f))])
+    assert pos / max(neg, 1e-9) > 100.0  # negative image suppressed > 40 dB
+    # streaming equals one shot
+    a, s1 = real_to_complex(_t(x[:3000]), hb)
+    b, _ = real_to_complex(_t(x[3000:]), hb, s1)
+    full, _ = real_to_complex(_t(x), hb)
+    _close(torch.cat([a, b]), full.numpy(), 1e-6)
+
+
+# --- CIC -------------------------------------------------------------
+
+def test_prime_factors():
+    for n in (96, 1, 53, 2801 * 53 * 59, 360):
+        assert prime_factors(n) == jcic.prime_factors(n)
+    assert prime_factors(96) == [3, 2, 2, 2, 2, 2]
+    with pytest.raises(ValueError):
+        prime_factors(0)
+
+
+def test_cic_decimate_matches_reference():
+    x = torch.ones(960, dtype=torch.complex64)
+    y = cic_decimate(x, 96)
+    assert y.shape == (10,)
+    _close(y, np.ones(10), 1e-6)
+    rng = np.random.default_rng(8)
+    z = (rng.standard_normal((3, 960)) + 1j * rng.standard_normal((3, 960))
+         ).astype(np.complex64)
+    _close(cic_decimate(_t(z), 96), jcic.cic_decimate(jnp.asarray(z), 96),
+           1e-6)
+    with pytest.raises(ValueError):
+        cic_decimate(x[:100], 96)
+
+
+@pytest.mark.parametrize("offset_hz, tone_hz", [(300e3, 2e3), (300e3, 60e3)])
+def test_cic_channel_matches_reference(offset_hz, tone_hz):
+    fs = 2_400_000.0
+    ddc = CICChannel.design(fs, frequency_offset=offset_hz, channel_rate=25e3,
+                            device="cpu")
+    jddc = jcic.CICChannel.design(fs, frequency_offset=offset_hz,
+                                  channel_rate=25e3)
+    assert ddc.decimation == jddc.decimation == 96
+    np.testing.assert_array_equal(ddc.cleanup_taps, jddc.cleanup_taps)
+    n = 96 * 800
+    t = np.arange(n) / fs
+    x = np.exp(2j * np.pi * (offset_hz + tone_hz) * t).astype(np.complex64)
+    y, (phase, hist) = ddc(_t(x))
+    jy, (jphase, jhist) = jddc(jnp.asarray(x))
+    _close(y, jy, 1e-5)
+    _close(phase, jphase, 1e-6)
+    _close(hist, jhist, 1e-5)
+    y = y.numpy()[200:]
+    if tone_hz < 10e3:          # the tone in the channel: found and kept
+        ph = np.angle(y[1:] * np.conj(y[:-1]))
+        assert ph.mean() * ddc.output_rate / (2 * np.pi) == pytest.approx(
+            tone_hz, abs=20.0)
+        assert np.abs(y).mean() == pytest.approx(1.0, abs=0.1)
+    else:                       # a distant tone: rejected
+        assert np.abs(y).mean() < 0.05
+    # two blocks with the carried phase and history, as the reference
+    a, st = ddc(_t(x[:96 * 300]))
+    b, _ = ddc(_t(x[96 * 300:]), st)
+    ja, jst = jddc(jnp.asarray(x[:96 * 300]))
+    jb, _ = jddc(jnp.asarray(x[96 * 300:]), jst)
+    _close(torch.cat([a, b]), np.concatenate([ja, jb]), 1e-5)
+
+
+# --- two-channel synthesizer and the channelizer's helpers ----------------
+
+def _two_bin_setup(m=8, m0=2):
+    bw = 12500.0
+    fs = m * bw
+    return (Channelizer.design(fs, bw, 9, channels=m, device="cpu"),
+            JChannelizer.design(fs, bw, 9, channels=m), bw, fs, m0)
+
+
+def test_two_channel_synthesizer_joint_band_like_reference():
+    ch, jch, bw, fs, m0 = _two_bin_setup()
+    syn = TwoChannelSynthesizer(channel_sample_rate=2 * bw, device="cpu")
+    jsyn_ = jsyn.TwoChannelSynthesizer(channel_sample_rate=2 * bw)
+    n = ch.channels * 600
+    t = np.arange(n) / fs
+    for nu in (-0.3, 0.0, 0.5, 1.0, 1.3):
+        x = np.exp(2j * np.pi * (m0 + nu) * bw * t).astype(np.complex64)
+        y, _ = ch(_t(x))
+        z, st = syn(y[:, m0], y[:, m0 + 1], syn.init_state())
+        jy, _ = jch(jnp.asarray(x))
+        jz, jst = jsyn_(jy[:, m0], jy[:, m0 + 1], jsyn_.init_state())
+        _close(z, jz, 1e-5)
+        assert int(st) == int(jst)
+        seg = z.numpy()[300:-300]
+        ph = np.angle(seg[1:] * np.conj(seg[:-1]))
+        assert ph.mean() * 2 * bw / (2 * np.pi) == pytest.approx(
+            (nu - 0.5) * bw, abs=10.0)
+        assert np.abs(seg).mean() == pytest.approx(1.0, abs=0.025)
+        assert np.abs(seg).std() < 0.01
+    # non-adjacent bin rejection
+    x = np.exp(2j * np.pi * (m0 + 2.0) * bw * t).astype(np.complex64)
+    y, _ = ch(_t(x))
+    z, _ = synthesize_two(y[:, m0], y[:, m0 + 1])
+    assert np.abs(z.numpy()[300:-300]).mean() < 1e-3
+
+
+def test_two_channel_synthesizer_streams_and_wraps():
+    ch, _, bw, fs, m0 = _two_bin_setup()
+    n = ch.channels * 400
+    t = np.arange(n) / fs
+    x = np.exp(2j * np.pi * (m0 + 0.4) * bw * t).astype(np.complex64)
+    y, _ = ch(_t(x))
+    c1, c2 = y[:, m0], y[:, m0 + 1]
+    full, _ = synthesize_two(c1, c2)
+    st, parts = None, []
+    quarter = c1.shape[0] // 4
+    for i in range(4):
+        z, st = synthesize_two(c1[i * quarter:(i + 1) * quarter],
+                               c2[i * quarter:(i + 1) * quarter], st)
+        parts.append(z)
+    assert torch.equal(torch.cat(parts), full)
+    # a batch of pairs: leading axes broadcast
+    zz, _ = synthesize_two(torch.stack([c1, c2]), torch.stack([c2, c1]))
+    assert torch.equal(zz[0], full)
+    # the upper bin wraps to bin 0
+    m0 = ch.channels - 1
+    x = np.exp(2j * np.pi * (m0 + 0.5) * bw * np.arange(ch.channels * 600)
+               / fs).astype(np.complex64)
+    y, _ = ch(_t(x))
+    z, _ = synthesize_two(y[:, m0], y[:, 0])
+    assert np.abs(z.numpy()[300:-300]).mean() == pytest.approx(1.0, abs=0.02)
+
+
+def test_channelizer_from_taps_and_channelize_match_reference():
+    m = 16
+    proto = design.sinc_m2_channelizer(12500.0, m, 9)
+    ch = Channelizer.from_taps(proto, m * 12500.0, m, device="cpu")
+    jch = JChannelizer.from_taps(proto, m * 12500.0, m)
+    np.testing.assert_array_equal(ch.hmat.numpy(), jch.hmat)
+    assert (ch.channels, ch.taps_per_channel) == (jch.channels,
+                                                  jch.taps_per_channel)
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal(m * 64) + 1j * rng.standard_normal(m * 64)
+         ).astype(np.complex64)
+    y = channelize(_t(x), proto, m, m * 12500.0)
+    _close(y, jchannelize(jnp.asarray(x), proto, m, m * 12500.0), 1e-5)
+    assert y.shape == (128, m)
