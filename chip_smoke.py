@@ -11,9 +11,10 @@ bit-timing and symbol-loop kernels, ``c4fm``, ``p25p2``, ``lsm``, ``dmr``,
 ``nbfm``, ``am``, ``ltr``, ``mpt1327``, ``slots``, ``slots_p25p2``,
 ``multibank``, ``worker``: the live loops; ``cli``, ``monitor``,
 ``monitor_mixed``: the application; ``parity``, ``receiver``: the
-per-channel path and the static receiver) run those alone, after the
-environment and the build, in this order; an unknown name
-raises. Each phase raises on failure (the exit code is then not 0):
+per-channel path and the static receiver; ``parallel``: the sharded
+channelizer pipeline) run those alone, after the environment and the
+build, in this order; an unknown name raises. Each phase raises on
+failure (the exit code is then not 0):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the three kernels, sdrtrunk_tpu_torch/csrc/dqpsk.cu, gardner.cu
@@ -31,9 +32,11 @@ raises. Each phase raises on failure (the exit code is then not 0):
    float64 rate), with the share of (sample, warp) pairs on which a warp
    of 32 channels has a symbol due: the DQPSK kernel at the C4FM bank's
    1023 channels x 10240 samples, at timing gain 0.3 (C4FM) and 0.4
-   (DMR), the Gardner kernel at W = 16 (P25 Phase 2, 50 kHz, 1023 x
-   20480) and W = 11 (LSM, 25 kHz, 1023 x 10240); and the bit-timing
-   kernel, reached through the demodulators' public call, against its
+   (DMR) and at W = 16 (P25 Phase 2's decision-directed timing, 50 kHz,
+   6000 Bd, gain 0.3, 1023 x 20480), the Gardner kernel at W = 16 (P25
+   Phase 2, 50 kHz, 1023 x 20480) and W = 11 (LSM, 25 kHz, 1023 x 10240);
+   and the bit-timing kernel, reached through the demodulators' public
+   call, against its
    plain loop (valid, bits, window, sampling point) at 1023 x 4000 with
    the LTR geometry on FSK audio and at 1023 x 3600 with the AFSK geometry
    on correlator output, and on its edge cases: 37 channels, T = 997 and
@@ -135,9 +138,11 @@ raises. Each phase raises on failure (the exit code is then not 0):
    AM, LTR and MPT1327 per-channel calls on the card against the CPU's
    (bits and valid exact, audio within 1e-4). A checkpoint round trip:
    a C4FM decode in two chunks, saved after the first and resumed from
-   the file, bit for bit the same as without the save. Launches: DQPSK 6
-   at gain 0.3 and 2 at 0.4, Gardner 2 at W = 11, bit timing 1 at W = 53
-   and 1 at W = 12;
+   the file, bit for bit the same as without the save. tests/test_p25p2.py's
+   modem scene through P25P2Config(timing="decision"): the fragment
+   framed with its MAC octets and voice frames. Launches: DQPSK 6 at
+   gain 0.3 and 2 at 0.4 (W = 10) and 1 at W = 16, Gardner 2 at W = 11,
+   bit timing 1 at W = 53 and 1 at W = 12;
 21. ``receiver``: ``WidebandReceiver.build()`` (the static plan) at full
    width on phase 5's C4FM scene, 1023 channels, 1 + 4 chunks of 1024 x
    5120 as device-resident float32 pairs: its MS/s and realtime factor
@@ -148,9 +153,20 @@ raises. Each phase raises on failure (the exit code is then not 0):
    two bins through ``build()`` with ``channel_bandwidths`` (the tone
    within 20 Hz); the oscillator, CIC, Goertzel, biquad, CMA, IQ
    correction, Hilbert and two-bin synthesizer on the card against the
-   CPU within tests/test_torch_misc_dsp.py's tolerances.
+   CPU within tests/test_torch_misc_dsp.py's tolerances;
+22. ``parallel``: the sharded channelizer pipeline over torch.distributed
+   at world size 1 over NCCL (one card gives one rank): ``python -m
+   sdrtrunk_tpu_torch.parallel.multiprocess --device cuda`` as a process
+   must report ok and streaming_ok; then ``ShardedChannelizerPipeline``
+   in this process on the receiver phase's plan (1023 C4FM channels,
+   12.8 MS/s, M = 1024), 1 + 4 chunks of 1024 x 5120 complex64 on the
+   card, ``build()`` and ``build_streaming()`` held against the
+   single-device Channelizer + extract_channels (bit for bit, else within
+   5e-5), ms a chunk and MS/s beside the single-device path's ms and the
+   ``all_to_all_single``'s; no kernel launches. The group is destroyed
+   before the phase returns.
 
-During every live phase (5-21) a spy on the calls that reach the kernel
+During every live phase (5-22) a spy on the calls that reach the kernel
 wrappers records the (kernel, C, T) of each launch on the card; after the
 phase, each shape it recorded is held bit for bit against its plain loop
 as phase 4 holds the 1023-channel ones, unless this run held that shape
@@ -158,7 +174,8 @@ already (phases 5, 6, 8, 11, 12, 16 and 18 give phase 4's shapes).
 
 Phases 17-20 write their captures, playlists, what the CLI writes, the
 golden set and the checkpoint under the git-ignored
-``.scratch/chip_smoke/`` and remove them after.
+``.scratch/chip_smoke/`` and remove them after; phase 22 its process
+groups' rendezvous files under ``.scratch/``.
 
 Every live loop prints its realtime factor, wall and host ms a chunk (the
 host layer: the bank framer's ``frame_chunk`` for the digital kinds,
@@ -173,9 +190,10 @@ sdrtrunk_tpu_torch.protocol).
 
 Each live loop resets every kernel's launch counts just before it runs and
 reads them just after. A wrapper counts a launch in all and under its
-loop's timing gain (DQPSK) or window length (Gardner, bit timing), so each
-entry of the kernels line (C4FM and DMR DQPSK, P25P2 and LSM Gardner, LTR
-and AFSK bit timing) has its own count from the launch itself. At the end
+loop's timing gain and window length (DQPSK) or window length (Gardner,
+bit timing), so each entry of the kernels line (C4FM, DMR and P25P2
+decision-timed DQPSK, P25P2 and LSM Gardner, LTR and AFSK bit timing) has
+its own count from the launch itself. At the end
 the script prints its own run time, then the kernels' JSON record on the
 line before the last (the kernels a run checked; an entry's ``launches``
 is the sum over the live loops that ran it, ``launches_by_path`` each
@@ -286,11 +304,14 @@ def _launch_counters():
 
 # the kernels line's entries, in its order: (the wrapper whose launches
 # they are, the key its ``launches_by`` counts them under: the DQPSK timing
-# gain, the Gardner and bit-timing window lengths)
-_ENTRY_KEYS = {"dqpsk": ("dqpsk", 0.3), "gardner_p25p2": ("gardner", 16),
-               "gardner_lsm": ("gardner", 11), "dqpsk_dmr": ("dqpsk", 0.4),
+# gain and window length, the Gardner and bit-timing window lengths)
+_ENTRY_KEYS = {"dqpsk": ("dqpsk", (0.3, 10)),
+               "gardner_p25p2": ("gardner", 16),
+               "gardner_lsm": ("gardner", 11),
+               "dqpsk_dmr": ("dqpsk", (0.4, 10)),
                "bit_timing_ltr": ("bit_timing", 53),
-               "bit_timing_afsk": ("bit_timing", 12)}
+               "bit_timing_afsk": ("bit_timing", 12),
+               "dqpsk_p25p2": ("dqpsk", (0.3, 16))}
 
 
 def _reset_launches() -> None:
@@ -367,7 +388,10 @@ def build_kernels() -> dict:
 KERNELS = (("dqpsk", "dqpsk", 25000.0, 4800.0, 0.3, KERNEL_T),
            ("gardner_p25p2", "gardner", 50000.0, 6000.0, 0.1, 2 * KERNEL_T),
            ("gardner_lsm", "gardner", 25000.0, 4800.0, 0.3, KERNEL_T),
-           ("dqpsk_dmr", "dqpsk", 25000.0, 4800.0, 0.4, KERNEL_T))
+           ("dqpsk_dmr", "dqpsk", 25000.0, 4800.0, 0.4, KERNEL_T),
+           # P25 Phase 2 on the decision-directed loop (W = 16), at the
+           # P25P2 bank's 50 kHz channel width and tests/test_p25p2.py's gain
+           ("dqpsk_p25p2", "dqpsk", 50000.0, 6000.0, 0.3, 2 * KERNEL_T))
 _SOURCES = {"dqpsk": ("sdrtrunk_tpu_torch/csrc/dqpsk.cu",
                       "sdrtrunk_tpu/dsp/pallas_psk.py:48"),
             "gardner": ("sdrtrunk_tpu_torch/csrc/gardner.cu",
@@ -2686,7 +2710,7 @@ def _kernel_calls():
         undo.append(lambda: setattr(owner, name, fn))
 
     patch(psk.DQPSKDemodulator, "_kernel",
-          lambda a: ("dqpsk", a[0].sample_counter_gain))
+          lambda a: ("dqpsk", (a[0].sample_counter_gain, a[0].window_len)))
     patch(psk.GardnerDQPSKDemodulator, "_kernel",
           lambda a: ("gardner", a[0].window_len))
     for mod in (fsk, afsk):
@@ -3156,11 +3180,12 @@ def run_monitor_mixed(card: str) -> dict:
 
 GOLDEN_DIR = ROOT / "tests" / "golden"
 # (kernels-line entry -> launches) of the parity phase: the three golden
-# decodes, the four reports, the LTR and MPT1327 per-channel calls and the
+# decodes, the four reports, the LTR and MPT1327 per-channel calls, the
 # checkpoint round trip's three C4FM chunks (the first, the resumed second
-# and the second without the save)
+# and the second without the save) and the decision-timed P25P2 decode
 PARITY_LAUNCHES = {"dqpsk": 6, "dqpsk_dmr": 2, "gardner_lsm": 2,
-                   "bit_timing_ltr": 1, "bit_timing_afsk": 1}
+                   "bit_timing_ltr": 1, "bit_timing_afsk": 1,
+                   "dqpsk_p25p2": 1}
 PER_CHANNEL_K = 12500            # 0.5 s at 25 kHz: Ka = 4000, T = 3600 AFSK
 AUDIO_TOL = 1e-4                 # tests/test_torch_per_channel.py's
 
@@ -3324,11 +3349,57 @@ def _checkpoint(card: str) -> dict:
     return record
 
 
+def _p25p2_decision(card: str) -> dict:
+    """tests/test_p25p2.py's modem scene (a fragment of FACCH and VOICE_4
+    timeslots, 6000-baud constant-envelope modem at 50 kHz) through
+    P25P2Decoder(P25P2Config(timing="decision", sample_counter_gain=0.3))
+    on the card, one channel: one DQPSK launch at W = 16, C = 1; the
+    fragment framed with its MAC octets and voice frames."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.decoders.p25p2 import P25P2Config, P25P2Decoder
+    from sdrtrunk_tpu_torch.protocol.p25p2 import (P25P2FragmentAssembler,
+                                                   P25P2Framer)
+    from sdrtrunk_tpu_torch.protocol.p25p2.timeslot import (facch_encode,
+                                                            voice4_encode)
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    rng = np.random.default_rng(3)
+    asm = P25P2FragmentAssembler(*P25P2_KEY)
+    info = rng.integers(0, 2, 156).astype(np.uint8)
+    frames = rng.integers(0, 2, (4, 72)).astype(np.uint8)
+    frag_bits = asm.assemble(0, [facch_encode(info), voice4_encode(frames),
+                                 facch_encode(info), voice4_encode(frames)])
+    tx = np.concatenate([rng.integers(0, 4, 60).astype(np.uint8),
+                         P25P2FragmentAssembler.to_dibits([frag_bits]),
+                         np.zeros(40, np.uint8)])
+    iq = c4fm_modulate(tx, 50000.0, symbol_rate=6000.0).astype(np.complex64)
+    dec = P25P2Decoder(P25P2Config(timing="decision",
+                                   sample_counter_gain=0.3), device="cuda")
+    out, _ = dec(torch.as_tensor(iq, device="cuda"), dec.init_state())
+    valid = out["valid"].cpu().numpy()
+    frags = P25P2Framer(*P25P2_KEY).process(out["dibits"].cpu().numpy()[valid])
+    record = {"samples": len(iq), "window": dec.demod.window_len,
+              "symbols": int(valid.sum()), "fragments": len(frags),
+              "mac_octets_equal": bool(frags) and bool(np.array_equal(
+                  frags[0].timeslots[0].mac_octets, info)),
+              "voice_frames_equal": bool(frags) and bool(np.array_equal(
+                  frags[0].timeslots[1].voice_frames, frames))}
+    print(f"[parity] {card}: P25P2 decision timing on the card "
+          + json.dumps(record), flush=True)
+    if not (record["fragments"] == 1 and record["mac_octets_equal"]
+            and record["voice_frames_equal"] and record["window"] == 16):
+        raise AssertionError(f"parity: P25P2 decision timing: {record}")
+    return record
+
+
 def run_parity(card: str) -> dict:
     """The golden captures, the four parity reports, the per-channel
-    analog and trunking calls and a checkpoint round trip, all on the
-    card; every kernel's launch count set to 0 just before and read just
-    after, and held to PARITY_LAUNCHES."""
+    analog and trunking calls, a checkpoint round trip and a
+    decision-timed P25P2 decode, all on the card; every kernel's launch
+    count set to 0 just before and read just after, and held to
+    PARITY_LAUNCHES."""
     import shutil
 
     import torch
@@ -3339,7 +3410,8 @@ def run_parity(card: str) -> dict:
         result = {"card": card, "golden": _golden(card),
                   "reports": _reports(card),
                   "per_channel": _per_channel(card),
-                  "checkpoint": _checkpoint(card)}
+                  "checkpoint": _checkpoint(card),
+                  "p25p2_decision": _p25p2_decision(card)}
     finally:
         shutil.rmtree(APP_DIR, ignore_errors=True)
     torch.cuda.synchronize()
@@ -3555,18 +3627,146 @@ def run_receiver(card: str) -> dict:
     return {**result, "twobin": _twobin(card), "dsp": _dsp(card)}
 
 
+# --- parallel: the sharded channelizer pipeline over torch.distributed ---
+
+PARALLEL_WARMUP, PARALLEL_STREAMED = 1, 4
+PARALLEL_TOL = 5e-5              # tests/test_parallel.py's streaming bound
+PARALLEL_REPS = 5
+HARNESS_TIMEOUT_S = 300
+
+
+def _harness(card: str) -> dict:
+    """``python -m sdrtrunk_tpu_torch.parallel.multiprocess`` at world size
+    1 over NCCL on the card, as a process of its own (it owns the default
+    group while it runs): its JSON line must say ok and streaming_ok."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT / ".scratch") as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "sdrtrunk_tpu_torch.parallel.multiprocess",
+             "--device", "cuda", "--world-size", "1", "--rank", "0",
+             "--init-method", f"file://{tmp}/pg"],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+            capture_output=True, text=True, timeout=HARNESS_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"parallel: the harness exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    row = json.loads(lines[-1])
+    print(f"[parallel] {card}: harness " + json.dumps(row), flush=True)
+    if not (row["ok"] and row["streaming_ok"] and row["backend"] == "nccl"):
+        raise AssertionError(f"parallel: the harness failed: {row}")
+    return row
+
+
+def _held(name: str, got, want) -> float:
+    """Max |got - want|, 0.0 when bit for bit; raises past PARALLEL_TOL."""
+    import torch
+
+    if torch.equal(got, want):
+        return 0.0
+    err = float((got - want).abs().max())
+    print(f"[parallel] {name}: not bit for bit, max |diff| {err}",
+          flush=True)
+    if not err <= PARALLEL_TOL:
+        raise AssertionError(f"parallel: {name} differs from the "
+                             f"single-device path by {err}")
+    return err
+
+
+def run_parallel(card: str) -> dict:
+    """The sharded pipeline at world size 1 over NCCL: the harness, then
+    ShardedChannelizerPipeline in this process at the receiver phase's
+    plan (1023 C4FM channels, 12.8 MS/s, M = 1024) on 1 + 4 chunks of 1024
+    x 5120 complex64 already on the card, build() on the first and
+    build_streaming() over the four, each held against the single-device
+    Channelizer + extract_channels; ms a chunk and MS/s by CUDA events
+    beside the single-device path's ms and the all_to_all_single's. One
+    card gives one rank (NCCL runs one rank a GPU), so the halo ring is
+    the degenerate one; the multi-rank path is tested on the CPU over
+    gloo. No hand-written kernel runs on this path."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from sdrtrunk_tpu_torch.dsp.extract import extract_channels, plan_channels
+    from sdrtrunk_tpu_torch.parallel.pipeline import (
+        ShardedChannelizerPipeline)
+
+    (ROOT / ".scratch").mkdir(exist_ok=True)
+    harness = _harness(card)
+    ch, offsets, chunks, _ = _c4fm_scene()
+    xs = [(torch.as_tensor(c, device="cuda").float() / 127.0)
+          .view(torch.complex64).reshape(-1)
+          for c in chunks[:PARALLEL_WARMUP + PARALLEL_STREAMED]]
+    plan = plan_channels(ch, offsets)
+    _reset_launches()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(dir=ROOT / ".scratch") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                world_size=1, rank=0)
+        try:
+            pipe = ShardedChannelizerPipeline(ch, plan)
+            one_shot = pipe.build()
+            y, _ = ch(xs[0])
+            want, _ = extract_channels(y, plan)
+            got = one_shot(xs[0])
+            errs = {"build": _held("build()", got, want)}
+            stream, carry = pipe.build_streaming(), pipe.init_carry()
+            state, phase = ch.init_state(), None
+            for j, x in enumerate(xs[PARALLEL_WARMUP:]):
+                got, carry = stream(x, carry)
+                y, state = ch(x, state)
+                want, phase = extract_channels(y, plan, phase)
+                errs[f"streaming chunk {j}"] = _held(
+                    f"build_streaming() chunk {j}", got, want)
+            x = xs[0]
+            pipe_ms = _cuda_ms(lambda: one_shot(x), PARALLEL_REPS)
+            single_ms = _cuda_ms(lambda: extract_channels(ch(x)[0], plan),
+                                 PARALLEL_REPS)
+            send = torch.view_as_real(got.reshape(1, *got.shape))
+            recv = torch.empty_like(send)
+            a2a_ms = _cuda_ms(lambda: dist.all_to_all_single(recv, send),
+                              PARALLEL_REPS)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"parallel: a kernel launched on a path that "
+                             f"has none: {launches}")
+    n = x.shape[0]
+    result = {"card": card, "world_size": 1, "backend": backend,
+              "channels": plan.count, "chunk_samples": n,
+              "streamed_chunks": PARALLEL_STREAMED, "max_abs_err": errs,
+              "bit_for_bit": not any(errs.values()),
+              "ms_per_chunk": pipe_ms, "msps": n / pipe_ms / 1e3,
+              "realtime_factor": n / pipe_ms / 1e3 / (FS / 1e6),
+              "single_device_ms": single_ms,
+              "all_to_all_single_ms": a2a_ms,
+              "all_to_all_bytes": send.numel() * send.element_size(),
+              "harness": harness, "kernel_launches": launches}
+    print(f"[parallel] {card}: " + json.dumps(
+        {k: v for k, v in result.items() if k != "harness"}), flush=True)
+    return result
+
+
 # phases a run can name, in the order a run takes them; the environment
 # and the build always run
 PHASES = ("edges", "bits", "psk", "c4fm", "p25p2", "lsm", "dmr", "nbfm", "am",
           "ltr", "mpt1327", "slots", "slots_p25p2", "multibank", "worker",
-          "cli", "monitor", "monitor_mixed", "parity", "receiver")
+          "cli", "monitor", "monitor_mixed", "parity", "receiver",
+          "parallel")
 _LIVE = {"c4fm": run_c4fm, "p25p2": run_p25p2, "lsm": run_lsm,
          "dmr": run_dmr, "nbfm": run_nbfm, "am": run_am, "ltr": run_ltr,
          "mpt1327": run_mpt1327, "slots": run_slots,
          "slots_p25p2": run_slots_p25p2, "multibank": run_multibank,
          "worker": run_worker, "cli": run_cli, "monitor": run_monitor,
          "monitor_mixed": run_monitor_mixed, "parity": run_parity,
-         "receiver": run_receiver}
+         "receiver": run_receiver, "parallel": run_parallel}
 
 
 def check_shape(card: str, entry: str, c: int, t: int) -> dict:

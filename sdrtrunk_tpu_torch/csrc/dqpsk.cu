@@ -87,7 +87,8 @@ struct DqpskStep {
 };
 
 // G lanes a channel, K mixes a lane per pass: G * K covers a run (5 or 6
-// samples at 5.21 samples a symbol).
+// samples at 5.21 samples a symbol; 8 or 9 at 8.33, P25 Phase 2's
+// decision-directed timing at 50 kHz, W = 16).
 template <int W, int G, int K>
 __global__ void __launch_bounds__(kBlock)
 dqpsk_kernel(const float2* __restrict__ x, int T, int C,
@@ -134,7 +135,11 @@ void launch(const float2* x, int T, int C, const float* bank, State in,
 
 // Plain C entry point (loaded with ctypes). Returns cudaGetLastError() after
 // the launch, or cudaErrorInvalidValue for a window length without an
-// instantiation (W = floor(2 * samples/symbol); 10 at 25 kHz / 4800 Bd).
+// instantiation (W = floor(2 * samples/symbol); 10 at 25 kHz / 4800 Bd, 16
+// at 50 kHz / 6000 Bd). W = 16 takes G = 16 lanes a channel, as gardner.cu's
+// W = 16 does: G = 8 is also exact (a pass that ends before the symbol is
+// carried on by the next), but then every 9-sample run would take two
+// passes.
 extern "C" int dqpsk_launch(
     const void* x, int T, int C, int W, const void* bank,
     const void* win_in, const void* sp_in, const void* dsps_in,
@@ -166,6 +171,7 @@ extern "C" int dqpsk_launch(
     case 10: launch<10, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
     case 11: launch<11, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
     case 12: launch<12, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
+    case 16: launch<16, 16, 1>(xp, T, C, bp, in, st, op, k, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -13,8 +13,8 @@ import torch
 
 from . import iir
 
-__all__ = ["fm_gain", "fm_demodulate", "am_demodulate", "power_db",
-           "power_squelch"]
+__all__ = ["fm_demodulate", "fm_gain", "am_demodulate", "power_db",
+           "power_squelch", "SquelchResult"]
 
 
 def fm_gain(sample_rate: float, deviation_hz: float) -> float:
@@ -45,6 +45,11 @@ def power_db(x: torch.Tensor, alpha: float, state: torch.Tensor
     p = x.real * x.real + x.imag * x.imag
     smoothed, new_state = iir.single_pole_apply(p, alpha, state)
     return 10.0 * torch.log10(torch.clamp_min(smoothed, 1e-20)), new_state
+
+
+class SquelchResult(dict):
+    """Lightweight result record: keys gate (bool per sample), power_db,
+    state (the reference's, dsp/demod.py:60)."""
 
 
 def power_squelch(x: torch.Tensor, threshold_db: float = -78.0,

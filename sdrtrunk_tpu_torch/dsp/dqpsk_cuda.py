@@ -60,10 +60,11 @@ def dqpsk_cuda(demod, x: torch.Tensor, state):
         raise RuntimeError(f"dqpsk_launch failed with CUDA error {rc} "
                            f"(C={c}, T={t}, W={w})")
     dqpsk_cuda.launches += 1
-    dqpsk_cuda.launches_by[demod.sample_counter_gain] += 1
+    dqpsk_cuda.launches_by[(demod.sample_counter_gain, w)] += 1
     return out, new
 
 
-# launches in all, and by the loop's timing gain
+# launches in all, and by the loop's (timing gain, window length), e.g.
+# (0.3, 10) C4FM, (0.4, 10) DMR, (0.3, 16) P25 Phase 2's decision timing
 dqpsk_cuda.launches = 0
 dqpsk_cuda.launches_by = collections.Counter()

@@ -94,15 +94,21 @@ def plan_channels(channelizer: Channelizer, center_offsets_hz,
 
 
 def extract_channels(y: torch.Tensor, plan: ChannelPlan, phase=None,
-                     gain: float = 1.0) -> tuple[torch.Tensor, tuple]:
+                     gain: float = 1.0, start: int = 0
+                     ) -> tuple[torch.Tensor, tuple]:
     """Extract per-channel streams from channelizer output.
 
     y: (K, M) complex64 channelizer output blocks.
     phase: None or (mixer_phase (C,) float32, rot_k int) carried across
     chunks for phase-continuous streaming (rot_k is the two-bin
     synthesizer's e^{-i pi k/2} rotator index, shared by all channels).
+    start: the index of y's first block within the chunk the phase
+    belongs to (a time shard's offset, parallel/pipeline.py): the mixer
+    and the rotator run at start + k, with the same arithmetic as one call
+    on the whole chunk, so a shard's streams equal that call's columns.
     Returns (streams (C, K) complex64 mixed to true baseband,
-    (next_mixer_phase, next_rot_k)).
+    (next_mixer_phase, next_rot_k)): the phase K blocks on, the next
+    chunk's when start is 0.
     """
     dev = y.device
     if phase is None:
@@ -113,14 +119,15 @@ def extract_channels(y: torch.Tensor, plan: ChannelPlan, phase=None,
     bins = torch.as_tensor(plan.bins, device=dev)
     lo = y[:, bins[:, 0]]                              # (K, C)
     hi = y[:, bins[:, 1]]
-    rot = rot4(dev)[(int(rot_k) + torch.arange(k, device=dev)) % 4][:, None]
+    blocks = torch.arange(start, start + k, device=dev)
+    rot = rot4(dev)[(int(rot_k) + blocks) % 4][:, None]
     z = rot * lo - torch.conj(rot) * hi                # two-bin synthesis
     wide = torch.as_tensor(plan.wide, device=dev)[None, :]
     streams = torch.where(wide, z, lo).T               # (C, K)
 
     step = torch.as_tensor((TWO_PI * plan.offsets / plan.rate)
                            .astype(np.float32), device=dev)
-    n = torch.arange(k, dtype=torch.float32, device=dev)[None, :]
+    n = blocks.to(torch.float32)[None, :]     # exact below 2^24 blocks
     angles = mixer_phase[:, None] + step[:, None] * n
     out = streams * torch.complex(torch.cos(angles), -torch.sin(angles)) \
         * gain

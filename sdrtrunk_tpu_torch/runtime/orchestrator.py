@@ -60,11 +60,13 @@ from .bank_processor import (AnalogBankProcessor, DMRBankProcessor,
 from .events import DecodeEvent
 from .identifiers import IdentifierCollection
 from .metrics import FrequencyErrorMonitor
-from .processors import P25P2ChannelProcessor, make_channel_processor
+from .processors import (P25P1ChannelProcessor, P25P2ChannelProcessor,
+                         make_channel_processor)
 from .traffic import TrafficChannelManager
 
-__all__ = ["ChannelSlot", "Orchestrator", "compact_and_correlate", "ingest",
-           "pack_audio", "pack_mixed", "pack_sym", "sync_patterns"]
+__all__ = ["ChannelSlot", "P25P1ChannelProcessor", "Orchestrator",
+           "compact_and_correlate", "ingest", "pack_audio", "pack_mixed",
+           "pack_sym", "sync_patterns"]
 
 _P25P1_SYNC_MAX_ERRORS = 9          # bit errors over the 24-dibit sync
 _P25P2_SYNC_MAX_ERRORS = 4          # over the 20-dibit sync (P25P2SyncPattern)

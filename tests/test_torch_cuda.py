@@ -59,10 +59,10 @@ def test_kernel_matches_plain_loop_on_card(card):
     demod = DQPSKDemodulator(25000.0, device=card)
     s0 = _state(demod, c)
     before = dqpsk_cuda.dqpsk_cuda.launches
-    by_gain = dqpsk_cuda.dqpsk_cuda.launches_by[0.3]
+    by_key = dqpsk_cuda.dqpsk_cuda.launches_by[(0.3, 10)]
     dibits, valid, state = demod.batched(x, s0)
     assert dqpsk_cuda.dqpsk_cuda.launches == before + 1
-    assert dqpsk_cuda.dqpsk_cuda.launches_by[0.3] == by_gain + 1
+    assert dqpsk_cuda.dqpsk_cuda.launches_by[(0.3, 10)] == by_key + 1
     ref_dibits, ref_valid, ref_state = demod.scan_batched(x, s0)
     assert float(valid.float().mean()) > 0.15
     assert torch.equal(valid, ref_valid)
@@ -81,6 +81,38 @@ def test_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="window"):
         demod.batched(torch.zeros((3, 16), dtype=torch.complex64,
                                   device=card), s0)
+    odd = DQPSKDemodulator(70000.0, 4800.0, device=card)      # W = 29
+    with pytest.raises(RuntimeError, match="W=29"):
+        odd.batched(torch.zeros((2, 16), dtype=torch.complex64, device=card),
+                    _state(odd, 2))
+
+
+@pytest.mark.cuda
+def test_kernel_w16_matches_plain_loop_on_card(card):
+    """P25 Phase 2's decision-directed timing: the DQPSK kernel's W = 16
+    instantiation (50 kHz, 6000 Bd, gain 0.3) and its plain loop agree bit
+    for bit, carried state included, across two calls."""
+    c, t = 64, 4096
+    rows = []
+    for i in range(c):
+        x = c4fm_modulate(random_dibits(t // 8 + 16, seed=40 + i), 50000.0,
+                          6000.0)
+        rows.append(awgn(x[:t], snr_db=30.0,
+                         rng=np.random.default_rng(140 + i)))
+    x = torch.as_tensor(np.stack(rows).astype(np.complex64), device=card)
+    demod = DQPSKDemodulator(50000.0, 6000.0, 0.3, device=card)
+    assert demod.window_len == 16
+    s0 = _state(demod, c)
+    before = dqpsk_cuda.dqpsk_cuda.launches_by[(0.3, 16)]
+    d1, v1, s1 = demod.batched(x[:, :1500], s0)
+    d2, v2, s2 = demod.batched(x[:, 1500:], s1)
+    assert dqpsk_cuda.dqpsk_cuda.launches_by[(0.3, 16)] == before + 2
+    ref_d, ref_v, ref_s = demod.scan_batched(x, s0)
+    assert float(ref_v.float().mean()) > 0.1
+    assert torch.equal(torch.cat([v1, v2], 1), ref_v)
+    assert torch.equal(torch.cat([d1, d2], 1), ref_d)
+    for a, b in zip(s2, ref_s):
+        assert torch.equal(a, b)
 
 
 def _lsm_block(channels: int, t: int, seed: int, rate: float,
@@ -146,11 +178,13 @@ def test_gardner_kernel_rejects_what_it_does_not_take(card):
                     _gstate(odd, 2))
 
 
-# (kernel, sample rate, baud, timing gain): C4FM, DMR, LSM, P25 Phase 2
+# (kernel, sample rate, baud, timing gain): C4FM, DMR, LSM, P25 Phase 2,
+# and P25 Phase 2 on the decision-directed loop (DQPSK at W = 16)
 _LOOPS = {"dqpsk": ("dqpsk", 25000.0, 4800.0, 0.3),
           "dmr": ("dqpsk", 25000.0, 4800.0, 0.4),
           "lsm": ("gardner", 25000.0, 4800.0, 0.3),
-          "p25p2": ("gardner", 50000.0, 6000.0, 0.1)}
+          "p25p2": ("gardner", 50000.0, 6000.0, 0.1),
+          "p25p2_decision": ("dqpsk", 50000.0, 6000.0, 0.3)}
 
 
 def _spread_block(kind, c, t, rate, baud, seed):
@@ -501,3 +535,45 @@ def test_static_build_equals_build_dynamic_on_card(card):
             assert torch.equal(a, b)
     assert dqpsk_cuda.dqpsk_cuda.launches == before + 4
     assert int(s_out["valid"].sum()) > 100
+
+
+@pytest.mark.cuda
+def test_pipeline_world_size_one_over_nccl_on_card(card, tmp_path):
+    """ShardedChannelizerPipeline over a one-rank NCCL group on the card:
+    build() and three build_streaming() chunks bit for bit equal to the
+    single-device Channelizer + extract_channels on the card."""
+    import torch.distributed as dist
+
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+    from sdrtrunk_tpu_torch.dsp.extract import extract_channels, plan_channels
+    from sdrtrunk_tpu_torch.parallel.pipeline import (
+        ShardedChannelizerPipeline)
+
+    m = 32
+    ch = Channelizer.design(m * 12500.0, 12500.0, 9, channels=m, device=card)
+    plan = plan_channels(ch, [((i % (m - 2)) - (m // 2 - 1)) * 12500.0 + 700.0
+                              for i in range(8)], 25000.0)
+    rng = np.random.default_rng(11)
+    chunks = [torch.as_tensor((rng.standard_normal(m * 256)
+                               + 1j * rng.standard_normal(m * 256))
+                              .astype(np.complex64), device=card)
+              for _ in range(3)]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0)
+    try:
+        pipe = ShardedChannelizerPipeline(ch, plan)
+        assert pipe.device.type == "cuda" and pipe.n_shards == 1
+        y, _ = ch(chunks[0])
+        want, _ = extract_channels(y, plan)
+        assert torch.equal(pipe.build()(chunks[0]), want)
+        run, carry = pipe.build_streaming(), pipe.init_carry()
+        state, phase = ch.init_state(), None
+        for x in chunks:
+            got, carry = run(x, carry)
+            y, state = ch(x, state)
+            want, phase = extract_channels(y, plan, phase)
+            assert torch.equal(got, want)
+        assert torch.equal(carry["tail"], state)
+    finally:
+        dist.destroy_process_group()
