@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA (no JAX needed). With no argument it runs every
 phase below, which is the acceptance check; named phases (``edges``:
 phase 3 and the bit-timing edge cases, ``bits`` and ``psk``: phase 4's
-bit-timing and symbol-loop kernels, ``c4fm``, ``p25p2``, ``lsm``, ``dmr``,
+bit-timing and symbol-loop kernels, ``c4fm``, ``c4fm_25k``, ``p25p2``,
+``lsm``, ``dmr``,
 ``nbfm``, ``am``, ``ltr``, ``mpt1327``, ``slots``, ``slots_p25p2``,
 ``multibank``, ``worker``: the live loops; ``cli``, ``monitor``,
 ``monitor_mixed``: the application; ``parity``, ``receiver``: the
@@ -18,13 +19,15 @@ failure (the exit code is then not 0):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the three kernels, sdrtrunk_tpu_torch/csrc/dqpsk.cu, gardner.cu
-   and bit_timing.cu, one nvcc each, started together; ptxas's registers
-   and spills;
+   and bit_timing.cu, one nvcc each, started together, each library's
+   build time; ptxas's registers and spills for each instantiation (a
+   symbol loop's lane layout (G, K) and the window lengths it serves);
 3. edge cases of the kernels' symbol-major loop, each kernel held bit for
-   bit against its plain loop: 37 channels (not a multiple of a warp), 32
-   of them at symbol rates spread over +/-2%, T = 997 (no run length
-   divides it) and T = 1, a symbol due at t = 0, two calls with carried
-   state;
+   bit against its plain loop at every live window length and at W = 13,
+   20, 21, 32, 40 and 80 (captures at 32 to 192 kHz; 25 kHz channels),
+   both kernels at each: 37 channels (not a multiple of a warp), 32 of
+   them at symbol rates spread over +/-2%, T = 997 (no run length divides
+   it) and T = 1, a symbol due at t = 0, two calls with carried state;
 4. each kernel against its plain PyTorch version on the card at the shape
    its live loop gives it, reached through ``batched``: identical on all
    1023 channels (dibits, valid, every state leaf), timed by CUDA events
@@ -32,8 +35,10 @@ failure (the exit code is then not 0):
    float64 rate), with the share of (sample, warp) pairs on which a warp
    of 32 channels has a symbol due: the DQPSK kernel at the C4FM bank's
    1023 channels x 10240 samples, at timing gain 0.3 (C4FM) and 0.4
-   (DMR) and at W = 16 (P25 Phase 2's decision-directed timing, 50 kHz,
-   6000 Bd, gain 0.3, 1023 x 20480), the Gardner kernel at W = 16 (P25
+   (DMR), at W = 16 (P25 Phase 2's decision-directed timing, 50 kHz,
+   6000 Bd, gain 0.3, 1023 x 20480) and at W = 20 (C4FM on 25 kHz
+   channels, 50 kHz, 4800 Bd, gain 0.3, 1023 x 10240), the Gardner kernel
+   at W = 16 (P25
    Phase 2, 50 kHz, 1023 x 20480) and W = 11 (LSM, 25 kHz, 1023 x 10240);
    and the bit-timing kernel, reached through the demodulators' public
    call, against its
@@ -50,6 +55,12 @@ failure (the exit code is then not 0):
    warm-up and 4 timed chunks of 0.41 s. It must follow the grant, decode
    frames on >= 99% of the voice slots, produce audio and launch the DQPSK
    kernel once per chunk;
+5a. ``c4fm_25k``: phase 5's bank on 25 kHz channels,
+   Orchestrator(decoder="c4fm", channel_bandwidth=25000.0) at 12.8 MS/s:
+   512 bins, a 50 kHz channel rate (the DQPSK loop at W = 20), 511 slots
+   (a control channel whose IDEN_UP announces 25 kHz spacing granting a
+   free slot, 509 voice slots), 2 + 3 chunks of 512 x 5120 (0.205 s);
+   phase 5's checks and one DQPSK launch a chunk at W = 20;
 6. the live P25 Phase 2 loop at the same width: 1023 slots of scrambled
    HDQPSK voice (PTT + VOICE_4 cycles ending in END_PTT) at random phases,
    the scramble parameters set on every slot as bench.py's P25P2 bank
@@ -109,11 +120,13 @@ failure (the exit code is then not 0):
    and no CUDA context in the worker process;
 17. ``cli``: the entry point users run, ``sdrtrunk_tpu_torch.cli.main``,
    in this process: ``decode`` of a P25 Phase 1, DMR, P25 Phase 2, LTR
-   and MPT1327 capture (25 kHz, about 0.5 s each) and ``replay`` of
+   and MPT1327 capture (25 kHz, about 0.5 s each), of the P25 Phase 1
+   capture at 48 kHz (decoded at its rate: DQPSK at W = 20) and ``replay`` of
    tests/test_cli.py's two-channel P25 capture, each on the card and
    again with ``--platform cpu``: the same message lines, one launch a
-   decode (DQPSK at gain 0.3 and 0.4, Gardner W = 16, bit timing W = 53
-   and 12), one DQPSK launch at C = 2 for the replay, none on the CPU;
+   decode (DQPSK at gain 0.3 and 0.4 and at W = 20, Gardner W = 16, bit
+   timing W = 53 and 12), one DQPSK launch at C = 2 for the replay, none
+   on the CPU;
    then each kernel held against its plain loop at the shape the CLI gave
    it;
 18. ``monitor``: phase 5's scene written as a 16-bit IQ wave (3 + 4
@@ -166,7 +179,7 @@ failure (the exit code is then not 0):
    ``all_to_all_single``'s; no kernel launches. The group is destroyed
    before the phase returns.
 
-During every live phase (5-22) a spy on the calls that reach the kernel
+During every live phase (5-22, 5a) a spy on the calls that reach the kernel
 wrappers records the (kernel, C, T) of each launch on the card; after the
 phase, each shape it recorded is held bit for bit against its plain loop
 as phase 4 holds the 1023-channel ones, unless this run held that shape
@@ -191,9 +204,9 @@ sdrtrunk_tpu_torch.protocol).
 Each live loop resets every kernel's launch counts just before it runs and
 reads them just after. A wrapper counts a launch in all and under its
 loop's timing gain and window length (DQPSK) or window length (Gardner,
-bit timing), so each entry of the kernels line (C4FM, DMR and P25P2
-decision-timed DQPSK, P25P2 and LSM Gardner, LTR and AFSK bit timing) has
-its own count from the launch itself. At the end
+bit timing), so each entry of the kernels line (C4FM, DMR, P25P2
+decision-timed and W = 20 DQPSK, P25P2 and LSM Gardner, LTR and AFSK bit
+timing) has its own count from the launch itself. At the end
 the script prints its own run time, then the kernels' JSON record on the
 line before the last (the kernels a run checked; an entry's ``launches``
 is the sum over the live loops that ran it, ``launches_by_path`` each
@@ -311,7 +324,8 @@ _ENTRY_KEYS = {"dqpsk": ("dqpsk", (0.3, 10)),
                "dqpsk_dmr": ("dqpsk", (0.4, 10)),
                "bit_timing_ltr": ("bit_timing", 53),
                "bit_timing_afsk": ("bit_timing", 12),
-               "dqpsk_p25p2": ("dqpsk", (0.3, 16))}
+               "dqpsk_p25p2": ("dqpsk", (0.3, 16)),
+               "dqpsk_w20": ("dqpsk", (0.3, 20))}
 
 
 def _reset_launches() -> None:
@@ -338,30 +352,48 @@ def _read_launches() -> dict:
 
 # --- phase 2: build -------------------------------------------------------
 
+def _windows_of(g: int, k: int) -> str:
+    """The window lengths the symbol loops launch at lane layout (g, k)."""
+    from sdrtrunk_tpu_torch.dsp.nvcc import MAX_WINDOW, MIN_WINDOW, lane_layout
+    ws = [w for w in range(MIN_WINDOW, MAX_WINDOW + 1)
+          if lane_layout(w)[:2] == (g, k)]
+    return f"{ws[0]}-{ws[-1]}"
+
+
 def build_kernels() -> dict:
-    """Build the kernel libraries in parallel; returns ptxas's registers
-    and spills per kernel instantiation."""
+    """Build the kernel libraries in parallel, one nvcc each; prints each
+    library's build time and returns ptxas's registers and spills per
+    kernel instantiation (a symbol loop's lane layout (G, K), with the
+    window lengths it serves)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from sdrtrunk_tpu_torch.dsp import (bit_timing_cuda, dqpsk_cuda,
                                         gardner_cuda, nvcc)
 
+    def timed(m):
+        t1 = time.perf_counter()
+        m.build()
+        return time.perf_counter() - t1
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        futures = [pool.submit(m.build)
-                   for m in (dqpsk_cuda, gardner_cuda, bit_timing_cuda)]
-        for f in futures:
-            f.result()
+    mods = {"dqpsk": dqpsk_cuda, "gardner": gardner_cuda,
+            "bit_timing": bit_timing_cuda}
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futures = {n: pool.submit(timed, m) for n, m in mods.items()}
+        each = {n: round(f.result(), 2) for n, f in futures.items()}
     print(f"[build] dqpsk, gardner and bit_timing kernels built and loaded "
-          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"in {time.perf_counter() - t0:.2f} s (each, in parallel: "
+          f"{json.dumps(each)} s)", flush=True)
     regs = {}
     for name in ("dqpsk", "gardner", "bit_timing"):
         entry = None
         for line in nvcc.ptxas_report(name).splitlines():
             m = re.search(r"Compiling entry function '.*?(dqpsk|gardner)"
-                          r"_kernelILi(\d+)E", line)
+                          r"_kernelILi(\d+)ELi(\d+)E", line)
             if m:
-                entry = f"{m.group(1)}<W={m.group(2)}>"
+                g, k = int(m.group(2)), int(m.group(3))
+                entry = f"{m.group(1)}<G={g},K={k}>"
+                regs[entry] = {"windows": _windows_of(g, k)}
             if re.search(r"Compiling entry function '.*?bit_timing_kernel",
                          line):
                 entry = "bit_timing"
@@ -391,7 +423,24 @@ KERNELS = (("dqpsk", "dqpsk", 25000.0, 4800.0, 0.3, KERNEL_T),
            ("dqpsk_dmr", "dqpsk", 25000.0, 4800.0, 0.4, KERNEL_T),
            # P25 Phase 2 on the decision-directed loop (W = 16), at the
            # P25P2 bank's 50 kHz channel width and tests/test_p25p2.py's gain
-           ("dqpsk_p25p2", "dqpsk", 50000.0, 6000.0, 0.3, 2 * KERNEL_T))
+           ("dqpsk_p25p2", "dqpsk", 50000.0, 6000.0, 0.3, 2 * KERNEL_T),
+           # C4FM on 25 kHz channels (50 kHz, W = 20): the c4fm_25k bank
+           ("dqpsk_w20", "dqpsk", 50000.0, 4800.0, 0.3, KERNEL_T))
+# the other window lengths check_edges holds, with KERNELS both kernels
+# at each: captures at 32, 48, 64, 96 and 192 kHz and 25 kHz channels
+# (50 kHz)
+# (name, kernel, sample rate, baud, timing gain)
+EDGE_WIDTHS = (("dqpsk_w13", "dqpsk", 32000.0, 4800.0, 0.3),
+               ("gardner_w13", "gardner", 32000.0, 4800.0, 0.3),
+               ("gardner_w20", "gardner", 48000.0, 4800.0, 0.3),
+               ("dqpsk_w21", "dqpsk", 51200.0, 4800.0, 0.4),
+               ("gardner_w21", "gardner", 64000.0, 6000.0, 0.1),
+               ("dqpsk_w32", "dqpsk", 76800.0, 4800.0, 0.3),
+               ("gardner_w32", "gardner", 96000.0, 6000.0, 0.1),
+               ("dqpsk_w40", "dqpsk", 96000.0, 4800.0, 0.3),
+               ("gardner_w40", "gardner", 96000.0, 4800.0, 0.3),
+               ("dqpsk_w80", "dqpsk", 192000.0, 4800.0, 0.3),
+               ("gardner_w80", "gardner", 192000.0, 4800.0, 0.3))
 _SOURCES = {"dqpsk": ("sdrtrunk_tpu_torch/csrc/dqpsk.cu",
                       "sdrtrunk_tpu/dsp/pallas_psk.py:48"),
             "gardner": ("sdrtrunk_tpu_torch/csrc/gardner.cu",
@@ -523,7 +572,10 @@ def check_kernel(card: str, name: str, kind: str, rate: float, baud: float,
     kernel_ms = _cuda_ms(lambda: wrapper(demod, x, s0), reps=5)
     err = _hold(name, kernel, plain["out"], type(s0)._fields)
     valid = kernel[1]
-    if float(valid.float().mean()) < 0.1:
+    # the loop takes a symbol every rate / baud samples, on noise too: at
+    # least 0.1 a sample, or half its rate where that is below 0.1 (W = 20)
+    floor = 0.1 if baud >= 0.1 * rate else 0.5 * baud / rate
+    if float(valid.float().mean()) < floor:
         raise AssertionError(f"{name}: kernel produced too few symbols")
     bound_ms, bound_by = _bound(kind, x, s0, int(valid.sum()))
     share = _warp_symbol_share(valid)
@@ -564,13 +616,20 @@ def _edge_block(kind: str, rate: float, baud: float):
 
 def check_edges(card: str) -> None:
     """The cases the symbol-major loop creates, each kernel held bit for
-    bit against its plain loop: C = 37 (not a multiple of a warp), a warp
-    whose channels drift apart, T = 997 and T = 1, a symbol due at t = 0
-    on every third channel, and two calls with carried state."""
+    bit against its plain loop at each live width (KERNELS) and at
+    EDGE_WIDTHS: C = 37 (not a multiple of a warp), a warp whose channels
+    drift apart, T = 997 and T = 1, a symbol due at t = 0 on every third
+    channel, and two calls with carried state."""
     import torch
 
-    for name, kind, rate, baud, gain, _ in KERNELS:
+    from sdrtrunk_tpu_torch.dsp.nvcc import lane_layout
+
+    loops = [k[:5] for k in KERNELS] + list(EDGE_WIDTHS)
+    widths = {}
+    for name, kind, rate, baud, gain in loops:
         demod = _symbol_loop(kind, rate, baud, gain)
+        widths.setdefault(kind, {})[name] = (demod.window_len,
+                                             *lane_layout(demod.window_len))
         x = _edge_block(kind, rate, baud)
         s0 = _fresh_state(demod, EDGE_C)
         s0.sampling_point[::3] = 1.5
@@ -587,11 +646,11 @@ def check_edges(card: str) -> None:
         if not bool(plain[1][::3, 0].all()):
             raise AssertionError(f"{name}: no symbol at t = 0 where one was "
                                  "due")
-    print(f"[edges] {card}: {', '.join(k[0] for k in KERNELS)} identical to "
+    print(f"[edges] {card}: {', '.join(k[0] for k in loops)} identical to "
           f"their plain loops at C={EDGE_C} with symbol rates spread +/-2%, "
           f"T={EDGE_T} and T=1, a symbol due at t=0, and two calls "
-          f"({EDGE_SPLIT} + {EDGE_T - EDGE_SPLIT}) with carried state",
-          flush=True)
+          f"({EDGE_SPLIT} + {EDGE_T - EDGE_SPLIT}) with carried state; "
+          f"(W, G, K, ring) {json.dumps(widths)}", flush=True)
 
 
 # --- the bit-timing kernel against its plain loop -------------------------
@@ -870,10 +929,13 @@ def check_bit_timing_edges(card: str) -> None:
 # --- phases 5-7: the live loops -------------------------------------------
 
 def _p25_streams(total_dibits: int, base_hz: float,
-                 traffic_index: int = TRAFFIC_INDEX, band_id: int = 1):
+                 traffic_index: int = TRAFFIC_INDEX, band_id: int = 1,
+                 spacing_hz: float = 12500.0, traffic_start_s: float = 1.3):
     """(control, traffic, voice superframe) P25P1 dibit streams; the
     control channel grants channel traffic_index of the band at base_hz,
-    which its IDEN_UP announces as band band_id."""
+    which its IDEN_UP announces as band band_id of spacing_hz channels;
+    the call on the traffic channel starts at traffic_start_s, after the
+    grant's latency."""
     import numpy as np
 
     from sdrtrunk_tpu_torch.protocol.bits import from_int
@@ -888,8 +950,9 @@ def _p25_streams(total_dibits: int, base_hz: float,
     asm = P25P1FrameAssembler(nac=0x293)
     iden = np.zeros(64, np.uint8)              # IDEN_UP, tsbk.py:348-355
     iden[0:4] = from_int(band_id, 4)
-    iden[4:13] = from_int(100, 9)              # bandwidth 12.5 kHz
-    iden[22:32] = from_int(100, 10)            # spacing 12.5 kHz
+    units = int(spacing_hz / 125.0)            # 100: 12.5 kHz
+    iden[4:13] = from_int(units, 9)            # bandwidth
+    iden[22:32] = from_int(units, 10)          # spacing
     iden[32:64] = from_int(int(base_hz / 5), 32)
     grant = np.zeros(64, np.uint8)             # GROUP_VOICE_CHANNEL_GRANT
     grant[8:12] = from_int(band_id, 4)
@@ -914,7 +977,7 @@ def _p25_streams(total_dibits: int, base_hz: float,
     call += [asm.assemble(DUID.LDU1, ldu1_encode(
         lc, rng.integers(0, 2, (9, 144)).astype(np.uint8))) for _ in range(4)]
     call.append(asm.assemble(DUID.TDULC, tdulc_encode(lc)))
-    start = int(1.3 * 4800)                    # after the grant's latency
+    start = int(traffic_start_s * 4800)
     traffic = np.concatenate(
         [rng.integers(0, 4, start).astype(np.uint8)] + call)
 
@@ -1004,25 +1067,26 @@ def _tiled_streams(cycle, modulate, sps: float, slots: int, n_ch: int,
 
 def synthesize_chunks(ch, streams, offsets, total_chunks: int,
                       blocks: int = CHUNK_BLOCKS) -> list:
-    """int8 (n, 2) wideband chunks of M * blocks samples of per-slot
-    channel streams (slots, n_ch), synthesized on the card by the port's
-    synthesis bank with filter state carried across chunks (each chunk
-    re-synthesizes the previous one's last 2T blocks, which equals one-shot
-    synthesis)."""
+    """int8 (n, 2) wideband chunks of m * blocks samples (m, the
+    channelizer's bins) of per-slot channel streams (slots, n_ch),
+    synthesized on the card by the port's synthesis bank with filter state
+    carried across chunks (each chunk re-synthesizes the previous one's
+    last 2T blocks, which equals one-shot synthesis)."""
     import torch
 
     from sdrtrunk_tpu_torch.dsp.synthesizer import synthesize_bank
 
-    chunk = M * blocks
-    k = 2 * chunk // M
+    m = ch.channels
+    chunk = m * blocks
+    k = 2 * chunk // m
     bins = torch.as_tensor([ch.channel_for_frequency(o) for o in offsets],
                            device="cuda")
     pad = 2 * ch.taps_per_channel
-    half = M // 2
-    tail = torch.zeros((pad, M), dtype=torch.complex64, device="cuda")
+    half = m // 2
+    tail = torch.zeros((pad, m), dtype=torch.complex64, device="cuda")
     xs = []
     for j in range(total_chunks):
-        u = torch.zeros((pad + k, M), dtype=torch.complex64, device="cuda")
+        u = torch.zeros((pad + k, m), dtype=torch.complex64, device="cuda")
         u[:pad] = tail
         u[pad:, bins] = streams[:, j * k:(j + 1) * k].T * 0.5
         tail = u[-pad:].clone()
@@ -1356,33 +1420,36 @@ def _c4fm_scene():
     return ch, offsets, _C4FM["chunks"], time.perf_counter() - t0
 
 
-def _c4fm_orchestrator(chunks, offsets, **kw):
-    """Phase 5's orchestrator: the 1023-slot C4FM bank, every voice slot
-    activated, the granted channel's slot left free. Returns (orch, the
-    traffic channel's Hz, the voice slots' Hz)."""
+def _c4fm_orchestrator(chunks, offsets, traffic_index: int = TRAFFIC_INDEX,
+                       **kw):
+    """Phase 5's orchestrator: the C4FM bank of a slot per offset (1023),
+    every voice slot activated, the granted channel's slot left free.
+    Returns (orch, the traffic channel's Hz, the voice slots' Hz)."""
     from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
     from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
 
+    kw.setdefault("chunk_samples", M * CHUNK_BLOCKS)
     orch = Orchestrator(_source(chunks), FS, CENTER_HZ, [offsets[0]],
-                        slots=SLOTS, decoder="c4fm",
-                        chunk_samples=M * CHUNK_BLOCKS,
+                        slots=len(offsets), decoder="c4fm",
                         idle_teardown_seconds=1e9, ppm_correction=False,
                         bank_mode=True, device="cuda", **kw)
-    traffic_hz = CENTER_HZ + offsets[TRAFFIC_INDEX]
+    traffic_hz = CENTER_HZ + offsets[traffic_index]
     voice_hz = [CENTER_HZ + o for i, o in enumerate(offsets)
-                if i not in (0, TRAFFIC_INDEX)]
+                if i not in (0, traffic_index)]
     for f in voice_hz:
         orch._activate(f, IdentifierCollection())
-    if sum(s.active for s in orch.slots) != SLOTS - 1:
+    if sum(s.active for s in orch.slots) != len(offsets) - 1:
         raise AssertionError("voice slots did not all activate")
     return orch, traffic_hz, voice_hz
 
 
 def _c4fm_checks(orch, traffic_hz, voice_hz):
     """Phase 5's coverage: the grant followed, frames on the granted slot
-    and on >= 99% of the voice slots, an AudioSegment."""
+    and on >= 99% of the voice slots, an AudioSegment. The granted slot is
+    looked up within 1 Hz (``_granted``)."""
     status = {s["frequency_hz"]: s for s in orch.channel_status()}
-    traffic = status.get(traffic_hz)
+    slot = _granted(orch, traffic_hz)
+    traffic = None if slot is None else status[slot.frequency_hz]
     voice_frames = _coverage(orch, voice_hz)
     segs = [s for s in orch.audio_segments if s.duration > 0]
     found = {
@@ -1394,8 +1461,7 @@ def _c4fm_checks(orch, traffic_hz, voice_hz):
         "skipped_grants": len(orch.skipped_grants)}
 
     def check():
-        if traffic is None or not any(
-                s.active and s.frequency_hz == traffic_hz for s in orch.slots):
+        if traffic is None:
             raise AssertionError("the grant did not activate the traffic "
                                  "slot")
         if not traffic["frames"]:
@@ -1423,6 +1489,67 @@ def run_c4fm(card: str) -> dict:
     }
     print("[live c4fm] " + json.dumps(result), flush=True)
     _C4FM["result"] = result
+    check()
+    return result
+
+
+# phase 5's C4FM bank on 25 kHz channels: 512 bins of 25 kHz at 12.8 MS/s,
+# a 50 kHz channel rate (DQPSK at W = 20); chunks of 512 x 5120 (0.205 s,
+# T = 10240), 2 + 3; the call on the granted channel starts at 0.6 s
+M_25K, SLOTS_25K = 512, 511
+WARMUP_25K, TIMED_25K = 2, 3
+TRAFFIC_INDEX_25K = 300
+TRAFFIC_START_25K = 0.6
+
+
+def run_c4fm_25k(card: str) -> dict:
+    """Orchestrator(decoder="c4fm", channel_bandwidth=25000.0) at 12.8
+    MS/s: 511 slots of 25 kHz channels (a P25 control channel whose
+    IDEN_UP announces 25 kHz spacing, granting a free slot; 509 voice
+    slots), 2 + 3 chunks; phase 5's checks (the grant followed, frames on
+    the granted slot and on >= 99% of the voice slots, an AudioSegment),
+    one DQPSK launch a chunk at W = 20."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    t0 = time.perf_counter()
+    ch = Channelizer.design(FS, 25000.0, device="cuda")
+    assert ch.channels == M_25K
+    rate = ch.channel_sample_rate
+    offsets = [(i - M_25K // 2 + 1) * 25000.0 for i in range(SLOTS_25K)]
+    chunks_total = WARMUP_25K + TIMED_25K
+    n_ch = (chunks_total + 1) * 2 * CHUNK_BLOCKS
+    control, traffic, superframe = _p25_streams(
+        int(n_ch / rate * 4800) + 64, CENTER_HZ + offsets[0],
+        traffic_index=TRAFFIC_INDEX_25K, spacing_hz=25000.0,
+        traffic_start_s=TRAFFIC_START_25K)
+    streams = _tiled_streams(superframe, lambda d: c4fm_modulate(d, rate),
+                             rate / 4800.0, SLOTS_25K, n_ch, seed=0)
+    for row, dib in ((0, control), (TRAFFIC_INDEX_25K, traffic)):
+        streams[row] = torch.as_tensor(
+            c4fm_modulate(dib, rate)[:n_ch].astype(np.complex64),
+            device="cuda")
+    chunks = synthesize_chunks(ch, streams, offsets, chunks_total)
+    synth_s = time.perf_counter() - t0
+    orch, traffic_hz, voice_hz = _c4fm_orchestrator(
+        chunks, offsets, traffic_index=TRAFFIC_INDEX_25K,
+        channel_bandwidth=25000.0, chunk_samples=M_25K * CHUNK_BLOCKS)
+    if orch.rx.decoder.demod.window_len != 20:
+        raise AssertionError(f"W = {orch.rx.decoder.demod.window_len} at "
+                             f"{orch.rx.channelizer.channel_sample_rate} Hz")
+    run = drive(orch, {"dqpsk_w20": 1}, chunks_total, WARMUP_25K)
+    found, check = _c4fm_checks(orch, traffic_hz, voice_hz)
+    result = {
+        "card": card, "decoder": "c4fm", "channel_bandwidth": 25000.0,
+        "slots": SLOTS_25K, "wideband_msps": FS / 1e6,
+        "chunk_samples": orch.chunk_samples, "timed_chunks": TIMED_25K,
+        **found, "active_channels": run["metrics"].get("active_channels"),
+        **_loop_record(orch, chunks[-1], run), "synthesis_s": synth_s,
+    }
+    print("[live c4fm_25k] " + json.dumps(result), flush=True)
     check()
     return result
 
@@ -2563,6 +2690,7 @@ def run_worker(card: str) -> dict:
 # CLI writes (git-ignored; removed after each phase)
 APP_DIR = ROOT / ".scratch" / "chip_smoke"
 DECODE_RATE = 25000.0            # the decode captures' channel rate
+DECODE_RATE_48K = 48000.0        # the capture decoded at W = 20
 MONITOR_CHUNKS = WARMUP + TIMED  # phase 5's scene, 3 + 4 chunks
 MIXED_CHUNKS = 6                 # monitor_mixed: 6 chunks of M x 6250
 MIXED_SLOTS = 4                  # --traffic-slots: banks of 1 + 4 slots
@@ -2578,13 +2706,15 @@ def _write_iq(path: Path, iq, rate: float) -> Path:
 
 
 def decode_scenes(directory: Path) -> list:
-    """The single-channel captures ``cli`` decodes, each at 25 kHz and at
-    most half a second: [(protocol, wave path, extra flags, kernels-line
-    entry its decode launches)]. P25 Phase 1, tests/test_cli.py's capture
-    (two TSBKs); DMR, the TSCC control stream of phase 8 (an aloha and
-    Tier III grants); P25 Phase 2, one call cycle of phase 6 (its scramble
-    key on the command line); LTR, an NBFM carrier with the voice tone and
-    sub-audible CALL words; MPT1327, phase 12's control channel."""
+    """The single-channel captures ``cli`` decodes, each at most half a
+    second: [(scene, protocol, wave path, extra flags, kernels-line entry
+    its decode launches)]. At 25 kHz: P25 Phase 1, tests/test_cli.py's
+    capture (two TSBKs); DMR, the TSCC control stream of phase 8 (an aloha
+    and Tier III grants); P25 Phase 2, one call cycle of phase 6 (its
+    scramble key on the command line); LTR, an NBFM carrier with the voice
+    tone and sub-audible CALL words; MPT1327, phase 12's control channel.
+    And the P25 Phase 1 capture at 48 kHz, a sound card's rate, which the
+    CLI decodes at its own rate (DQPSK at W = 20)."""
     import numpy as np
 
     from sdrtrunk_tpu_torch.protocol.ltr.messages import ltr_encode_word
@@ -2616,18 +2746,24 @@ def decode_scenes(directory: Path) -> list:
                             * np.arange(n_audio)))
     ltr = nbfm_modulate(audio, 8000.0, rate)
     mpt = _mpt_control(int(0.5 * rate), rate, np.random.default_rng(13))
+    p25_48k = c4fm_modulate(np.concatenate(parts), DECODE_RATE_48K)
     key = [str(k) for k in P25P2_KEY]
     return [
-        ("p25p1", _write_iq(directory / "p25.wav", p25, rate), [], "dqpsk"),
-        ("dmr", _write_iq(directory / "dmr.wav", dmr, rate), [],
+        ("p25p1", "p25p1", _write_iq(directory / "p25.wav", p25, rate), [],
+         "dqpsk"),
+        ("dmr", "dmr", _write_iq(directory / "dmr.wav", dmr, rate), [],
          "dqpsk_dmr"),
-        ("p25p2", _write_iq(directory / "p25p2.wav", p25p2, rate),
+        ("p25p2", "p25p2", _write_iq(directory / "p25p2.wav", p25p2, rate),
          ["--wacn", key[0], "--system", key[1], "--nac", key[2]],
          "gardner_p25p2"),
-        ("ltr", _write_iq(directory / "ltr.wav", ltr, rate), [],
+        ("ltr", "ltr", _write_iq(directory / "ltr.wav", ltr, rate), [],
          "bit_timing_ltr"),
-        ("mpt1327", _write_iq(directory / "mpt1327.wav", mpt, rate), [],
-         "bit_timing_afsk")]
+        ("mpt1327", "mpt1327",
+         _write_iq(directory / "mpt1327.wav", mpt, rate), [],
+         "bit_timing_afsk"),
+        ("p25p1_48k", "p25p1",
+         _write_iq(directory / "p25_48k.wav", p25_48k, DECODE_RATE_48K), [],
+         "dqpsk_w20")]
 
 
 def replay_scene(directory: Path) -> tuple[Path, Path, float]:
@@ -2784,9 +2920,10 @@ def run_cli(card: str) -> dict:
         launches = {entry: 0 for entry in _ENTRY_KEYS}
         shapes = set()
         cap, playlist, center = replay_scene(APP_DIR)
-        commands = [(f"decode {p}", ["decode", path, "--protocol", p, *flags],
-                     {entry: 1})
-                    for p, path, flags, entry in decode_scenes(APP_DIR)]
+        commands = [(f"decode {scene}",
+                     ["decode", path, "--protocol", p, *flags], {entry: 1})
+                    for scene, p, path, flags, entry
+                    in decode_scenes(APP_DIR)]
         commands.append(("replay p25p1 x2",
                          ["replay", cap, "--playlist", playlist,
                           "--center-frequency", center], {"dqpsk": 1}))
@@ -3756,12 +3893,13 @@ def run_parallel(card: str) -> dict:
 
 # phases a run can name, in the order a run takes them; the environment
 # and the build always run
-PHASES = ("edges", "bits", "psk", "c4fm", "p25p2", "lsm", "dmr", "nbfm", "am",
-          "ltr", "mpt1327", "slots", "slots_p25p2", "multibank", "worker",
-          "cli", "monitor", "monitor_mixed", "parity", "receiver",
-          "parallel")
-_LIVE = {"c4fm": run_c4fm, "p25p2": run_p25p2, "lsm": run_lsm,
-         "dmr": run_dmr, "nbfm": run_nbfm, "am": run_am, "ltr": run_ltr,
+PHASES = ("edges", "bits", "psk", "c4fm", "c4fm_25k", "p25p2", "lsm", "dmr",
+          "nbfm", "am", "ltr", "mpt1327", "slots", "slots_p25p2",
+          "multibank", "worker", "cli", "monitor", "monitor_mixed", "parity",
+          "receiver", "parallel")
+_LIVE = {"c4fm": run_c4fm, "c4fm_25k": run_c4fm_25k, "p25p2": run_p25p2,
+         "lsm": run_lsm, "dmr": run_dmr, "nbfm": run_nbfm, "am": run_am,
+         "ltr": run_ltr,
          "mpt1327": run_mpt1327, "slots": run_slots,
          "slots_p25p2": run_slots_p25p2, "multibank": run_multibank,
          "worker": run_worker, "cli": run_cli, "monitor": run_monitor,

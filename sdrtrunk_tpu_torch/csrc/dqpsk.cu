@@ -53,13 +53,12 @@ struct StateOut {
 
 // The symbol step (DQPSKDecisionDirectedSymbolEvaluator), with the
 // channel's last preceding and current points.
-template <int W>
 struct DqpskStep {
   const float* bank;
   Loop k;
   float2 pp, pc;
 
-  __device__ __forceinline__ uint8_t operator()(const Ring<W>& r, float sp1,
+  __device__ __forceinline__ uint8_t operator()(const Ring& r, float sp1,
                                                 float phase, Timing& tm) {
     // --- interpolate at mu: arm by index, 8 taps left to right ---
     const float* taps = bank + arm(clip(sp1, 0.0f, 1.0f)) * kNTaps;
@@ -86,32 +85,32 @@ struct DqpskStep {
   }
 };
 
-// G lanes a channel, K mixes a lane per pass: G * K covers a run (5 or 6
-// samples at 5.21 samples a symbol; 8 or 9 at 8.33, P25 Phase 2's
-// decision-directed timing at 50 kHz, W = 16).
-template <int W, int G, int K>
+// G lanes a channel, K mixes a lane per pass (with_lanes: G * K covers a
+// run, e.g. 5 or 6 samples at 5.21 samples a symbol, 8 or 9 at 8.33), the
+// W-sample window in a ring of ring_size(W, G * K) samples.
+template <int G, int K>
 __global__ void __launch_bounds__(kBlock)
-dqpsk_kernel(const float2* __restrict__ x, int T, int C,
+dqpsk_kernel(const float2* __restrict__ x, int T, int C, int W, int size,
              const float* __restrict__ bank_g, State in, StateOut st,
              uint8_t* __restrict__ out, Loop k) {
   constexpr int kGroups = kBlock / G;
   __shared__ float bank[(kNSteps + 1) * kNTaps];
-  __shared__ float ring_re[kGroups][kRing + 1], ring_im[kGroups][kRing + 1];
+  extern __shared__ float rings[];
   load_bank(bank, bank_g);
   const int group = threadIdx.x / G, lane = threadIdx.x % G;
   const int c = blockIdx.x * kGroups + group;
   if (c >= C) return;
   const unsigned gmask = group_mask<G>();
 
-  Ring<W> ring = load_ring<W, G>(ring_re[group], ring_im[group],
-                                 in.win + static_cast<size_t>(c) * W, lane,
-                                 gmask);
+  Ring ring = load_ring<G>(rings, size, group,
+                           in.win + static_cast<size_t>(c) * W, W, lane,
+                           gmask);
   Timing tm{in.sp[c], in.dsps[c], in.ph[c], in.fr[c]};
-  DqpskStep<W> step{bank, k, in.pp[c], in.pc[c]};
-  symbol_loop<W, G, K>(x + static_cast<size_t>(c) * T, T, ring, lane, gmask,
-                       tm, step, out + c, C);
+  DqpskStep step{bank, k, in.pp[c], in.pc[c]};
+  symbol_loop<G, K>(x + static_cast<size_t>(c) * T, T, ring, lane, gmask, tm,
+                    step, out + c, C);
 
-  store_ring<W, G>(ring, st.win + static_cast<size_t>(c) * W, lane);
+  store_ring<G>(ring, st.win + static_cast<size_t>(c) * W, lane);
   if (lane == 0) {
     st.sp[c] = tm.sp;
     st.dsps[c] = tm.dsps;
@@ -122,24 +121,12 @@ dqpsk_kernel(const float2* __restrict__ x, int T, int C,
   }
 }
 
-template <int W, int G, int K>
-void launch(const float2* x, int T, int C, const float* bank, State in,
-            StateOut st, uint8_t* out, Loop k, cudaStream_t stream) {
-  constexpr int kGroups = kBlock / G;
-  const int grid = (C + kGroups - 1) / kGroups;
-  dqpsk_kernel<W, G, K><<<grid, kBlock, 0, stream>>>(x, T, C, bank, in, st,
-                                                     out, k);
-}
-
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a window length without an
-// instantiation (W = floor(2 * samples/symbol); 10 at 25 kHz / 4800 Bd, 16
-// at 50 kHz / 6000 Bd). W = 16 takes G = 16 lanes a channel, as gardner.cu's
-// W = 16 does: G = 8 is also exact (a pass that ends before the symbol is
-// carried on by the next), but then every 9-sample run would take two
-// passes.
+// the launch, or cudaErrorInvalidValue for a window length outside
+// [kMinWindow, kMaxWindow] (W = floor(2 * samples/symbol); 10 at 25 kHz /
+// 4800 Bd, 16 at 50 kHz / 6000 Bd, 20 at 48 or 50 kHz / 4800 Bd).
 extern "C" int dqpsk_launch(
     const void* x, int T, int C, int W, const void* bank,
     const void* win_in, const void* sp_in, const void* dsps_in,
@@ -165,14 +152,12 @@ extern "C" int dqpsk_launch(
   const auto* bp = static_cast<const float*>(bank);
   auto* op = static_cast<uint8_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (W) {
-    case 8: launch<8, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
-    case 9: launch<9, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
-    case 10: launch<10, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
-    case 11: launch<11, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
-    case 12: launch<12, 8, 1>(xp, T, C, bp, in, st, op, k, s); break;
-    case 16: launch<16, 16, 1>(xp, T, C, bp, in, st, op, k, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return with_lanes(W, [&](auto lanes) {
+    using L = decltype(lanes);
+    constexpr int kGroups = kBlock / L::G;
+    const int size = ring_size(W, L::G * L::K);
+    dqpsk_kernel<L::G, L::K>
+        <<<(C + kGroups - 1) / kGroups, kBlock, ring_bytes(kGroups, size),
+           s>>>(xp, T, C, W, size, bp, in, st, op, k);
+  });
 }

@@ -68,7 +68,6 @@ struct Bases {
 
 // The symbol step (DQPSKGardnerSymbolEvaluator), with the channel's last
 // raw points and symbol.
-template <int W>
 struct GardnerStep {
   const float* bank;
   Loop k;
@@ -77,12 +76,12 @@ struct GardnerStep {
 
   // 8-tap interpolation at a fractional offset into the window: the
   // integer part picks the base, the fraction the arm.
-  __device__ __forceinline__ float2 point(const Ring<W>& r, float offset,
+  __device__ __forceinline__ float2 point(const Ring& r, float offset,
                                           int lo, int hi) const {
     const float kf = floorf(offset);
     const float* taps = bank + arm(offset - kf) * kNTaps;
     int base = static_cast<int>(kf);
-    base = base < 0 ? 0 : (base > W - 8 ? W - 8 : base);
+    base = base < 0 ? 0 : (base > r.w - 8 ? r.w - 8 : base);
     float wr[kNTaps], wi[kNTaps];
 #pragma unroll
     for (int j = 0; j < kNTaps; ++j) {
@@ -94,7 +93,7 @@ struct GardnerStep {
     return base >= lo && base <= hi ? s : make_float2(0.0f, 0.0f);
   }
 
-  __device__ __forceinline__ uint8_t operator()(const Ring<W>& r, float sp1,
+  __device__ __forceinline__ uint8_t operator()(const Ring& r, float sp1,
                                                 float phase, Timing& tm) {
     // --- the two points, each decoded against its previous sample ---
     const float2 mid = point(r, clip(sp1, 0.0f, 1.0f), bs.mid_lo, bs.mid_hi);
@@ -117,31 +116,32 @@ struct GardnerStep {
   }
 };
 
-// G lanes a channel, K mixes a lane per pass: G * K covers a run (8 or 9
-// samples at P25 Phase 2's 8.33 samples a symbol, 5 or 6 at 5.21).
-template <int W, int G, int K>
+// G lanes a channel, K mixes a lane per pass (with_lanes: G * K covers a
+// run, e.g. 8 or 9 samples at P25 Phase 2's 8.33 samples a symbol, 5 or 6
+// at 5.21), the W-sample window in a ring of ring_size(W, G * K) samples.
+template <int G, int K>
 __global__ void __launch_bounds__(kBlock)
-gardner_kernel(const float2* __restrict__ x, int T, int C,
+gardner_kernel(const float2* __restrict__ x, int T, int C, int W, int size,
                const float* __restrict__ bank_g, State in, StateOut st,
                uint8_t* __restrict__ out, Loop k, Bases bs) {
   constexpr int kGroups = kBlock / G;
   __shared__ float bank[(kNSteps + 1) * kNTaps];
-  __shared__ float ring_re[kGroups][kRing + 1], ring_im[kGroups][kRing + 1];
+  extern __shared__ float rings[];
   load_bank(bank, bank_g);
   const int group = threadIdx.x / G, lane = threadIdx.x % G;
   const int c = blockIdx.x * kGroups + group;
   if (c >= C) return;
   const unsigned gmask = group_mask<G>();
 
-  Ring<W> ring = load_ring<W, G>(ring_re[group], ring_im[group],
-                                 in.win + static_cast<size_t>(c) * W, lane,
-                                 gmask);
+  Ring ring = load_ring<G>(rings, size, group,
+                           in.win + static_cast<size_t>(c) * W, W, lane,
+                           gmask);
   Timing tm{in.sp[c], in.dsps[c], in.ph[c], in.fr[c]};
-  GardnerStep<W> step{bank, k, bs, in.pm[c], in.pc[c], in.ps[c]};
-  symbol_loop<W, G, K>(x + static_cast<size_t>(c) * T, T, ring, lane, gmask,
-                       tm, step, out + c, C);
+  GardnerStep step{bank, k, bs, in.pm[c], in.pc[c], in.ps[c]};
+  symbol_loop<G, K>(x + static_cast<size_t>(c) * T, T, ring, lane, gmask, tm,
+                    step, out + c, C);
 
-  store_ring<W, G>(ring, st.win + static_cast<size_t>(c) * W, lane);
+  store_ring<G>(ring, st.win + static_cast<size_t>(c) * W, lane);
   if (lane == 0) {
     st.sp[c] = tm.sp;
     st.dsps[c] = tm.dsps;
@@ -153,22 +153,12 @@ gardner_kernel(const float2* __restrict__ x, int T, int C,
   }
 }
 
-template <int W, int G, int K>
-void launch(const float2* x, int T, int C, const float* bank, State in,
-            StateOut st, uint8_t* out, Loop k, Bases bs,
-            cudaStream_t stream) {
-  constexpr int kGroups = kBlock / G;
-  const int grid = (C + kGroups - 1) / kGroups;
-  gardner_kernel<W, G, K><<<grid, kBlock, 0, stream>>>(x, T, C, bank, in, st,
-                                                       out, k, bs);
-}
-
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a window length without an
-// instantiation: W = 11 (LSM at 25 kHz, or 6000 Bd at 25 kHz) and W = 16
-// (P25 Phase 2 at 50 kHz).
+// the launch, or cudaErrorInvalidValue for a window length outside
+// [kMinWindow, kMaxWindow] (11 for LSM at 25 kHz, 16 for P25 Phase 2 at
+// 50 kHz, 20 for LSM at 48 or 50 kHz).
 extern "C" int gardner_launch(
     const void* x, int T, int C, int W, const void* bank,
     const void* win_in, const void* sp_in, const void* dsps_in,
@@ -197,10 +187,12 @@ extern "C" int gardner_launch(
   const auto* bp = static_cast<const float*>(bank);
   auto* op = static_cast<uint8_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (W) {
-    case 11: launch<11, 8, 1>(xp, T, C, bp, in, st, op, k, bs, s); break;
-    case 16: launch<16, 16, 1>(xp, T, C, bp, in, st, op, k, bs, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return with_lanes(W, [&](auto lanes) {
+    using L = decltype(lanes);
+    constexpr int kGroups = kBlock / L::G;
+    const int size = ring_size(W, L::G * L::K);
+    gardner_kernel<L::G, L::K>
+        <<<(C + kGroups - 1) / kGroups, kBlock, ring_bytes(kGroups, size),
+           s>>>(xp, T, C, W, size, bp, in, st, op, k, bs);
+  });
 }

@@ -38,7 +38,11 @@ namespace psk {
 constexpr int kNSteps = 128;          // interpolator arms - 1
 constexpr int kNTaps = 8;
 constexpr int kBlock = 32;            // one warp a block: blocks spread over SMs
-constexpr int kRing = 16;             // delay-line ring, samples (>= W, >= G*K)
+// the window lengths W = floor(2 * samples/symbol) the kernels take: from
+// the reference's least, 4 samples a symbol, to 64 samples a symbol (a
+// 192 kHz capture at 4800 Bd gives W = 80)
+constexpr int kMinWindow = 8;
+constexpr int kMaxWindow = 128;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kSqrtHalf = 0.70710678118654752440f;
 
@@ -144,27 +148,75 @@ __device__ __forceinline__ int arm(float mu) {
   return idx < 0 ? 0 : (idx > kNSteps ? kNSteps : idx);
 }
 
-// A channel's delay line: a ring of kRing samples in shared memory, re and
-// im in rows of kRing + 1 words, so that the rows of a warp's channels fall
+// A channel's delay line: a ring of `size` samples (a power of two, at
+// least W and at least a pass's G*K; ring_size) in shared memory, re and
+// im in rows of size + 1 words, so that the rows of a warp's channels fall
 // on different banks. `head` counts the samples pushed; the W-sample window
-// (oldest first) is the W samples before it.
-template <int W>
+// (oldest first) is the W samples before it. A pass writes its samples
+// over ones older than the window, so size >= W and size >= G*K suffice.
 struct Ring {
-  static_assert(W <= kRing, "the window must fit the ring");
   float* re;
   float* im;
   int head;
+  int w;
+  int mask;                                               // size - 1
 
   __device__ __forceinline__ float2 at(int j) const {     // window[j]
-    const int i = (head - W + j) & (kRing - 1);
+    const int i = (head - w + j) & mask;
     return make_float2(re[i], im[i]);
   }
   __device__ __forceinline__ void put(int j, float2 v) {  // sample head + j
-    const int i = (head + j) & (kRing - 1);
+    const int i = (head + j) & mask;
     re[i] = v.x;
     im[i] = v.y;
   }
 };
+
+// The smallest power of two that is at least W and at least a pass.
+inline int ring_size(int W, int pass) {
+  int size = 1;
+  while (size < W || size < pass) size *= 2;
+  return size;
+}
+
+// The lane layout of a launch: G lanes serve a channel, each mixing K
+// samples of a pass.
+template <int G_, int K_>
+struct Lanes {
+  static constexpr int G = G_;
+  static constexpr int K = K_;
+};
+
+// Calls launch(Lanes<G, K>{}) with the layout for window length W, then
+// returns cudaGetLastError(); cudaErrorInvalidValue for a W outside
+// [kMinWindow, kMaxWindow]. The rule: a pass of G*K samples should cover
+// one run, about W/2 samples (the samples a symbol), so that a run costs
+// one mix's latency: 8 lanes to W = 12 (runs of up to 7), 16 to W = 31
+// (16), a warp to W = 63 (32), and a warp of two mixes each above (64).
+// A pass shorter than a run is still exact (symbol_loop carries the run
+// on in the next pass), so the rule only sets the speed.
+template <class Launch>
+int with_lanes(int W, Launch&& launch) {
+  if (W < kMinWindow || W > kMaxWindow) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (W <= 12) {
+    launch(Lanes<8, 1>{});
+  } else if (W <= 31) {
+    launch(Lanes<16, 1>{});
+  } else if (W <= 63) {
+    launch(Lanes<32, 1>{});
+  } else {
+    launch(Lanes<32, 2>{});
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of a block's rings: kBlock / G groups, each a re
+// and an im row of size + 1 words.
+inline size_t ring_bytes(int groups, int size) {
+  return sizeof(float) * 2 * static_cast<size_t>(groups) * (size + 1);
+}
 
 // The lanes of the calling thread's group of G in its warp.
 template <int G>
@@ -177,22 +229,25 @@ __device__ __forceinline__ unsigned group_mask() {
   }
 }
 
-// The ring of a window read from the (C, W) state row, lane `lane` of G
-// copying entries lane, lane + G, ...
-template <int W, int G>
-__device__ __forceinline__ Ring<W> load_ring(float* re, float* im,
-                                             const float2* win, int lane,
-                                             unsigned gmask) {
-  Ring<W> r{re, im, W};
+// The ring of a window read from the (C, W) state row into group
+// `group`'s rows of `rings` (kBlock / G groups), lane `lane` of G copying
+// entries lane, lane + G, ...
+template <int G>
+__device__ __forceinline__ Ring load_ring(float* rings, int size, int group,
+                                          const float2* win, int W, int lane,
+                                          unsigned gmask) {
+  constexpr int kGroups = kBlock / G;
+  Ring r{rings + group * (size + 1), rings + (kGroups + group) * (size + 1),
+         W, W, size - 1};
   for (int j = lane; j < W; j += G) r.put(j - W, win[j]);
   __syncwarp(gmask);
   return r;
 }
 
-template <int W, int G>
-__device__ __forceinline__ void store_ring(const Ring<W>& r, float2* win,
+template <int G>
+__device__ __forceinline__ void store_ring(const Ring& r, float2* win,
                                            int lane) {
-  for (int j = lane; j < W; j += G) win[j] = r.at(j);
+  for (int j = lane; j < r.w; j += G) win[j] = r.at(j);
 }
 
 // The samples a lane mixes in the pass that starts at sample t.
@@ -216,14 +271,13 @@ __device__ __forceinline__ void load_pass(const float2* __restrict__ xc,
 // pass stops at T exactly where the per-sample loop would, so carried
 // state is per-sample exact across calls; out_c is written only at
 // symbols (the caller zero-fills it).
-template <int W, int G, int K, class Step>
+template <int G, int K, class Step>
 __device__ __forceinline__ void symbol_loop(const float2* __restrict__ xc,
-                                            int T, Ring<W>& ring, int lane,
+                                            int T, Ring& ring, int lane,
                                             unsigned gmask, Timing& tm,
                                             Step& step,
                                             uint8_t* __restrict__ out_c,
                                             int C) {
-  static_assert(G * K <= kRing, "a pass must fit the ring");
   float2 xb[K];
   load_pass<G, K>(xc, 0, T, lane, xb);
   int t = 0;

@@ -20,11 +20,14 @@ def feed_forward_agc_init(window: int = 32, device="cuda") -> torch.Tensor:
     return torch.zeros((window - 1,), dtype=torch.float32, device=device)
 
 
-def feed_forward_agc(x: torch.Tensor, state: torch.Tensor, window: int = 32
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+def feed_forward_agc(x: torch.Tensor, state: torch.Tensor | None = None,
+                     window: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
     """y[c, n] = x[c, n] / max(env(x[c, n-window+1 .. n]), MINIMUM_ENVELOPE)
-    over (C, T) complex x. Returns (normalized x, new envelope history
-    (C, window - 1))."""
+    over (C, T) complex x from the envelope history ``state`` (C, window -
+    1), zeros for None. Returns (normalized x, new envelope history)."""
+    if state is None:
+        state = torch.zeros((x.shape[0], window - 1), dtype=torch.float32,
+                            device=x.device)
     env = torch.abs(x)
     padded = torch.cat([state, env], dim=1)               # (C, W-1+T)
     max_env = F.max_pool1d(padded[:, None, :], window, stride=1)[:, 0]

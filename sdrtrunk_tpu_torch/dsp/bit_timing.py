@@ -46,8 +46,9 @@ def _f32(v: float) -> float:
 class BitTimingGeometry:
     """What tells the two demodulators' timing loops apart.
 
-    window_len W: decisions kept, newest last (W <= 64: the kernel holds
-    the line in one 64-bit register). The vote is over
+    window_len W: decisions kept, newest last (the plain loop takes any W;
+    the kernel holds the line in one 64-bit register, so it takes W <= 64:
+    ``bit_timing_cuda.MAX_WINDOW``). The vote is over
     [vote_start, vote_start + vote_len) of the line (majority:
     sum > vote_len // 2). Crossings are looked for between neighbours of
     the newest zc_len decisions; crossing i lies between zc[i] and
@@ -67,10 +68,10 @@ class BitTimingGeometry:
     two_crossings: bool
 
     def __post_init__(self):
-        if not 2 <= self.zc_len <= self.window_len <= 64:
+        if not 2 <= self.zc_len <= self.window_len:
             raise ValueError(f"window_len {self.window_len} and zc_len "
                              f"{self.zc_len} must satisfy 2 <= zc_len <= "
-                             "window_len <= 64")
+                             "window_len")
         if self.vote_start < 0 \
                 or self.vote_start + self.vote_len > self.window_len:
             raise ValueError("the vote window lies outside the delay line")

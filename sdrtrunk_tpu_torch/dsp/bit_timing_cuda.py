@@ -16,7 +16,10 @@ import torch
 
 from .nvcc import check_tensor, load_kernel
 
-__all__ = ["build", "bit_timing_cuda"]
+__all__ = ["MAX_WINDOW", "build", "bit_timing_cuda"]
+
+# the longest delay line the kernel takes: one 64-bit word (csrc/bit_timing.cu)
+MAX_WINDOW = 64
 
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 6
              + [ctypes.c_float] * 3 + [ctypes.c_void_p])
@@ -36,18 +39,23 @@ def bit_timing_cuda(geom, x: torch.Tensor, window: torch.Tensor,
     Returns (bits (C, T) int8, valid (C, T) bool, new window (C, W) int8,
     new sampling_point (C,) float32), all new tensors. The kernel writes
     every byte of ``bits`` and ``valid``; ``bits`` is 0 wherever ``valid``
-    is not set. Raises on a build failure, on a tensor the kernel does not
-    take, and on a nonzero launch status.
+    is not set. Raises ValueError on a window length above ``MAX_WINDOW``
+    before it builds or launches, and raises on a build failure, on a
+    tensor the kernel does not take, and on a nonzero launch status.
     """
-    lib = build()
     name = "bit_timing_cuda"
+    w = geom.window_len
+    if w > MAX_WINDOW:
+        raise ValueError(
+            f"{name}: window length W = {w} (sps {geom.sps}) is above the "
+            f"kernel's {MAX_WINDOW}, its 64-bit delay line")
+    lib = build()
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x must be on a CUDA device, got {x.device}")
     if x.dim() != 2:
         raise ValueError(f"{name}: x must be (C, T), got {tuple(x.shape)}")
     dev = x.device
     c, t = x.shape
-    w = geom.window_len
     x = x.contiguous()
     check_tensor(name, "x", x, torch.float32, (c, t), dev)
     check_tensor(name, "window", window, torch.int8, (c, w), dev)

@@ -22,11 +22,14 @@ def fm_gain(sample_rate: float, deviation_hz: float) -> float:
     return sample_rate / (2.0 * math.pi * deviation_hz)
 
 
-def fm_demodulate(x: torch.Tensor, prev: torch.Tensor, gain: float = 1.0
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+def fm_demodulate(x: torch.Tensor, prev: torch.Tensor | None = None,
+                  gain: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
     """Quadrature FM discriminator over (C, T) complex x:
     atan2 of x[n] * conj(x[n-1]), times ``gain``, with x[-1] = ``prev``
-    (C,). Returns (float32 (C, T), the last sample of each row (C,))."""
+    (C,); None takes each row's first sample, as the reference does.
+    Returns (float32 (C, T), the last sample of each row (C,))."""
+    if prev is None:
+        prev = x[:, 0]
     xm1 = torch.cat([prev.to(x.dtype)[:, None], x[:, :-1]], dim=1)
     prod = x * torch.conj(xm1)
     y = torch.atan2(prod.imag, prod.real) * gain
@@ -38,10 +41,11 @@ def am_demodulate(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
     return (torch.abs(x) * gain).to(torch.float32)
 
 
-def power_db(x: torch.Tensor, alpha: float, state: torch.Tensor
+def power_db(x: torch.Tensor, alpha: float = 0.0004, state=0.0
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Smoothed channel power in dB over (C, T) complex x: one-pole IIR
-    over |x|^2. ``state`` (C,) is the previous smoothed power."""
+    over |x|^2 (alpha 0.0004, the reference NBFM squelch's). ``state`` is
+    the previous smoothed power, (C,) or one value for every channel."""
     p = x.real * x.real + x.imag * x.imag
     smoothed, new_state = iir.single_pole_apply(p, alpha, state)
     return 10.0 * torch.log10(torch.clamp_min(smoothed, 1e-20)), new_state

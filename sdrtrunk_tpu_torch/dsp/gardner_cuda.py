@@ -13,13 +13,14 @@ import functools
 
 import torch
 
-from .nvcc import check_inputs, load_kernel
+from .nvcc import (MAX_WINDOW, MIN_WINDOW, check_inputs, check_window,
+                   load_kernel)
 
 __all__ = ["WINDOWS", "build", "gardner_cuda"]
 
-# window lengths with an instantiation in gardner.cu: LSM at 25 kHz (and
-# 6000 Bd at 25 kHz), P25 Phase 2 at 50 kHz
-WINDOWS = (11, 16)
+# the window lengths the kernel takes (11: LSM at 25 kHz; 16: P25 Phase 2
+# at 50 kHz; 20: LSM at 48 or 50 kHz)
+WINDOWS = range(MIN_WINDOW, MAX_WINDOW + 1)
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
              + [ctypes.c_void_p] * 18 + [ctypes.c_float] * 7
@@ -39,20 +40,17 @@ def gardner_cuda(demod, x: torch.Tensor, state):
     Returns ((T, C) uint8 ``dibit | valid << 2``, new GardnerState). The
     state is in the reference layout (window (C, W)); outputs are new
     tensors (``out`` zero-filled, the state from ``torch.empty``). Raises
-    on a build failure, on a window length without an instantiation, on a
-    tensor the kernel does not take, and on a nonzero launch status.
+    ValueError on a window length outside ``WINDOWS`` before it builds or
+    launches, and raises on a build failure, on a tensor the kernel does
+    not take, and on a nonzero launch status.
     """
     from .psk import GardnerState
 
-    w = demod.window_len
-    if w not in WINDOWS:
-        raise ValueError(
-            f"gardner_cuda: window length {w} (sample rate "
-            f"{demod.sample_rate}, {demod.symbol_rate} Bd) has no kernel "
-            f"instantiation; gardner.cu instantiates W in {WINDOWS}")
+    check_window("gardner_cuda", demod)
     lib = build()
     x = check_inputs("gardner_cuda", demod, x, state)
     c, t = x.shape
+    w = demod.window_len
     # the kernel writes only the bytes of symbols
     out = torch.zeros((t, c), dtype=torch.uint8, device=x.device)
     new = GardnerState(*[torch.empty_like(a) for a in state])

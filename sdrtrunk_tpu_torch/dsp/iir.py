@@ -52,9 +52,11 @@ def _linrec(a: float, b: torch.Tensor, y0: torch.Tensor,
     return y.reshape(c, -1)[:, :n]
 
 
-def single_pole(x: torch.Tensor, alpha: float, y0) -> torch.Tensor:
-    """y[t] = y[t-1] + alpha*(x[t]-y[t-1]) over (C, T) real x."""
-    return _linrec(1.0 - alpha, alpha * x, y0)
+def single_pole(x: torch.Tensor, alpha: float, y0=0.0) -> torch.Tensor:
+    """y[t] = y[t-1] + alpha*(x[t]-y[t-1]) over (C, T) real x from
+    y[-1] = y0, (C,) or one value for every channel."""
+    y0 = torch.as_tensor(y0, dtype=x.dtype, device=x.device)
+    return _linrec(1.0 - alpha, alpha * x, y0.expand(x.shape[:1]))
 
 
 def single_pole_apply(x: torch.Tensor, alpha: float, state: torch.Tensor
@@ -64,11 +66,14 @@ def single_pole_apply(x: torch.Tensor, alpha: float, state: torch.Tensor
     return y, y[:, -1]
 
 
-def dc_removal(x: torch.Tensor, ratio: float,
-               state: tuple[torch.Tensor, torch.Tensor]
+def dc_removal(x: torch.Tensor, ratio: float = 0.95,
+               state: tuple[torch.Tensor, torch.Tensor] | None = None
                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """DC-blocking filter y[t] = x[t] - x[t-1] + ratio*y[t-1] over (C, T)
-    real x; ``state`` is (x_prev (C,), y_prev (C,))."""
+    real x; ``state`` is (x_prev (C,), y_prev (C,)), zeros for None."""
+    if state is None:
+        zero = torch.zeros(x.shape[:1], dtype=x.dtype, device=x.device)
+        state = (zero, zero)
     x_prev, y_prev = state
     diffs = x - torch.cat([x_prev.to(x.dtype)[:, None], x[:, :-1]], dim=1)
     y = _linrec(float(ratio), diffs, y_prev)

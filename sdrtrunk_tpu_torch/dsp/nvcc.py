@@ -10,7 +10,8 @@ the report is kept beside the library as ``lib<name>_<key>.log``.
 
 The symbol-loop kernels (dqpsk.cu, gardner.cu) take the same inputs: a
 (C, T) complex64 stream, the (129, 8) interpolator bank and the state in
-the reference layout; ``check_inputs`` refuses anything else.
+the reference layout, at a window length W in [MIN_WINDOW, MAX_WINDOW];
+``check_window`` and ``check_inputs`` refuse anything else.
 """
 from __future__ import annotations
 
@@ -25,8 +26,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "check_inputs", "check_tensor",
-           "load_kernel", "ptxas_report"]
+__all__ = ["BUILD_DIR", "CSRC", "MAX_WINDOW", "MIN_WINDOW", "NVCC_FLAGS",
+           "check_inputs", "check_tensor", "check_window", "lane_layout",
+           "load_kernel", "ptxas_report", "ring_size"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,6 +36,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
+
+# the window lengths the symbol-loop kernels take (csrc/psk_common.cuh
+# kMinWindow, kMaxWindow): 4 to 64 samples a symbol
+MIN_WINDOW, MAX_WINDOW = 8, 128
 
 _locks: dict[str, threading.Lock] = {}
 _locks_guard = threading.Lock()
@@ -123,3 +129,35 @@ def check_inputs(kernel: str, demod, x: torch.Tensor, state) -> torch.Tensor:
         check_tensor(kernel, name, getattr(state, name),
                      torch.float32 if i < 4 else torch.complex64, (c,), dev)
     return x
+
+
+def lane_layout(w: int) -> tuple[int, int, int]:
+    """(G, K, ring size) the symbol-loop kernels launch with at window
+    length w (csrc/psk_common.cuh ``with_lanes`` and ``ring_size``): G
+    lanes a channel, K mixes a lane per pass, the delay line a ring of the
+    smallest power of two at least w and at least G * K samples."""
+    g, k = (8, 1) if w <= 12 else (16, 1) if w <= 31 else \
+        (32, 1) if w <= 63 else (32, 2)
+    return g, k, ring_size(w, g * k)
+
+
+def ring_size(w: int, n: int) -> int:
+    """The symbol-loop kernels' delay-line ring for window length w and a
+    pass of n samples (csrc/psk_common.cuh ``ring_size``): the smallest
+    power of two at least w and at least n."""
+    size = 1
+    while size < max(w, n):
+        size *= 2
+    return size
+
+
+def check_window(kernel: str, demod) -> None:
+    """Raise ValueError unless the symbol loop's window length is one the
+    kernels take; checked before any build or launch."""
+    w = demod.window_len
+    if not MIN_WINDOW <= w <= MAX_WINDOW:
+        raise ValueError(
+            f"{kernel}: window length W = {w} ({demod.sample_rate} Hz, "
+            f"{demod.symbol_rate} Bd) is outside the kernel's "
+            f"[{MIN_WINDOW}, {MAX_WINDOW}]: at most {MAX_WINDOW // 2} "
+            f"samples a symbol")

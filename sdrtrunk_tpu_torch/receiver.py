@@ -166,7 +166,7 @@ class WidebandReceiver(_SlotReceiver):
 
     def __init__(self, sample_rate: float, channel_offsets,
                  channel_bandwidth: float = 12500.0,
-                 taps_per_channel: int = 9, decoder="c4fm",
+                 taps_per_channel: int = 9, decoder="nbfm",
                  channel_bandwidths=None, device="cuda"):
         device = resolve_device(device)
         super().__init__(sample_rate, channel_bandwidth, taps_per_channel,

@@ -98,8 +98,15 @@ class ChannelSlot:
 
 
 def ingest(x: torch.Tensor) -> torch.Tensor:
-    """Wire format -> float: int8 IQ pairs scale by 1/127; float pairs and
-    complex pass through."""
+    """Wire format -> float: int8 IQ pairs scale by 1/127; uint8 (N,) is
+    packed 4-bit IQ (high nibble I, low nibble Q, two's complement; the
+    ``ingest_format="int4"`` wire format), each nibble scaled by 16/127;
+    float pairs and complex pass through."""
+    if x.dtype == torch.uint8:
+        xi = x.to(torch.int32)
+        i4 = (((xi >> 4) + 8) & 15) - 8
+        q4 = (((xi & 15) + 8) & 15) - 8
+        return torch.stack([i4, q4], -1).to(torch.float32) * (16.0 / 127.0)
     if x.dtype == torch.int8:
         return x.to(torch.float32) * (1.0 / 127.0)
     return x
@@ -276,6 +283,12 @@ class Orchestrator:
             kinds and for ``banks``.
     audio_format: the analog bank's PCM transfer, "mulaw8" or "int16"
             (the mixed bank always sends mu-law).
+    ingest_format: "auto" passes the source's samples on as they come
+            (int8 pairs, float pairs, complex); "int4" packs each sample
+            into one byte of 4-bit I and Q on the host (``_prepare``),
+            unpacked on the device (``ingest``): the reference's
+            slow-link wire format, whose quantization floor costs about a
+            third of DMR frames at 1023 carriers (README).
     channel_map: FrequencyBand that maps MPT1327 traffic channel numbers
             to frequencies (the reference's user channel map).
     host_process: run a digital single-kind bank's host layer (framer,
@@ -324,11 +337,7 @@ class Orchestrator:
         for kind in {decoder, *(k for k, _ in self.banks or ())}:
             if kind not in _PROTOCOL_LABELS:
                 raise ValueError(f"unknown decoder kind {kind!r}")
-        if ingest_format == "int4":
-            raise NotImplementedError(
-                "the int4 wire format is not ported: it was a slow-link "
-                "compromise (ROADMAP, what the port does not copy)")
-        if ingest_format != "auto":
+        if ingest_format not in ("auto", "int4"):
             raise ValueError(f"unknown ingest_format {ingest_format!r}")
         if audio_format not in ("mulaw8", "int16"):
             raise ValueError(f"unknown audio_format {audio_format!r}")
@@ -833,13 +842,22 @@ class Orchestrator:
 
     def _prepare(self, iq: np.ndarray) -> np.ndarray:
         """Host-side wire format: int8 (n, 2) passes raw, complex becomes
-        float32 (n, 2) pairs. The IQ recording tap writes here."""
+        float32 (n, 2) pairs; with ``ingest_format="int4"`` either becomes
+        packed 4-bit uint8 (n,), one byte a sample (``ingest`` unpacks it
+        on the device). The IQ recording tap writes here."""
         iq = np.asarray(iq)
         if self._iq_writer is not None:
             self._iq_writer.write(iq.astype(np.float32) / 127.0
                                   if iq.dtype == np.int8 else iq)
         if np.iscomplexobj(iq):
             iq = np.stack([iq.real, iq.imag], -1).astype(np.float32)
+        if self.ingest_format == "int4":
+            if iq.dtype == np.int8:
+                v = np.clip(np.round(iq.astype(np.float32) / 16.0),
+                            -8, 7).astype(np.int32)
+            else:
+                v = np.clip(np.round(iq * 7.0), -8, 7).astype(np.int32)
+            return (((v[:, 0] & 15) << 4) | (v[:, 1] & 15)).astype(np.uint8)
         return iq
 
     def _upload(self, iq: np.ndarray) -> torch.Tensor:

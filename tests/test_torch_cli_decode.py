@@ -5,8 +5,10 @@ lines, message for message.
 Captures: tests/test_cli.py's P25 Phase 1 capture and its two-channel P25
 replay (chip_smoke.replay_scene, the same construction); the decode
 scenes that chip_smoke's ``cli`` phase runs on the card
-(chip_smoke.decode_scenes: DMR, P25 Phase 2 with its scramble key, LTR and
-MPT1327), the LTR one also through the LTR-Net and Passport framers; the
+(chip_smoke.decode_scenes: DMR, P25 Phase 2 with its scramble key, LTR,
+MPT1327, and the P25 capture at 48 kHz, which both CLIs decode at the
+capture's rate: the DQPSK loop at W = 20), the LTR one also through the
+LTR-Net and Passport framers; the
 P25 capture LSM-modulated through p25p1-lsm; an NBFM and an AM tone with
 --audio, the written audio within 1 LSB of int16.
 """
@@ -26,7 +28,7 @@ torch.set_num_threads(1)
 @pytest.fixture(scope="module")
 def scenes(tmp_path_factory):
     d = tmp_path_factory.mktemp("scenes")
-    return {p: (path, flags) for p, path, flags, _ in
+    return {scene: (p, path, flags) for scene, p, path, flags, _ in
             chip_smoke.decode_scenes(d)}
 
 
@@ -44,11 +46,12 @@ def test_decode_p25(tmp_path):
 
 @pytest.mark.parametrize("protocol,scene", [
     ("dmr", "dmr"), ("p25p2", "p25p2"), ("ltr", "ltr"),
-    ("mpt1327", "mpt1327"), ("ltrnet", "ltr"), ("passport", "ltr")])
+    ("mpt1327", "mpt1327"), ("ltrnet", "ltr"), ("passport", "ltr"),
+    ("p25p1", "p25p1_48k")])
 def test_decode_scene(scenes, protocol, scene):
-    path, flags = scenes[scene]
+    scene_protocol, path, flags = scenes[scene]
     out = _same_lines(["decode", path, "--protocol", protocol, *flags])
-    if protocol == scene:
+    if protocol == scene_protocol:
         assert out[-1]["messages"] > 0
 
 

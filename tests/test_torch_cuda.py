@@ -81,10 +81,14 @@ def test_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="window"):
         demod.batched(torch.zeros((3, 16), dtype=torch.complex64,
                                   device=card), s0)
-    odd = DQPSKDemodulator(70000.0, 4800.0, device=card)      # W = 29
-    with pytest.raises(RuntimeError, match="W=29"):
-        odd.batched(torch.zeros((2, 16), dtype=torch.complex64, device=card),
-                    _state(odd, 2))
+    # above the kernels' widest window (W = 128): refused before a launch
+    launches = dqpsk_cuda.dqpsk_cuda.launches
+    wide = DQPSKDemodulator(312000.0, 4800.0, device=card)    # W = 130
+    with pytest.raises(ValueError, match="W = 130 .*312000.0 Hz, 4800.0 Bd"
+                                         r".*\[8, 128\]"):
+        wide.batched(torch.zeros((2, 16), dtype=torch.complex64,
+                                 device=card), _state(wide, 2))
+    assert dqpsk_cuda.dqpsk_cuda.launches == launches
 
 
 @pytest.mark.cuda
@@ -172,10 +176,13 @@ def test_gardner_kernel_rejects_what_it_does_not_take(card):
         demod.batched(torch.zeros((2, 16), dtype=torch.complex64,
                                   device=card),
                       s0._replace(prev_cur_symbol=s0.pll_freq))
-    odd = GardnerDQPSKDemodulator(30000.0, device=card)     # W = 12
-    with pytest.raises(ValueError, match="instantiation"):
-        odd.batched(torch.zeros((2, 16), dtype=torch.complex64, device=card),
-                    _gstate(odd, 2))
+    launches = gardner_cuda.gardner_cuda.launches
+    wide = GardnerDQPSKDemodulator(312000.0, device=card)    # W = 130
+    with pytest.raises(ValueError, match="W = 130 .*312000.0 Hz, 4800.0 Bd"
+                                         r".*\[8, 128\]"):
+        wide.batched(torch.zeros((2, 16), dtype=torch.complex64,
+                                 device=card), _gstate(wide, 2))
+    assert gardner_cuda.gardner_cuda.launches == launches
 
 
 # (kernel, sample rate, baud, timing gain): C4FM, DMR, LSM, P25 Phase 2,
@@ -368,6 +375,14 @@ def test_bit_timing_kernel_rejects_what_it_does_not_take(card):
         bit_timing(geom, x, window, sp[:2])
     with pytest.raises(ValueError, match=r"\(C, T\)"):
         bit_timing(geom, x[0], window, sp)
+    # a delay line longer than the kernel's 64-bit word (LTR at 16 kHz,
+    # W = 106), refused before a launch; the plain loop takes it
+    wide = LTRFSKDemodulator(sample_rate=16000.0, device="cpu").geometry
+    x, window, sp = _timing_block(wide, 8, 16, 1, card)
+    launches = bit_timing_cuda.bit_timing_cuda.launches
+    with pytest.raises(ValueError, match="W = 106 .* above the kernel's 64"):
+        bit_timing(wide, x, window, sp)
+    assert bit_timing_cuda.bit_timing_cuda.launches == launches
 
 
 @pytest.mark.cuda
@@ -417,17 +432,19 @@ def test_ltr_live_decoder_on_card_matches_cpu(card):
 
 
 @pytest.mark.cuda
-def test_cli_decode_on_card_matches_cpu(card, tmp_path):
+@pytest.mark.parametrize("scene", ["p25p1", "p25p1_48k"])
+def test_cli_decode_on_card_matches_cpu(card, tmp_path, scene):
     """``decode --protocol p25p1`` prints the same messages on the card (one
-    DQPSK launch) as with --platform cpu (the plain loop)."""
+    DQPSK launch; at W = 20 for the 48 kHz capture) as with --platform cpu
+    (the plain loop)."""
     import contextlib
     import io
 
     import chip_smoke
     from sdrtrunk_tpu_torch import cli
 
-    path = next(p for name, p, _, _ in chip_smoke.decode_scenes(tmp_path)
-                if name == "p25p1")
+    path = next(p for name, _, p, _, _ in chip_smoke.decode_scenes(tmp_path)
+                if name == scene)
 
     def decode(*platform):
         out = io.StringIO()
@@ -440,6 +457,29 @@ def test_cli_decode_on_card_matches_cpu(card, tmp_path):
     assert dqpsk_cuda.dqpsk_cuda.launches == before + 1
     assert on_card == decode("--platform", "cpu")
     assert '"messages": 2' in on_card[-1]
+
+
+@pytest.mark.cuda
+def test_int4_unpack_on_card_matches_cpu(card):
+    """ingest_format="int4": a chunk packed on the host (``_prepare``)
+    unpacks on the card (``ingest``) to the CPU's floats bit for bit, and
+    the bank runs a chunk of it on the card."""
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator, ingest
+
+    args = dict(slots=4, bank_mode=True, ppm_correction=False,
+                ingest_format="int4")
+    orch = Orchestrator(lambda n: None, 800000.0, 450e6, [0.0],
+                        device=card, **args)
+    rng = np.random.default_rng(6)
+    iq8 = rng.integers(-128, 128, (orch.chunk_samples, 2)).astype(np.int8)
+    packed = orch._prepare(iq8)
+    assert packed.dtype == np.uint8 and packed.shape == (orch.chunk_samples,)
+    on_card = ingest(torch.as_tensor(packed, device=card))
+    assert on_card.device.type == "cuda"
+    assert torch.equal(on_card.cpu(), ingest(torch.as_tensor(packed)))
+    metrics = orch.run_chunk(iq8)
+    assert metrics["samples"] == orch.chunk_samples
+    orch.close()
 
 
 def _per_channel_input(kind: str) -> np.ndarray:

@@ -354,7 +354,33 @@ def test_crossing_rules(crossings, want_error):
 
 
 def test_geometry_is_checked():
+    """The crossing window must lie in the delay line, as the vote window
+    must; the line itself may be longer than the kernel's 64 decisions
+    (the plain loop takes any W, as the reference does; the kernel's
+    wrapper refuses W > 64, tests/test_torch_symbol_loop.py)."""
     with pytest.raises(ValueError, match="window_len"):
-        BitTimingGeometry(65, 16, 32, 33, 16.0, 32.0, 0.25, True)
+        BitTimingGeometry(16, 4, 8, 17, 8.0, 8.0, 0.25, True)
+    assert BitTimingGeometry(65, 16, 32, 33, 16.0, 32.0, 0.25,
+                             True).window_len == 65
     with pytest.raises(ValueError, match="vote window"):
         BitTimingGeometry(12, 8, 6, 7, 3.0, 6.0, 0.3, False)
+
+
+def test_fsk_above_the_kernels_window_matches_reference():
+    """LTR's demodulator at 16 kHz audio (W = 106, above the kernel's
+    64-decision line) on the CPU against the reference at the same rate:
+    the plain loop takes any W."""
+    jd = JFSK(sample_rate=16000.0)
+    td = LTRFSKDemodulator(sample_rate=16000.0, device="cpu")
+    assert td.window_len == jd.window_len == 106
+    rng = np.random.default_rng(3)
+    audio = _fsk_modulate(rng.integers(0, 2, 60).astype(np.uint8),
+                          fs=16000.0)
+    audio = (audio + 0.05 + 0.05 * rng.standard_normal(len(audio))
+             ).astype(np.float32)
+    jbits, jvalid, jstate = jax.jit(jd.__call__)(jnp.asarray(audio),
+                                                 jd.init_state())
+    bits, valid, state = td.batched(torch.as_tensor(audio)[None],
+                                    _batched(td.init_state()))
+    _check_symbols(bits, valid, jbits, jvalid, len(audio) * 300 / 16000)
+    _check_fsk_state(state, jstate)

@@ -331,11 +331,13 @@ def test_gardner_kernel_build_failure_raises_without_fallback(monkeypatch):
 
 
 def test_gardner_wrapper_rejects_a_window_without_instantiation(monkeypatch):
+    """The kernel is instantiated for every W up to 128 (a lane layout
+    each); above it the wrapper raises before building."""
     monkeypatch.setattr(gardner_cuda, "build", lambda: None)
-    demod = GardnerDQPSKDemodulator(30000.0, device="cpu")      # W = 12
+    demod = GardnerDQPSKDemodulator(312000.0, device="cpu")     # W = 130
     state = GardnerState(*[a.expand((1,) + a.shape).clone()
                            for a in demod.init_state()])
-    with pytest.raises(ValueError, match="instantiation"):
+    with pytest.raises(ValueError, match=r"W = 130 .*\[8, 128\]"):
         gardner_cuda.gardner_cuda(
             demod, torch.zeros((1, 8), dtype=torch.complex64), state)
 

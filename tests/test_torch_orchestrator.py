@@ -8,6 +8,14 @@ traffic slot while running, the call there must become one AudioSegment
 when the call goes idle. Both orchestrators start from one state, carried
 across with convert.py, and must give the same events, frame counts,
 audio and metrics trace.
+
+ingest_format="int4", the reference's packed 4-bit wire format: the
+host-side pack equals the reference's ``_prepare`` byte for byte (int8,
+float and complex input), the unpack equals the reference's ``ingest``
+for every byte value, and the reference's own int4 scene
+(tests/test_orchestrator_bank.py::test_int4_ingest_decodes_like_int8)
+run through the port passes that test's assertions against the port's
+int8 run above.
 """
 import json
 
@@ -178,15 +186,105 @@ def test_run_chunk_processes_one_chunk():
     assert json.loads(lines[-1]) == metrics
 
 
-@pytest.mark.parametrize("kwargs", [{"ingest_format": "int4"}])
-def test_unported_options_raise(kwargs):
-    """The one option the port leaves out by decision: the int4 wire
-    format."""
-    args = dict(slots=4, bank_mode=True, device="cpu")
-    args.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.fixture(scope="module")
+def int4_pair():
+    """A JAX and a port orchestrator with ingest_format="int4" (nothing
+    run)."""
+    args = dict(slots=4, bank_mode=True, ppm_correction=False,
+                ingest_format="int4")
+    return (JOrchestrator(lambda n: None, to.FS, to.CENTER_HZ,
+                          [to.CONTROL_OFF], **args),
+            Orchestrator(lambda n: None, to.FS, to.CENTER_HZ,
+                         [to.CONTROL_OFF], device="cpu", **args))
+
+
+@pytest.mark.parametrize("kind", ["int8", "float", "complex"])
+def test_int4_pack_equals_reference(int4_pair, kind):
+    """The host-side pack (``_prepare``): int8 pairs, float pairs and
+    complex samples, full scale and beyond it, become the reference's
+    bytes exactly."""
+    jorch, orch = int4_pair
+    rng = np.random.default_rng(4)
+    if kind == "int8":
+        iq = rng.integers(-128, 128, (4096, 2)).astype(np.int8)
+    else:
+        iq = (rng.standard_normal((4096, 2)) * 0.6).astype(np.float32)
+        if kind == "complex":
+            iq = (iq[:, 0] + 1j * iq[:, 1]).astype(np.complex64)
+    got, want = orch._prepare(iq), jorch._prepare(iq)
+    assert got.dtype == want.dtype == np.uint8 and got.shape == (4096,)
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got)) > 200                # every nibble pair used
+
+
+def _closure_fn(fn, name, seen=None):
+    """The function called `name` among fn's closures (the reference's
+    ``ingest`` is local to its ``_build_live_step``)."""
+    seen = set() if seen is None else seen
+    fn = getattr(fn, "__wrapped__", fn)
+    if id(fn) in seen or not callable(fn) or not hasattr(fn, "__closure__"):
+        return None
+    seen.add(id(fn))
+    if fn.__name__ == name:
+        return fn
+    for cell in fn.__closure__ or ():
+        found = _closure_fn(cell.cell_contents, name, seen)
+        if found is not None:
+            return found
+    return None
+
+
+def test_int4_unpack_equals_reference(int4_pair):
+    """The device-side unpack (``ingest`` of uint8): every byte value
+    gives the reference's two floats exactly."""
+    from sdrtrunk_tpu_torch.runtime.orchestrator import ingest
+
+    jorch, _ = int4_pair
+    ref_ingest = _closure_fn(jorch.step, "ingest")
+    assert ref_ingest is not None
+    b = np.arange(256, dtype=np.uint8)
+    got = ingest(torch.as_tensor(b))
+    want = np.asarray(ref_ingest(jax.numpy.asarray(b)))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (256, 2)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def int4_run():
+    """The port's bank on the capture of ``runs`` through
+    ingest_format="int4" (tests/test_orchestrator_bank.py's
+    bank_run_int4)."""
+    orch = Orchestrator(_source(_capture()), to.FS, to.CENTER_HZ,
+                        [to.CONTROL_OFF], slots=4, chunk_samples=64 * 256,
+                        idle_teardown_seconds=0.6, bank_mode=True,
+                        ingest_format="int4", device="cpu")
+    orch.run()
+    return orch
+
+
+def test_int4_ingest_decodes_like_int8(runs, int4_run):
+    """tests/test_orchestrator_bank.py::test_int4_ingest_decodes_like_int8
+    on the port: the int4 run follows the grant and gives the int8 run's
+    one call, of the same length, and its frames within two."""
+    _, _, ref, _ = runs
+    orch = int4_run
+    freq = to.CENTER_HZ + to.TRAFFIC_OFF
+    assert not orch.skipped_grants
+    assert [e for e in orch.events
+            if e.frequency_hz == pytest.approx(freq)]
+    segs = [s for s in orch.audio_segments if s.duration > 0]
+    ref_segs = [s for s in ref.audio_segments if s.duration > 0]
+    assert len(segs) == len(ref_segs) == 1
+    assert segs[0].duration == pytest.approx(ref_segs[0].duration)
+    f4 = sum(s["frames"] for s in orch.channel_status())
+    f8 = sum(s["frames"] for s in ref.channel_status())
+    assert f4 >= f8 - 2, (f4, f8)
+
+
+def test_unknown_ingest_format_raises():
+    with pytest.raises(ValueError, match="unknown ingest_format 'int2'"):
         Orchestrator(lambda n: None, to.FS, to.CENTER_HZ, [to.CONTROL_OFF],
-                     **args)
+                     slots=4, ingest_format="int2", device="cpu")
 
 
 def _mode(orch):

@@ -3,18 +3,23 @@
 csrc/psk_common.cuh's symbol_loop walks each channel symbol by symbol:
 the run up to the next symbol (its length n from sp iterated down, its
 phases from the chain of wrap(ph + fr)), the run's mixes spread over G
-lanes of K mixes each, written into a ring of 16 samples, then the symbol
-step on the window read from the ring; a pass ends at a symbol, at G * K
-samples or at T. ``symbol_major`` below is a scalar Python model of that
+lanes of K mixes each, written into a ring (the smallest power of two at
+least W and at least G * K samples), then the symbol step on the window
+read from the ring; a pass ends at a symbol, at G * K samples or at T.
+(G, K) and the ring come from the kernels' rule for the window length W
+(``nvcc.lane_layout``, held to psk_common.cuh's ``with_lanes``). ``symbol_major`` below is a scalar Python model of that
 control flow for one channel at a time, built from the plain loops' own
 arithmetic (dsp/psk.py's _Loop), so it must equal ``scan_packed`` bit for
 bit: output bytes and every state leaf. The cases are the ones the new
 order creates: channels whose symbol rates are spread over +/-2% (lanes
 drift apart), T = 1, a T that no run length divides, a state with a symbol
 due at t = 0, two calls with carried state, and (G, K) layouts whose pass
-is shorter than a run, so that a run takes several passes.
+is shorter than a run, so that a run takes several passes; at the live
+widths (W = 10, 11, 16) and at W = 13, 20, 21, 32, 40 and 80 (captures at
+32 to 192 kHz, and 25 kHz channels).
 """
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -22,6 +27,8 @@ import pytest
 import torch
 
 from sdrtrunk_tpu_torch.dsp.interpolator import CENTER, NSTEPS, NTAPS
+from sdrtrunk_tpu_torch.dsp.nvcc import (MAX_WINDOW, MIN_WINDOW, lane_layout,
+                                         ring_size)
 from sdrtrunk_tpu_torch.dsp.psk import (DQPSKDemodulator, DQPSKState,
                                         GardnerDQPSKDemodulator, GardnerState,
                                         _Loop)
@@ -32,23 +39,41 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "sdrtrunk_tpu_torch" / "csrc"
-RING = 16                                   # psk_common.cuh kRing
-# (kind, sample rate, baud, gain, the kernel's (G, K))
-LOOPS = {"dqpsk": ("dqpsk", 25000.0, 4800.0, 0.3, (8, 1)),
-         "lsm": ("gardner", 25000.0, 4800.0, 0.3, (8, 1)),
-         "p25p2": ("gardner", 50000.0, 6000.0, 0.1, (16, 1))}
+# (kind, sample rate, baud, gain): the live widths, then the wider ones
+# (W in the name) of captures and 25 kHz channels (50 kHz) at other rates
+LOOPS = {"dqpsk": ("dqpsk", 25000.0, 4800.0, 0.3),
+         "lsm": ("gardner", 25000.0, 4800.0, 0.3),
+         "p25p2": ("gardner", 50000.0, 6000.0, 0.1),
+         "dqpsk_w13": ("dqpsk", 32000.0, 4800.0, 0.3),
+         "lsm_w13": ("gardner", 32000.0, 4800.0, 0.3),
+         "dqpsk_w20": ("dqpsk", 48000.0, 4800.0, 0.3),
+         "lsm_w20": ("gardner", 50000.0, 4800.0, 0.3),
+         "dmr_w21": ("dqpsk", 51200.0, 4800.0, 0.4),
+         "p25p2_w21": ("gardner", 64000.0, 6000.0, 0.1),
+         "dqpsk_w32": ("dqpsk", 76800.0, 4800.0, 0.3),
+         "p25p2_w32": ("gardner", 96000.0, 6000.0, 0.1),
+         "dqpsk_w40": ("dqpsk", 96000.0, 4800.0, 0.3),
+         "lsm_w40": ("gardner", 96000.0, 4800.0, 0.3),
+         "dqpsk_w80": ("dqpsk", 192000.0, 4800.0, 0.3),
+         "lsm_w80": ("gardner", 192000.0, 4800.0, 0.3)}
 
 
 def _demod(name):
-    kind, rate, baud, gain, _ = LOOPS[name]
+    kind, rate, baud, gain = LOOPS[name]
     cls = DQPSKDemodulator if kind == "dqpsk" else GardnerDQPSKDemodulator
     return cls(rate, baud, gain, device="cpu")
+
+
+def _t(demod, symbols: int) -> int:
+    """A block length that holds about `symbols` symbols and that no run
+    length divides (odd, and not a multiple of the samples a symbol)."""
+    return int(symbols * demod.samples_per_symbol) | 1
 
 
 def _block(name, c: int, t: int, seed: int, spread: float = 0.0):
     """(c, t) complex64 at 30 dB; channel i's symbol rate is baud times
     1 + spread * (2 i / (c - 1) - 1)."""
-    kind, rate, baud, _, _ = LOOPS[name]
+    kind, rate, baud, _ = LOOPS[name]
     rows = []
     for i in range(c):
         b = baud * (1.0 + spread * (2.0 * i / max(c - 1, 1) - 1.0))
@@ -108,11 +133,13 @@ def _gardner_step(lp, demod, win, sp1, phase, tm, prev, prev_sym):
 
 
 def symbol_major(demod, x: torch.Tensor, state, g: int, k: int):
-    """Scalar model of symbol_loop: (T, C) uint8 packed bytes and the new
+    """Scalar model of symbol_loop with G = g lanes of k mixes and the
+    kernels' ring for (W, g * k): (T, C) uint8 packed bytes and the new
     state, channel by channel."""
     gardner = isinstance(demod, GardnerDQPSKDemodulator)
     c_all, t_all = x.shape
     w = demod.window_len
+    RING = ring_size(w, g * k)
     out = torch.zeros((t_all, c_all), dtype=torch.uint8)
     leaves = [[] for _ in state]
     for c in range(c_all):
@@ -177,26 +204,52 @@ def _assert_equal(got, want):
         assert torch.equal(a, b), name
 
 
+def test_layout_rule_matches_the_kernels():
+    """nvcc.lane_layout is psk_common.cuh's with_lanes (the W bounds of
+    each (G, K) branch, read from the source) and kMinWindow /
+    kMaxWindow; the live widths keep their layouts (8 lanes at W = 10 and
+    11, 16 at W = 16) and the ring of 16 samples."""
+    header = (CSRC / "psk_common.cuh").read_text()
+    body = header[header.index("int with_lanes("):]
+    body = body[:body.index("\n}\n")]
+    rows = [(int(w) if w else MAX_WINDOW, int(g), int(k)) for w, g, k in
+            re.findall(r"(?:W <= (\d+)\) \{|else \{)\s*launch\(Lanes<(\d+), "
+                       r"(\d+)>", body)]
+    assert len(rows) == 4
+    assert f"kMinWindow = {MIN_WINDOW};" in header
+    assert f"kMaxWindow = {MAX_WINDOW};" in header
+    for w in range(MIN_WINDOW, MAX_WINDOW + 1):
+        g, k = next((g, k) for top, g, k in rows if w <= top)
+        assert lane_layout(w) == (g, k, ring_size(w, g * k)), w
+    assert [lane_layout(w) for w in (10, 11, 16)] == [(8, 1, 16)] * 2 + [
+        (16, 1, 16)]
+    assert [_demod(n).window_len for n in LOOPS] == [
+        10, 11, 16, 13, 13, 20, 20, 21, 21, 32, 32, 40, 40, 80, 80]
+
+
 @pytest.mark.parametrize("name", list(LOOPS))
 def test_kernel_layout_equals_plain_loop_with_drift(name):
-    """The kernel's (G, K), channels spread over +/-2% of the symbol rate,
-    and T = 301, which no run length divides."""
+    """The kernel's (G, K) and ring, channels spread over +/-2% of the
+    symbol rate, and a T that no run length divides (301 at the live
+    widths, about 40 symbols above)."""
     demod = _demod(name)
-    x = _block(name, 4, 301, 3, spread=0.02)
+    t = max(301, _t(demod, 40))
+    x = _block(name, 4, t, 3, spread=0.02)
     s0 = _state(demod, 4)
     want = demod.scan_packed(x, s0)
     assert int((want[0] >= 4).sum()) > 4 * 301 / 10      # symbols flowed
-    _assert_equal(symbol_major(demod, x, s0, *LOOPS[name][4]), want)
+    g, k, _ = lane_layout(demod.window_len)
+    _assert_equal(symbol_major(demod, x, s0, g, k), want)
 
 
 @pytest.mark.parametrize("gk", [(1, 10), (4, 1), (2, 3)],
                          ids=["one-lane", "short-pass", "two-lanes"])
-@pytest.mark.parametrize("name", ["dqpsk", "p25p2"])
+@pytest.mark.parametrize("name", ["dqpsk", "p25p2", "dqpsk_w40"])
 def test_other_layouts_equal_plain_loop(name, gk):
-    """One lane mixing a whole run, and passes shorter than a run (a run
-    spans several passes)."""
+    """One lane mixing a run, and passes shorter than a run (a run spans
+    several passes; at W = 40, every layout here)."""
     demod = _demod(name)
-    x = _block(name, 2, 157, 11)
+    x = _block(name, 2, max(157, _t(demod, 8)), 11)
     s0 = _state(demod, 2)
     _assert_equal(symbol_major(demod, x, s0, *gk), demod.scan_packed(x, s0))
 
@@ -206,19 +259,49 @@ def test_edges_t1_due_at_zero_and_carried_state(name):
     """T = 1; a channel with a symbol due at t = 0 (sp < 2); two calls
     with carried state equal one."""
     demod = _demod(name)
-    gk = LOOPS[name][4]
-    x = _block(name, 3, 120, 5)
+    gk = lane_layout(demod.window_len)[:2]
+    t = max(120, _t(demod, 12))
+    split = t * 2 // 5
+    x = _block(name, 3, t, 5)
     s0 = _state(demod, 3)
     s0.sampling_point[1] = 1.5
-    for t in (1, 120):
-        xs = x[:, :t]
+    for n in (1, t):
+        xs = x[:, :n]
         _assert_equal(symbol_major(demod, xs, s0, *gk),
                       demod.scan_packed(xs, s0))
-    out1, s1 = symbol_major(demod, x[:, :53], s0, *gk)
-    out2, s2 = symbol_major(demod, x[:, 53:], s1, *gk)
+    out1, s1 = symbol_major(demod, x[:, :split], s0, *gk)
+    out2, s2 = symbol_major(demod, x[:, split:], s1, *gk)
     want = demod.scan_packed(x, s0)
     _assert_equal((torch.cat([out1, out2]), s2), want)
     assert want[0][0, 1] >= 4                            # due at t = 0
+
+
+@pytest.mark.parametrize("kind", ["dqpsk", "gardner", "bit_timing"])
+def test_wrappers_refuse_a_window_above_their_kernel(kind):
+    """Each kernel's wrapper raises ValueError for a window length above
+    its kernel's, before it builds or launches anything (here, with no
+    nvcc and no card, a build or a launch would raise something else):
+    W = 130 for the symbol loops (above 128, at 312 kHz and 4800 Bd),
+    W = 65 for bit timing (above its 64-bit delay line)."""
+    from sdrtrunk_tpu_torch.dsp import bit_timing_cuda, dqpsk_cuda, gardner_cuda
+    from sdrtrunk_tpu_torch.dsp.bit_timing import BitTimingGeometry
+
+    if kind == "bit_timing":
+        geom = BitTimingGeometry(65, 16, 32, 33, 16.0, 32.0, 0.25, True)
+        with pytest.raises(ValueError, match="W = 65 .*above the kernel's 64"):
+            bit_timing_cuda.bit_timing_cuda(
+                geom, torch.zeros((2, 16)), torch.zeros((2, 65), dtype=torch.int8),
+                torch.ones(2))
+        return
+    cls, wrapper = ((DQPSKDemodulator, dqpsk_cuda.dqpsk_cuda)
+                    if kind == "dqpsk" else
+                    (GardnerDQPSKDemodulator, gardner_cuda.gardner_cuda))
+    demod = cls(312000.0, 4800.0, device="cpu")
+    assert demod.window_len == 130
+    with pytest.raises(ValueError, match=r"W = 130 \(312000.0 Hz, 4800.0 Bd\)"
+                                         r".*\[8, 128\]"):
+        wrapper(demod, torch.zeros((2, 16), dtype=torch.complex64),
+                _state(demod, 2))
 
 
 def test_split_tool_finds_its_markers():
@@ -237,6 +320,6 @@ def test_split_tool_finds_its_markers():
     assert all("read_clk" in text for text in src.values())
     h, _ = tool.instrument(header, sources, False, True, False)
     assert "mix(xb[k], phs[k])" not in h
-    _, src = tool.instrument(header, sources, False, False, True)
-    assert src["gardner"].count("launch<16, 1, 10>") == 1
-    assert src["dqpsk"].count(", 1, 7>(") == 5
+    h, _ = tool.instrument(header, sources, False, False, True)
+    assert h.count("launch(Lanes<1, 7>{})") == 1
+    assert h.count("launch(Lanes<1, 10>{})") == 1

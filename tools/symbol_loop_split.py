@@ -90,6 +90,8 @@ extern "C" int read_clk(void* dst, int n) {
   return static_cast<int>(cudaMemcpyFromSymbol(dst, psk::g_clk, n * 8));
 }
 """
+# with_lanes' layouts of the live widths (W = 10 and 11; W = 16)
+_LANES_8, _LANES_16 = "Lanes<8, 1>", "Lanes<16, 1>"
 _NO_TRIG = ((r"mix\(xb\[k\], phs\[k\]\)",
              "make_float2(xb[k].x * phs[k], xb[k].y - phs[k])"),
             (r"mix\(xv, phase\)", "make_float2(xv.x * phase, xv.y - phase)"))
@@ -115,6 +117,11 @@ def instrument(header: str, sources: dict, clock: bool, no_trig: bool,
     out = dict(sources)
     if clock and major:
         header = _replace_all(header, _CLOCK_SYMBOL_MAJOR, "psk_common.cuh")
+    if one_lane:
+        # G = 1 lane a channel; K covers a run: 7 up to W = 12, 10 to W = 31
+        header = _replace_all(header, ((_LANES_8, "Lanes<1, 7>"),
+                                       (_LANES_16, "Lanes<1, 10>")),
+                              "psk_common.cuh")
     for name, text in out.items():
         if clock and not major:
             text = _replace_all(text, _CLOCK_PER_SAMPLE, name)
@@ -124,12 +131,6 @@ def instrument(header: str, sources: dict, clock: bool, no_trig: bool,
             for pat, new in _NO_TRIG:
                 text = re.sub(pat, new, text)
                 header = re.sub(pat, new, header)
-        if one_lane:
-            # G = 1 lane a channel; K covers a run: 10 at W = 16, else 7
-            text = re.sub(r"launch<(\d+), \d+, \d+>",
-                          lambda m: f"launch<{m.group(1)}, 1, "
-                                    f"{10 if m.group(1) == '16' else 7}>",
-                          text)
         out[name] = text
     return header, out
 
@@ -161,14 +162,16 @@ def _load(so: Path, name: str, clock: bool):
 
 
 def sass_counts(so: Path) -> dict:
-    """DMUL, DADD and BSSY counts per kernel function of a library."""
+    """DMUL, DADD and BSSY counts per kernel function (lane layout) of a
+    library."""
     txt = subprocess.run(["cuobjdump", "-sass", str(so)], capture_output=True,
                          text=True).stdout
     counts, fn = {}, None
     for line in txt.splitlines():
-        m = re.search(r"Function : \S*?(dqpsk|gardner)_kernelILi(\d+)E", line)
-        if m:
-            fn = f"{m.group(1)}<W={m.group(2)}>"
+        m = re.search(r"Function : \S*?(dqpsk|gardner)_kernelI((?:Li\d+E)+)E",
+                      line)
+        if m:                           # <G, K>, or <W, G, K> before
+            fn = f"{m.group(1)}<{', '.join(re.findall(r'\d+', m.group(2)))}>"
             counts[fn] = Counter()
             continue
         m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]+)",
@@ -224,7 +227,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
-    from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda
+    from sdrtrunk_tpu_torch.dsp import dqpsk_cuda, gardner_cuda, nvcc
 
     if not torch.cuda.is_available():
         print("symbol_loop_split.py needs a CUDA card", file=sys.stderr)
@@ -282,10 +285,9 @@ def main() -> int:
                    "shape": [cs.KERNEL_C, t],
                    "ms": _ms(lambda: demod._kernel(x, s0))}
             if clock:
-                src = (OUT / f"{tag}_{copy}" / f"{kind}.cu").read_text()
-                m = re.search(rf"launch<{demod.window_len}, (\d+), \d+>", src)
-                rec.update(_split(libs[(copy, kind)], major,
-                                  int(m.group(1)) if m else 1, t))
+                lanes = (nvcc.lane_layout(demod.window_len)[0]
+                         if major and not one else 1)
+                rec.update(_split(libs[(copy, kind)], major, lanes, t))
             print(json.dumps(rec), flush=True)
     print(cs._card(), flush=True)
     return 0
