@@ -18,10 +18,12 @@ build, in this order; an unknown name raises. Each phase raises on
 failure (the exit code is then not 0):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: the three kernels, sdrtrunk_tpu_torch/csrc/dqpsk.cu, gardner.cu
-   and bit_timing.cu, one nvcc each, started together, each library's
-   build time; ptxas's registers and spills for each instantiation (a
-   symbol loop's lane layout (G, K) and the window lengths it serves);
+2. build: the five kernels, sdrtrunk_tpu_torch/csrc/dqpsk.cu, gardner.cu,
+   bit_timing.cu, biquad.cu and cma.cu, one nvcc each, started together,
+   each library's build time; ptxas's registers and spills for each
+   instantiation (a symbol loop's lane layout (G, K) and the window
+   lengths it serves, the bit-timing line's 64-bit words L, the biquad's
+   floats a sample V);
 3. edge cases of the kernels' symbol-major loop, each kernel held bit for
    bit against its plain loop at every live window length and at W = 13,
    20, 21, 32, 40 and 80 (captures at 32 to 192 kHz; 25 kHz channels),
@@ -43,11 +45,14 @@ failure (the exit code is then not 0):
    and the bit-timing kernel, reached through the demodulators' public
    call, against its
    plain loop (valid, bits, window, sampling point) at 1023 x 4000 with
-   the LTR geometry on FSK audio and at 1023 x 3600 with the AFSK geometry
-   on correlator output, and on its edge cases: 37 channels, T = 997 and
-   T = 1, a symbol due at t = 0, two calls with carried state, an all-zero
-   channel, and windows with exactly one crossing, exactly two, and two at
-   equal distance from the ideal;
+   the LTR geometry on FSK audio, at 1023 x 3600 with the AFSK geometry
+   on correlator output, at 1023 x 8000 with the LTR geometry on 16 kHz
+   audio (W = 106, a line of two 64-bit words, 150 symbols a channel) and
+   at 1023 x 12000 on 48 kHz audio (W = 320, five words, 75 symbols), and
+   on its edge cases, also at W = 106 and W = 320:
+   37 channels, T = 997 and T = 1, a symbol due at t = 0, two calls with
+   carried state, an all-zero channel, and windows with exactly one
+   crossing, exactly two, and two at equal distance from the ideal;
 5. the live P25P1 C4FM loop at the product's full width: 12.8 MS/s of
    int8 IQ, 1024 bins, 1023 slots (a P25 control channel granting a
    traffic channel, one free slot for the grant, 1021 voice slots),
@@ -153,9 +158,11 @@ failure (the exit code is then not 0):
    a C4FM decode in two chunks, saved after the first and resumed from
    the file, bit for bit the same as without the save. tests/test_p25p2.py's
    modem scene through P25P2Config(timing="decision"): the fragment
-   framed with its MAC octets and voice frames. Launches: DQPSK 6 at
-   gain 0.3 and 2 at 0.4 (W = 10) and 1 at W = 16, Gardner 2 at W = 11,
-   bit timing 1 at W = 53 and 1 at W = 12;
+   framed with its MAC octets and voice frames. LTR decodes of 0.5 s of
+   16 and 48 kHz FSK audio through LTRDecoder(LTRConfig(audio_rate=...)):
+   the sent bits back. Launches: DQPSK 6 at gain 0.3 and 2 at 0.4 (W =
+   10) and 1 at W = 16, Gardner 2 at W = 11, bit timing 1 at W = 53, 1 at
+   W = 12, 1 at W = 106 and 1 at W = 320;
 21. ``receiver``: ``WidebandReceiver.build()`` (the static plan) at full
    width on phase 5's C4FM scene, 1023 channels, 1 + 4 chunks of 1024 x
    5120 as device-resident float32 pairs: its MS/s and realtime factor
@@ -164,9 +171,13 @@ failure (the exit code is then not 0):
    bit, TSBKs on the control slot and frames on >= 99% of the sampled
    voice slots, one DQPSK launch a chunk; a 25 kHz NBFM channel between
    two bins through ``build()`` with ``channel_bandwidths`` (the tone
-   within 20 Hz); the oscillator, CIC, Goertzel, biquad, CMA, IQ
+   within 20 Hz); the oscillator, CIC, Goertzel, biquad (1023 x 10240
+   float32), CMA (20000 QPSK samples through a static channel), IQ
    correction, Hilbert and two-bin synthesizer on the card against the
-   CPU within tests/test_torch_misc_dsp.py's tolerances;
+   CPU within tests/test_torch_misc_dsp.py's tolerances, one biquad and
+   one CMA launch; then the biquad and the CMA kernels held bit for bit
+   against their plain versions on the card on the same inputs, timed by
+   CUDA events beside their bytes bound and their chain's floor;
 22. ``parallel``: the sharded channelizer pipeline over torch.distributed
    at world size 1 over NCCL (one card gives one rank): ``python -m
    sdrtrunk_tpu_torch.parallel.multiprocess --device cuda`` as a process
@@ -204,9 +215,10 @@ sdrtrunk_tpu_torch.protocol).
 Each live loop resets every kernel's launch counts just before it runs and
 reads them just after. A wrapper counts a launch in all and under its
 loop's timing gain and window length (DQPSK) or window length (Gardner,
-bit timing), so each entry of the kernels line (C4FM, DMR, P25P2
-decision-timed and W = 20 DQPSK, P25P2 and LSM Gardner, LTR and AFSK bit
-timing) has its own count from the launch itself. At the end
+bit timing), row dtype (biquad) or tap count (CMA), so each entry of the
+kernels line (C4FM, DMR, P25P2 decision-timed and W = 20 DQPSK, P25P2 and
+LSM Gardner, LTR, AFSK, 16 and 48 kHz LTR bit timing, the biquad, the
+CMA) has its own count from the launch itself. At the end
 the script prints its own run time, then the kernels' JSON record on the
 line before the last (the kernels a run checked; an entry's ``launches``
 is the sum over the live loops that ran it, ``launches_by_path`` each
@@ -246,7 +258,12 @@ LTR_WARMUP, LTR_TIMED = 2, 4
 MPT_WARMUP, MPT_TIMED = 2, 3
 MPT_TRAFFIC_INDEX = 300          # a GTC channel number is below 512
 VOICE_TONE_HZ = 800.0
-BIT_T = {"ltr": 4000, "afsk": 3600}    # a live chunk's samples a slot
+BIT_T = {"ltr": 4000, "afsk": 3600,   # a live chunk's samples a slot
+         "w106": 8000, "w320": 12000}   # 0.5 s at 16 kHz, 0.25 s at 48 kHz
+# LTR's demodulator at audio rates whose delay line is more than one of the
+# bit-timing kernel's 64-bit words, W = floor(2 * rate / 300): 16 kHz (W =
+# 106) and a sound card's 48 kHz (W = 320)
+WIDE_BIT_RATES = {"w106": 16000.0, "w320": 48000.0}
 SLOT_COUNT = 31                  # the most slots bank_mode=None runs per slot
 SLOTS_TRAFFIC_INDEX = 300        # the channel their control channel grants
 MULTIBANK = [("c4fm", 11), ("dmr", 10), ("ltr", 10)]
@@ -308,16 +325,20 @@ def _device_span_ms(fn, reps: int = 20) -> float:
 
 
 def _launch_counters():
+    from sdrtrunk_tpu_torch.dsp.biquad_cuda import biquad_cuda
     from sdrtrunk_tpu_torch.dsp.bit_timing_cuda import bit_timing_cuda
+    from sdrtrunk_tpu_torch.dsp.cma_cuda import cma_cuda
     from sdrtrunk_tpu_torch.dsp.dqpsk_cuda import dqpsk_cuda
     from sdrtrunk_tpu_torch.dsp.gardner_cuda import gardner_cuda
     return {"dqpsk": dqpsk_cuda, "gardner": gardner_cuda,
-            "bit_timing": bit_timing_cuda}
+            "bit_timing": bit_timing_cuda, "biquad": biquad_cuda,
+            "cma": cma_cuda}
 
 
 # the kernels line's entries, in its order: (the wrapper whose launches
 # they are, the key its ``launches_by`` counts them under: the DQPSK timing
-# gain and window length, the Gardner and bit-timing window lengths)
+# gain and window length, the Gardner and bit-timing window lengths, the
+# biquad's row dtype and the CMA's tap count)
 _ENTRY_KEYS = {"dqpsk": ("dqpsk", (0.3, 10)),
                "gardner_p25p2": ("gardner", 16),
                "gardner_lsm": ("gardner", 11),
@@ -325,7 +346,11 @@ _ENTRY_KEYS = {"dqpsk": ("dqpsk", (0.3, 10)),
                "bit_timing_ltr": ("bit_timing", 53),
                "bit_timing_afsk": ("bit_timing", 12),
                "dqpsk_p25p2": ("dqpsk", (0.3, 16)),
-               "dqpsk_w20": ("dqpsk", (0.3, 20))}
+               "dqpsk_w20": ("dqpsk", (0.3, 20)),
+               "bit_timing_w106": ("bit_timing", 106),
+               "bit_timing_w320": ("bit_timing", 320),
+               "biquad": ("biquad", "float32"),
+               "cma": ("cma", 11)}
 
 
 def _reset_launches() -> None:
@@ -367,8 +392,9 @@ def build_kernels() -> dict:
     window lengths it serves)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from sdrtrunk_tpu_torch.dsp import (bit_timing_cuda, dqpsk_cuda,
-                                        gardner_cuda, nvcc)
+    from sdrtrunk_tpu_torch.dsp import (biquad_cuda, bit_timing_cuda,
+                                        cma_cuda, dqpsk_cuda, gardner_cuda,
+                                        nvcc)
 
     def timed(m):
         t1 = time.perf_counter()
@@ -377,15 +403,16 @@ def build_kernels() -> dict:
 
     t0 = time.perf_counter()
     mods = {"dqpsk": dqpsk_cuda, "gardner": gardner_cuda,
-            "bit_timing": bit_timing_cuda}
+            "bit_timing": bit_timing_cuda, "biquad": biquad_cuda,
+            "cma": cma_cuda}
     with ThreadPoolExecutor(len(mods)) as pool:
         futures = {n: pool.submit(timed, m) for n, m in mods.items()}
         each = {n: round(f.result(), 2) for n, f in futures.items()}
-    print(f"[build] dqpsk, gardner and bit_timing kernels built and loaded "
-          f"in {time.perf_counter() - t0:.2f} s (each, in parallel: "
+    print(f"[build] {', '.join(mods)} kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s (each, in parallel: "
           f"{json.dumps(each)} s)", flush=True)
     regs = {}
-    for name in ("dqpsk", "gardner", "bit_timing"):
+    for name in mods:
         entry = None
         for line in nvcc.ptxas_report(name).splitlines():
             m = re.search(r"Compiling entry function '.*?(dqpsk|gardner)"
@@ -394,9 +421,16 @@ def build_kernels() -> dict:
                 g, k = int(m.group(2)), int(m.group(3))
                 entry = f"{m.group(1)}<G={g},K={k}>"
                 regs[entry] = {"windows": _windows_of(g, k)}
-            if re.search(r"Compiling entry function '.*?bit_timing_kernel",
-                         line):
-                entry = "bit_timing"
+            # bit timing by its line's 64-bit words L (W <= 64 L), the
+            # biquad by its floats a sample (1 float32, 2 complex64)
+            m = re.search(r"Compiling entry function '.*?(bit_timing|biquad)"
+                          r"_kernelILi(\d+)E", line)
+            if m:
+                entry = (f"bit_timing<L={m.group(2)}>"
+                         if m.group(1) == "bit_timing"
+                         else f"biquad<V={m.group(2)}>")
+            if re.search(r"Compiling entry function '.*?cma_kernel", line):
+                entry = "cma"
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m and entry:
@@ -658,19 +692,22 @@ def check_edges(card: str) -> None:
 # peak float32 rate outside the tensor cores (NVIDIA's data sheet): the
 # loop's compares, counts and the counter update
 FP32_OPS_PER_S = 67e12
+# a sample's and a symbol step's operations a 64-bit word of the line
 BIT_OPS_PER_SAMPLE, BIT_OPS_PER_SYMBOL = 6, 24       # from bit_timing.cu
 BIT_SOURCE = "sdrtrunk_tpu_torch/csrc/bit_timing.cu"
 
 
 def _bit_demod(which: str):
     """The demodulator whose public call reaches the kernel, and the line
-    of the reference scan it replaces."""
+    of the reference scan it replaces: ``ltr`` at 8 kHz, ``w106`` and
+    ``w320`` at WIDE_BIT_RATES, ``afsk``."""
     from sdrtrunk_tpu_torch.dsp.afsk import AFSK1200Demodulator
     from sdrtrunk_tpu_torch.dsp.fsk import LTRFSKDemodulator
-    if which == "ltr":
-        return (LTRFSKDemodulator(device="cuda"),
-                "sdrtrunk_tpu/dsp/fsk.py:108")
-    return AFSK1200Demodulator(device="cuda"), "sdrtrunk_tpu/dsp/afsk.py:129"
+    if which == "afsk":
+        return (AFSK1200Demodulator(device="cuda"),
+                "sdrtrunk_tpu/dsp/afsk.py:129")
+    return (LTRFSKDemodulator(sample_rate=WIDE_BIT_RATES.get(which, 8000.0),
+                              device="cuda"), "sdrtrunk_tpu/dsp/fsk.py:108")
 
 
 def _square_fsk(bits, n: int, sps: float, start):
@@ -683,24 +720,26 @@ def _square_fsk(bits, n: int, sps: float, start):
 
 
 def _bit_audio(which: str, c: int, t_out: int):
-    """(c, T) 8 kHz audio on the card whose demodulator front gives t_out
-    samples to the timing loop: LTR, sub-audible square FSK at 300 baud
-    (+/-0.35) under an 800 Hz tone and noise; AFSK, phase-continuous 1200
-    / 1800 Hz tones at 1200 baud with noise. The last 8 channels are noise
-    only (fewer below 64 channels, ``_noise_channels``) and the one before
-    them all zero (none when c is 1)."""
+    """(c, T) audio on the card whose demodulator front gives t_out
+    samples to the timing loop: LTR (8 kHz, or WIDE_BIT_RATES), sub-audible
+    square FSK at 300 baud (+/-0.35) under an 800 Hz tone and noise; AFSK
+    (8 kHz), phase-continuous 1200 / 1800 Hz tones at 1200 baud with noise.
+    The last 8 channels are noise only (fewer below 64 channels,
+    ``_noise_channels``) and the one before them all zero (none when c is
+    1)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(7)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    t = t_out if which == "ltr" else t_out * 10 // 9
+    t = t_out * 10 // 9 if which == "afsk" else t_out
     bits = torch.as_tensor(rng.integers(0, 2, (c, 997)), device="cuda")
     start = torch.as_tensor(rng.integers(0, 8000, c), device="cuda")
     n = torch.arange(t, device="cuda", dtype=torch.float64)[None, :]
-    if which == "ltr":
-        data = 0.35 * _square_fsk(bits, t, 8000.0 / 300.0, start)
-        tone = 0.5 * torch.sin(2 * np.pi * VOICE_TONE_HZ / 8000.0 * n
+    if which != "afsk":
+        rate = WIDE_BIT_RATES.get(which, 8000.0)
+        data = 0.35 * _square_fsk(bits, t, rate / 300.0, start)
+        tone = 0.5 * torch.sin(2 * np.pi * VOICE_TONE_HZ / rate * n
                                + start[:, None])
         x = data + tone.float()
     else:
@@ -784,7 +823,8 @@ def check_bit_timing(card: str, which: str, c: int = KERNEL_C,
                              f"symbols a channel, nominal {nominal:.0f}")
     nbytes = (x.numel() * 4 + 2 * c * t
               + 2 * (s0.window.numel() + 4 * c))
-    ops = c * t * BIT_OPS_PER_SAMPLE + symbols * BIT_OPS_PER_SYMBOL
+    ops = c * t * BIT_OPS_PER_SAMPLE \
+        + symbols * BIT_OPS_PER_SYMBOL * -(-geom.window_len // 64)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / FP32_OPS_PER_S * 1e3
     bound_ms, bound_by = ((by_bytes, "bytes") if by_bytes >= by_ops
@@ -826,13 +866,16 @@ def _window_with_crossings(w: int, zc_len: int, crossings):
 
 def check_bit_timing_edges(card: str) -> None:
     """The loop's edge cases, the kernel held bit for bit against the plain
-    loop, for the LTR geometry, the AFSK geometry (also inverted) and the
-    AFSK geometry with the two-crossing rule (where two crossings can lie
-    at equal distance from the ideal): 37 channels, T = 997 and T = 1, a
-    symbol due at t = 0 on every third channel, two calls with carried
-    state, an all-zero channel, and channels whose window at t = 0 holds
-    exactly one crossing, exactly two, and two at equal distance, whose
-    new sampling point is also held against the rule worked by hand."""
+    loop, for the LTR geometry (at 8 kHz, and at 16 and 48 kHz, whose
+    lines of W = 106 and 320 are two and five of the kernel's 64-bit
+    words; at 48 kHz two crossings can lie at equal distance from the
+    ideal), the AFSK geometry (also inverted) and the AFSK geometry with
+    the two-crossing rule (where they can too): 37 channels, T = 997 and
+    T = 1, a symbol due at t = 0 on every third channel, two calls with
+    carried state, an all-zero channel, and channels whose window at t = 0
+    holds exactly one crossing, exactly two, and two at equal distance,
+    whose new sampling point is also held against the rule worked by
+    hand."""
     import dataclasses
 
     import numpy as np
@@ -846,7 +889,9 @@ def check_bit_timing_edges(card: str) -> None:
     cases = []
     for name, geom, invert in (("ltr", ltr, False), ("afsk", afsk, False),
                                ("afsk inverted", afsk, True),
-                               ("afsk two-crossing rule", tie, False)):
+                               ("afsk two-crossing rule", tie, False),
+                               *((f"ltr {w}", _bit_demod(w)[0].geometry,
+                                  False) for w in WIDE_BIT_RATES)):
         w, zl = geom.window_len, geom.zc_len
         # slow square waves of per-channel period with noise: crossings
         # come and go in the window
@@ -918,11 +963,14 @@ def check_bit_timing_edges(card: str) -> None:
             raise AssertionError(f"{name}: the all-zero channel's symbols "
                                  f"are {sorted(steps)} samples apart")
         cases.append(name)
+    wide = ", ".join(str(_bit_demod(w)[0].window_len)
+                     for w in WIDE_BIT_RATES)
     print(f"[edges] {card}: bit_timing identical to its plain loop for "
-          f"{', '.join(cases)} at C={EDGE_C}, T={EDGE_T} and T=1, a symbol "
-          f"due at t=0, two calls ({EDGE_SPLIT} + {EDGE_T - EDGE_SPLIT}) "
-          "with carried state, an all-zero channel, and windows with one "
-          "crossing, two, and two at equal distance from the ideal",
+          f"{', '.join(cases)} (W = {wide} for the last two) at C={EDGE_C}, "
+          f"T={EDGE_T} and T=1, a symbol due at t=0, two calls "
+          f"({EDGE_SPLIT} + {EDGE_T - EDGE_SPLIT}) with carried state, an "
+          "all-zero channel, and windows with one crossing, two, and two at "
+          "equal distance from the ideal",
           flush=True)
 
 
@@ -3319,10 +3367,13 @@ GOLDEN_DIR = ROOT / "tests" / "golden"
 # (kernels-line entry -> launches) of the parity phase: the three golden
 # decodes, the four reports, the LTR and MPT1327 per-channel calls, the
 # checkpoint round trip's three C4FM chunks (the first, the resumed second
-# and the second without the save) and the decision-timed P25P2 decode
+# and the second without the save), the decision-timed P25P2 decode and
+# the LTR decodes of 16 and 48 kHz audio
 PARITY_LAUNCHES = {"dqpsk": 6, "dqpsk_dmr": 2, "gardner_lsm": 2,
                    "bit_timing_ltr": 1, "bit_timing_afsk": 1,
-                   "dqpsk_p25p2": 1}
+                   "dqpsk_p25p2": 1, "bit_timing_w106": 1,
+                   "bit_timing_w320": 1}
+LTR_WIDE_BITS = 150              # 0.5 s of 300-baud FSK
 PER_CHANNEL_K = 12500            # 0.5 s at 25 kHz: Ka = 4000, T = 3600 AFSK
 AUDIO_TOL = 1e-4                 # tests/test_torch_per_channel.py's
 
@@ -3531,10 +3582,50 @@ def _p25p2_decision(card: str) -> dict:
     return record
 
 
+def _ltr_wide(card: str) -> dict:
+    """``LTRDecoder(LTRConfig(audio_rate=rate))`` on the card at
+    WIDE_BIT_RATES (16 kHz, W = 106; a sound card's 48 kHz, W = 320): one
+    channel's 0.5 s of square 300-baud FSK audio (+/-0.3, DC 0.05, noise),
+    one bit-timing launch at C = 1 each; the decoded bits are the sent
+    ones past the first and last 8, and the symbols a bit each."""
+    import numpy as np
+    import torch
+
+    from sdrtrunk_tpu_torch.decoders.ltr import LTRConfig, LTRDecoder
+
+    records = {}
+    for which, rate in WIDE_BIT_RATES.items():
+        rng = np.random.default_rng(41)
+        sent = rng.integers(0, 2, LTR_WIDE_BITS)
+        sps = rate / 300.0
+        n = np.arange(int(LTR_WIDE_BITS * sps))
+        audio = (0.3 * (2.0 * sent[(n / sps).astype(np.int64)] - 1.0) + 0.05
+                 + 0.05 * rng.standard_normal(len(n))).astype(np.float32)
+        dec = LTRDecoder(LTRConfig(audio_rate=rate), device="cuda")
+        out, _ = dec(torch.as_tensor(audio, device="cuda"), dec.init_state())
+        got = out["bits"].cpu().numpy()[out["valid"].cpu().numpy()]
+        # the decoded stream may lag the sent one by the filter's and the
+        # vote's delay: the shift that lines up the middle of the stream
+        tail = got[8:-8]
+        lags = [k for k in range(8) if np.array_equal(
+            tail, sent[8 - k:8 - k + len(tail)])]
+        records[which] = {"rate": rate, "samples": len(audio),
+                          "window": dec.fsk.window_len,
+                          "symbols": len(got), "bits_sent": LTR_WIDE_BITS,
+                          "lag": lags[0] if lags else None}
+        if not lags or abs(len(got) - LTR_WIDE_BITS) > 2:
+            raise AssertionError(f"parity: LTR at {rate} Hz: "
+                                 f"{records[which]}")
+    print(f"[parity] {card}: LTR at 16 and 48 kHz audio "
+          + json.dumps(records), flush=True)
+    return records
+
+
 def run_parity(card: str) -> dict:
     """The golden captures, the four parity reports, the per-channel
-    analog and trunking calls, a checkpoint round trip and a
-    decision-timed P25P2 decode, all on the card; every kernel's launch
+    analog and trunking calls, a checkpoint round trip, a decision-timed
+    P25P2 decode and LTR decodes of 16 and 48 kHz audio, all on the
+    card; every kernel's launch
     count set to 0 just before and read just after, and held to
     PARITY_LAUNCHES."""
     import shutil
@@ -3548,7 +3639,8 @@ def run_parity(card: str) -> dict:
                   "reports": _reports(card),
                   "per_channel": _per_channel(card),
                   "checkpoint": _checkpoint(card),
-                  "p25p2_decision": _p25p2_decision(card)}
+                  "p25p2_decision": _p25p2_decision(card),
+                  "ltr_wide": _ltr_wide(card)}
     finally:
         shutil.rmtree(APP_DIR, ignore_errors=True)
     torch.cuda.synchronize()
@@ -3701,25 +3793,48 @@ _DSP_TOL = {"oscillate": 1e-6, "mix_down": 1e-5, "fs4_down_convert": 0.0,
             "real_to_complex": 1e-6, "synthesize_two": 1e-5}
 
 
-def _dsp(card: str) -> dict:
-    """The rest of the DSP (dsp/oscillator.py, cic.py, misc.py and
-    synthesize_two) once each on CUDA tensors against the same call on the
-    CPU, within tests/test_torch_misc_dsp.py's tolerances; the biquad and
-    the CMA equalizer, Python loops over samples, at 3000 samples."""
-    import numpy as np
-    import torch
+# the biquad at the bank's shape (rows of a chunk's channel samples) and
+# the CMA equalizer on a QPSK stream through a static channel
+BIQUAD_C, BIQUAD_T = KERNEL_C, KERNEL_T
+CMA_T = 20000
+# the dependent float32 operations of a sample's chain (csrc/biquad.cu,
+# csrc/cma.cu: the CMA's tree of four shuffled sums at 11 taps counted as
+# its adds), each at least 4 cycles of the SM clock
+CHAIN_OPS = {"biquad": 4, "cma": 22}
+CHAIN_OP_CYCLES = 4
 
-    from sdrtrunk_tpu_torch.dsp import cic, design, misc, oscillator
-    from sdrtrunk_tpu_torch.dsp.synthesizer import synthesize_two
+
+def _dsp_inputs() -> dict:
+    """numpy inputs of the DSP checks, from one seed."""
+    import numpy as np
+
+    from sdrtrunk_tpu_torch.dsp import misc
 
     rng = np.random.default_rng(37)
     z = (rng.standard_normal(96 * 400) + 1j * rng.standard_normal(96 * 400)
          ).astype(np.complex64)
     # QPSK through a mild static channel, which the equalizer converges on
-    qpsk = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, 3000)))
-    qpsk = np.convolve(qpsk, [1.0, 0.25 - 0.1j])[:3000].astype(np.complex64)
+    qpsk = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, CMA_T)))
+    qpsk = np.convolve(qpsk, [1.0, 0.25 - 0.1j])[:CMA_T].astype(np.complex64)
     r = rng.standard_normal(3000).astype(np.float32)
+    rows = rng.standard_normal((BIQUAD_C, BIQUAD_T)).astype(np.float32)
     b, a = misc.biquad_design("bandpass", 1200.0, 8000.0, q=5.0)
+    return {"z": z, "qpsk": qpsk, "r": r, "rows": rows, "b": b, "a": a}
+
+
+def _dsp(card: str, inputs: dict) -> dict:
+    """The rest of the DSP (dsp/oscillator.py, cic.py, misc.py and
+    synthesize_two) once each on CUDA tensors against the same call on the
+    CPU, within tests/test_torch_misc_dsp.py's tolerances; the biquad at
+    BIQUAD_C x BIQUAD_T and the CMA equalizer on CMA_T samples, one kernel
+    launch each."""
+    import torch
+
+    from sdrtrunk_tpu_torch.dsp import cic, design, misc, oscillator
+    from sdrtrunk_tpu_torch.dsp.synthesizer import synthesize_two
+
+    z, qpsk, r = inputs["z"], inputs["qpsk"], inputs["r"]
+    b, a = inputs["b"], inputs["a"]
     hb = design.half_band(22)
     calls = {
         "oscillate": lambda d, t: oscillator.oscillate(
@@ -3731,7 +3846,8 @@ def _dsp(card: str) -> dict:
             2_400_000.0, 300e3, 25e3, device=d)(t(z))[0],
         "goertzel_power": lambda d, t: misc.goertzel_power(
             t(r), 1000.0, 8000.0),
-        "biquad": lambda d, t: misc.biquad_apply(t(r), b, a)[0],
+        "biquad": lambda d, t: misc.biquad_apply(t(inputs["rows"]), b,
+                                                 a)[0],
         "cma_equalize": lambda d, t: misc.cma_equalize(t(qpsk),
                                                        mu=0.003)[0],
         "iq_correction": lambda d, t: misc.iq_correction(t(z), 0.005)[0],
@@ -3757,11 +3873,108 @@ def _dsp(card: str) -> dict:
     return errs
 
 
+def _sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def _recurrence_record(card: str, name: str, source: str, replaces: str,
+                       kernel, plain, nbytes: int, flops: int,
+                       chain_samples: int, shape: list) -> dict:
+    """A serial recurrence's kernel against its plain version on the card,
+    bit for bit, timed by CUDA events (the kernel over 5 calls, the plain
+    loop once) beside its bound: bytes over the memory rate or its float32
+    operations over the float32 rate, whichever is longer; and the chain's
+    floor beside them, CHAIN_OPS dependent operations a sample at
+    CHAIN_OP_CYCLES cycles of the highest SM clock, times the samples of
+    one chain."""
+    import torch
+
+    got, want = {}, {}
+
+    def run_plain():
+        want["out"] = plain()
+    plain_ms = _cuda_ms(run_plain)
+    got["out"] = kernel()
+    kernel_ms = _cuda_ms(kernel, reps=5)
+    for what, a, b in zip(("output", "state"), got["out"], want["out"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: kernel {what} differs from the "
+                                 "plain loop on the card")
+    err = max(float((a - b).abs().max()) for a, b in zip(got["out"],
+                                                         want["out"]))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = ((by_bytes, "bytes") if by_bytes >= by_ops
+                          else (by_ops, "operations"))
+    chain_ms = (chain_samples * CHAIN_OPS[name] * CHAIN_OP_CYCLES
+                / _sm_clock_hz() * 1e3)
+    print(f"[receiver] {card}: {name} {shape}: identical to the plain loop "
+          f"on the card (output and state); kernel {kernel_ms:.4f} ms "
+          f"against a {bound_ms:.4f} ms {bound_by} bound "
+          f"({100 * bound_ms / kernel_ms:.2f}% of it) and a {chain_ms:.4f} "
+          f"ms chain floor ({100 * chain_ms / kernel_ms:.2f}% of it), plain "
+          f"{plain_ms:.1f} ms", flush=True)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "chain_ms": chain_ms, "shape": shape,
+            "plain_shape": shape}
+
+
+def check_recurrences(card: str, inputs: dict) -> dict:
+    """The biquad at BIQUAD_C x BIQUAD_T float32 and the CMA equalizer on
+    CMA_T samples, each kernel against its plain version on the card (no
+    PyTorch call computes either: library_ms is None)."""
+    import torch
+
+    from sdrtrunk_tpu_torch.dsp import misc
+    from sdrtrunk_tpu_torch.dsp.biquad_cuda import biquad_cuda
+    from sdrtrunk_tpu_torch.dsp.cma_cuda import cma_cuda
+
+    rows = torch.as_tensor(inputs["rows"], device="cuda")
+    b, a = inputs["b"], inputs["a"]
+    c, t = rows.shape
+    biquad = _recurrence_record(
+        card, "biquad", "sdrtrunk_tpu_torch/csrc/biquad.cu",
+        "sdrtrunk_tpu/dsp/misc.py:91", lambda: biquad_cuda(rows, b, a),
+        lambda: misc.biquad_apply_plain(rows, b, a),
+        2 * rows.numel() * 4 + 2 * c * 2 * 4, 7 * c * t, t, [c, t])
+    x = torch.as_tensor(inputs["qpsk"], device="cuda")
+    taps = misc.cma_init(device="cuda")
+    n, k = x.shape[0], taps.shape[0]
+    cma = _recurrence_record(
+        card, "cma", "sdrtrunk_tpu_torch/csrc/cma.cu",
+        "sdrtrunk_tpu/dsp/misc.py:123",
+        lambda: cma_cuda(x, taps, mu=0.003),
+        lambda: misc.cma_equalize_plain(x, taps, mu=0.003),
+        2 * n * 8 + 2 * k * 8, n * (14 * k + 20), n, [n])
+    return {"biquad": biquad, "cma": cma}
+
+
 def run_receiver(card: str) -> dict:
     """The static receiver build at full width, the two-bin NBFM channel
-    through it, and the rest of the DSP on the card."""
+    through it, and the rest of the DSP on the card: its calls counted (a
+    launch of the biquad and of the CMA kernel, none of the others), then
+    the biquad and the CMA kernels held against their plain versions."""
     result = _static_build(card)
-    return {**result, "twobin": _twobin(card), "dsp": _dsp(card)}
+    twobin = _twobin(card)
+    inputs = _dsp_inputs()
+    _reset_launches()
+    dsp = _dsp(card, inputs)
+    launches = _read_launches()
+    want = {e: int(e in ("biquad", "cma")) for e in _ENTRY_KEYS}
+    if launches != want:
+        raise AssertionError(f"receiver: DSP launches {launches}, expected "
+                             f"{want}")
+    return {**result, "twobin": twobin, "dsp": dsp,
+            "kernel_launches": {e: n + launches[e] for e, n in
+                                result["kernel_launches"].items()},
+            "entries": check_recurrences(card, inputs)}
 
 
 # --- parallel: the sharded channelizer pipeline over torch.distributed ---
@@ -3949,7 +4162,7 @@ def main(argv: list[str]) -> int:
         check_edges(card)
         check_bit_timing_edges(card)
     if "bits" in phases:
-        for which in ("ltr", "afsk"):
+        for which in ("ltr", "afsk", *WIDE_BIT_RATES):
             entry = check_bit_timing(card, which)
             entries[entry["name"]] = {**entry, "launches": None}
             held[(entry["name"], *entry["shape"])] = ("bits", entry)
@@ -3966,6 +4179,8 @@ def main(argv: list[str]) -> int:
             result = run(card)
         finally:
             undo()
+        for entry, record in result.get("entries", {}).items():
+            entries.setdefault(entry, {**record, "launches": None})
         for shape in sorted(set(shapes)):
             if shape not in held:
                 held[shape] = (name, check_shape(card, *shape))

@@ -47,8 +47,8 @@ class BitTimingGeometry:
     """What tells the two demodulators' timing loops apart.
 
     window_len W: decisions kept, newest last (the plain loop takes any W;
-    the kernel holds the line in one 64-bit register, so it takes W <= 64:
-    ``bit_timing_cuda.MAX_WINDOW``). The vote is over
+    the kernel holds the line in ceil(W / 64) 64-bit words, up to eight,
+    so it takes W <= 512: ``bit_timing_cuda.MAX_WINDOW``). The vote is over
     [vote_start, vote_start + vote_len) of the line (majority:
     sum > vote_len // 2). Crossings are looked for between neighbours of
     the newest zc_len decisions; crossing i lies between zc[i] and

@@ -18,8 +18,9 @@ from .nvcc import check_tensor, load_kernel
 
 __all__ = ["MAX_WINDOW", "build", "bit_timing_cuda"]
 
-# the longest delay line the kernel takes: one 64-bit word (csrc/bit_timing.cu)
-MAX_WINDOW = 64
+# the longest delay line the kernel takes: eight 64-bit words
+# (csrc/bit_timing.cu kMaxLineWords); LTR at 300 Bd up to 76.8 kHz audio
+MAX_WINDOW = 512
 
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 6
              + [ctypes.c_float] * 3 + [ctypes.c_void_p])
@@ -48,7 +49,7 @@ def bit_timing_cuda(geom, x: torch.Tensor, window: torch.Tensor,
     if w > MAX_WINDOW:
         raise ValueError(
             f"{name}: window length W = {w} (sps {geom.sps}) is above the "
-            f"kernel's {MAX_WINDOW}, its 64-bit delay line")
+            f"kernel's {MAX_WINDOW}, its longest delay line")
     lib = build()
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x must be on a CUDA device, got {x.device}")

@@ -9,9 +9,13 @@ dsp/filter/correction/IQCorrectionFilter.java:24,
 dsp/filter/hilbert/HilbertTransform.java:25). The block-parallel ones
 (Goertzel, Hilbert, the IQ correction's single poles) are batched tensor
 expressions. The two per-sample feedback loops, the biquad and the CMA
-equalizer, are plain Python loops over samples: neither is on a live
-path, so neither has a kernel (the JAX package runs each as a
-``lax.scan``). ``biquad_design`` and ``hilbert_taps`` are host NumPy.
+equalizer (each a ``lax.scan`` in the JAX package), pick the path from
+where the input lies: a CPU tensor runs the plain version here
+(``biquad_apply_plain``, ``cma_equalize_plain``, Python loops over
+samples), any other tensor launches the CUDA kernel
+(``dsp/biquad_cuda.py``, ``dsp/cma_cuda.py``) or raises; there is no
+fallback from the kernel to the loop. ``biquad_design`` and
+``hilbert_taps`` are host NumPy.
 """
 from __future__ import annotations
 
@@ -26,8 +30,8 @@ from .iir import single_pole
 
 __all__ = [
     "goertzel_power", "goertzel_magnitude",
-    "biquad_design", "biquad_apply", "biquad_init",
-    "cma_equalize", "cma_init",
+    "biquad_design", "biquad_apply", "biquad_apply_plain", "biquad_init",
+    "cma_equalize", "cma_equalize_plain", "cma_init",
     "iq_correction",
     "hilbert_taps", "real_to_complex",
 ]
@@ -94,7 +98,20 @@ def biquad_apply(x: torch.Tensor, b, a, state: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Streaming biquad, transposed direct form II, over x (..., N);
     ``state`` (..., 2) carries (z1, z2) per leading index, None for zeros.
-    A plain loop over samples, batched over the leading axes."""
+    A CPU tensor runs ``biquad_apply_plain``; any other tensor launches the
+    kernel of ``dsp/biquad_cuda.py`` (float32 or complex64 rows, real
+    coefficients), which launches or raises."""
+    if x.device.type == "cpu":
+        return biquad_apply_plain(x, b, a, state)
+    from .biquad_cuda import biquad_cuda
+    return biquad_cuda(x, b, a, state)
+
+
+def biquad_apply_plain(x: torch.Tensor, b, a,
+                       state: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: a loop over samples, batched
+    over the leading axes, in the kernel's order of operations."""
     if state is None:
         state = torch.zeros((*x.shape[:-1], 2), dtype=x.dtype,
                             device=x.device)
@@ -132,26 +149,58 @@ def cma_equalize(x: torch.Tensor, taps: torch.Tensor | None = None,
 
     Per sample: y = taps . buf; e = y*(|y|^2 - modulus), clipped to unit
     magnitude; taps -= mu*conj(buf)*e (the reference's error and update
-    rule, CMAEqualizer.java updateTaps). A plain loop over samples: the
-    adaptation is nonlinear, so it has no blocked form.
+    rule, CMAEqualizer.java updateTaps). The adaptation is nonlinear, so
+    it has no blocked form: a CPU tensor runs ``cma_equalize_plain``, any
+    other tensor launches the kernel of ``dsp/cma_cuda.py`` (up to 32
+    taps), which launches or raises.
 
     Returns (equalized stream, final taps).
     """
     if taps is None:
         taps = cma_init(device=x.device)
+    if x.device.type == "cpu":
+        return cma_equalize_plain(x, taps, modulus, mu)
+    from .cma_cuda import cma_cuda
+    return cma_cuda(x, taps, modulus, mu)
+
+
+def cma_equalize_plain(x: torch.Tensor, taps: torch.Tensor | None = None,
+                       modulus: float = 1.0, mu: float = 0.001
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: a loop over samples in float32
+    real and imaginary parts, in the kernel's operations and order
+    (csrc/cma.cu), rows [re; im]: the products tr br - ti bi and tr bi +
+    ti br; their sum as a halving tree over the next power of two of the
+    tap count, zeros past the taps; |y|^2 = yr yr + yi yi and |e| =
+    sqrt(er er + ei ei) (the reference takes both as hypot); the update
+    tr -= mu (br er + bi ei), ti -= mu (br ei - bi er)."""
+    if taps is None:
+        taps = cma_init(device=x.device)
+    x = torch.view_as_real(x.to(torch.complex64).contiguous())   # (N, 2)
     taps = taps.to(torch.complex64)
-    x = x.to(torch.complex64)
-    buf = torch.zeros_like(taps)
+    n_taps = taps.shape[0]
+    tree = 1 << (n_taps - 1).bit_length()
+    tp = torch.stack([taps.real, taps.imag])                  # (2, n_taps)
+    buf = torch.zeros_like(tp)
     out = torch.empty_like(x)
     for n in range(x.shape[0]):
-        buf = torch.cat([x[n:n + 1], buf[:-1]])
-        y = torch.sum(taps * buf)
-        err = y * (torch.abs(y) ** 2 - modulus)
-        mag = torch.abs(err)
+        buf = torch.cat([x[n, :, None], buf[:, :-1]], 1)
+        prod = tp * buf                                      # tr br, ti bi
+        cross = tp * buf.flip(0)                             # tr bi, ti br
+        s = F.pad(torch.stack([prod[0] - prod[1], cross[0] + cross[1]]),
+                  (0, tree - n_taps))
+        while s.shape[1] > 1:
+            half = s.shape[1] // 2
+            s = s[:, :half] + s[:, half:]
+        y = s[:, 0]
+        err = y * ((y * y).sum() - modulus)
+        mag = torch.sqrt((err * err).sum())
         err = torch.where(mag > 1.0, err / torch.clamp_min(mag, 1e-12), err)
-        taps = taps - mu * torch.conj(buf) * err
+        step = torch.stack([(buf * err[:, None]).sum(0),     # br er + bi ei
+                            buf[0] * err[1] - buf[1] * err[0]])
+        tp = tp - mu * step
         out[n] = y
-    return out, taps
+    return torch.view_as_complex(out), torch.complex(tp[0], tp[1])
 
 
 # ---------------------------------------------------------------------------

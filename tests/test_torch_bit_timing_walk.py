@@ -46,6 +46,14 @@ f32, f64 = np.float32, np.float64
 
 GEOMETRIES = {"ltr": LTRFSKDemodulator(device="cpu").geometry,
               "afsk": AFSK1200Demodulator(device="cpu").geometry}
+# LTR's demodulator at audio rates that give lines of one to five 64-bit
+# words, W = floor(2 * rate / 300): 53 at 8 kHz (one word), 65 (two, one
+# bit in the second), 106 at 16 kHz, 128 (two full words), 320 at 48 kHz
+# (five)
+WIDE = {53: 8000.0, 65: 9750.0, 106: 16000.0, 128: 19200.0, 320: 48000.0}
+WIDE_GEOMETRIES = {w: LTRFSKDemodulator(sample_rate=rate,
+                                        device="cpu").geometry
+                   for w, rate in WIDE.items()}
 CASES = [(g, inv) for g in GEOMETRIES for inv in (False, True)]
 CASE_IDS = [f"{g}-{'inverted' if inv else 'normal'}" for g, inv in CASES]
 # counters on entry of the edge channels 1-4 (channel 0 is all zero)
@@ -76,25 +84,49 @@ def _popc(v: int) -> int:
     return bin(v).count("1")
 
 
-def _symbol(w: int, geom: BitTimingGeometry, sp):
-    """The kernel's ``symbol()``: (bit, new counter)."""
+def _line_words(geom: BitTimingGeometry) -> int:
+    """L, the kernel's 64-bit words of the line (its launch picks the
+    instantiation ceil(W / 64))."""
+    return (geom.window_len + 63) // 64
+
+
+def _span(m: int, lo: int, hi: int) -> int:
+    """Line bits lo .. hi - 1 that fall in word m (the kernel's ``span``)."""
+    a, b = max(lo - 64 * m, 0), min(hi - 64 * m, 64)
+    return 0 if a >= b else ((1 << b) - 1) & ~((1 << a) - 1)
+
+
+def _symbol(w: list, geom: BitTimingGeometry, sp):
+    """The kernel's ``symbol()`` on the line w (L words, newest decision in
+    bit 0 of word 0): (bit, new counter). Votes and crossings a word at a
+    time under the word's masks, each word's crossings taking the next
+    word's bit 0 in at bit 63; the oldest crossing from the highest word
+    holding one (63 - clz), the newest from the lowest (ffs - 1)."""
     k = geom.constants()
     w_len, zl = geom.window_len, geom.zc_len
-    vote_mask = ((1 << geom.vote_len) - 1) << (w_len - geom.vote_start
-                                               - geom.vote_len)
-    cr = (w ^ (w >> 1)) & ((1 << (zl - 1)) - 1)
-    count = _popc(cr)
+    votes = count = 0
+    oldest = newest = -1
+    for m in range(len(w)):
+        votes += _popc(w[m] & _span(m, w_len - geom.vote_start
+                                    - geom.vote_len, w_len - geom.vote_start))
+        carry = ((w[m + 1] << 63) & M64) if m + 1 < len(w) else 0
+        cr = (w[m] ^ ((w[m] >> 1) | carry)) & _span(m, 0, zl - 1)
+        count += _popc(cr)
+        if cr:
+            oldest = 64 * m + cr.bit_length() - 1           # 63 - clz
+            if newest < 0:
+                newest = 64 * m + (cr & -cr).bit_length() - 1   # ffs - 1
     error = f32(0.0)
     if count == 1 or (count == 2 and geom.two_crossings):
-        first = zl - 2 - (cr.bit_length() - 1)              # 63 - clz
+        first = zl - 2 - oldest
         error = f32(f32(first) + f32(0.5)) - f32(k["zc_ideal"])
         if count == 2:
-            last = zl - 2 - ((cr & -cr).bit_length() - 1)   # ffs - 1
+            last = zl - 2 - newest
             err2 = f32(f32(last) + f32(0.5)) - f32(k["zc_ideal"])
             error = error if abs(error) < abs(err2) else err2
     sp = f32(f64(error) * f64(f32(k["gain"]))
              + f64(f32(sp + f32(k["sps"]))))
-    return int(_popc(w & vote_mask) > geom.vote_len // 2), sp
+    return int(votes > geom.vote_len // 2), sp
 
 
 def _expand(bm, n: int, head: int) -> list[int]:
@@ -118,19 +150,24 @@ def kernel_model(geom: BitTimingGeometry, x, window, sp, invert: bool,
     sp float32; row_offset is the row's byte offset in the output planes
     (their base is aligned). Returns (bits, valid, new window, new sp)."""
     t_len, w_len = len(x), geom.window_len
-    line_mask = (1 << w_len) - 1
-    w0 = sum(int(lane < w_len and window[lane] != 0) << lane
-             for lane in range(32))
-    w1 = sum(int(lane + 32 < w_len and window[lane + 32] != 0) << lane
-             for lane in range(32))
-    hist = (((w1 << 32) | w0) << (64 - w_len)) & M64
+    n_words = _line_words(geom)
+    hist_len = 64 * n_words                 # the kernel's kHist
+    # the history before the first tile by ballots: bit b of 32-bit word q
+    # is window[32 q + b - (kHist - W)]
+    def ballot(q):
+        return sum(int(0 <= i < w_len and window[i] != 0) << lane
+                   for lane in range(32)
+                   for i in (32 * q + lane - (hist_len - w_len),))
+    hist = [ballot(2 * m) | (ballot(2 * m + 1) << 32) for m in range(n_words)]
+    line_mask = [_span(m, 0, w_len) for m in range(n_words)]
     sp = f32(sp)
     bits, valid = [], []
     for t0 in range(0, t_len, tile):
         n = min(tile, t_len - t0)
         nw = (n + 31) >> 5
-        # pack: a ballot a word behind the history, one zero word after
-        words = [hist & M32, hist >> 32]
+        # pack: a ballot a word behind the 2L history words, one zero
+        # word after
+        words = [v for h in hist for v in (h & M32, h >> 32)]
         for k in range(nw):
             words.append(sum(
                 int(32 * k + lane < n
@@ -154,20 +191,22 @@ def kernel_model(geom: BitTimingGeometry, x, window, sp, invert: bool,
                 if not sp < f32(1.0):
                     continue
             j = i - 1
-            w = _brev64(_bits64(words, j + 1)) & line_mask
+            w = [_brev64(_bits64(words, hist_len - 63 - 64 * m + j))
+                 & line_mask[m] for m in range(n_words)]
             bit, sp = _symbol(w, geom, sp)
             q, m = j >> 5, 1 << (j & 31)
             vmask[q] |= m
             bmask[q] |= m if bit else 0
-        hist = _bits64(words, n)
+        hist = [_bits64(words, n + 64 * m) for m in range(n_words)]
         # write
         head = (4 - (row_offset + t0) % 4) % 4
         valid += _expand(vmask, n, head)
         bits += _expand(bmask, n, head)
-    new_window = [(hist >> (64 - w_len + lane)) & 1 for lane in range(32)
-                  if lane < w_len]
-    new_window += [(hist >> (96 - w_len + lane)) & 1 for lane in range(32)
-                   if lane + 32 < w_len]
+    # the new window through the history words: window[i] = bit kHist -
+    # W + i
+    words = [v for h in hist for v in (h & M32, h >> 32)]
+    new_window = [(words[b >> 5] >> (b & 31)) & 1
+                  for b in range(hist_len - w_len, hist_len)]
     return (np.array(bits, np.int8), np.array(valid, bool),
             np.array(new_window, np.int8), sp)
 
@@ -267,6 +306,57 @@ def test_walk_model_two_calls_carry_state(geom_name, invert):
                                       want[1][ch].numpy())
         np.testing.assert_array_equal(w2, want[2][ch].numpy())
         assert float(s2) == float(want[3][ch])
+
+
+def test_wide_geometries_are_the_widths_named():
+    assert {w: (g.window_len, _line_words(g))
+            for w, g in WIDE_GEOMETRIES.items()} == {
+        53: (53, 1), 65: (65, 2), 106: (106, 2), 128: (128, 2), 320: (320, 5)}
+
+
+@pytest.mark.parametrize("invert", [False, True], ids=["normal", "inverted"])
+@pytest.mark.parametrize("tile", [K_TILE, 96], ids=["tile", "tile96"])
+@pytest.mark.parametrize("w", list(WIDE))
+def test_walk_model_wide_windows(w, tile, invert):
+    """The line as L words (votes and crossings carried across the words'
+    boundaries, the first and last crossing in any word, the history of 2L
+    words behind each tile) against the plain loop at W = 53 to 320: about
+    40 symbols a channel, the edge channels, tiles of 96 samples that the
+    history outlasts at W > 96, and T = 1."""
+    geom = WIDE_GEOMETRIES[w]
+    t = int(40 * geom.sps) + 7
+    x, window, sp = edge_block(geom, 7, t, 50 + w)
+    bits, valid, _, _ = _hold(geom, x, window, sp, invert, tile)
+    assert bool(valid[1, 0]) and bool(valid[2, 0]) and bool(valid[4, 0])
+    assert int(valid.sum()) >= 7 * (t / geom.sps - 3)
+    _hold(geom, x[:, :1], window, sp, invert, tile)
+
+
+@pytest.mark.parametrize("w", list(WIDE))
+def test_walk_model_wide_windows_carry_state_and_odd_counters(w):
+    """Two calls with carried state (the new window out of L words) and
+    the counters on entry where the run-down is not all exact, at W = 53
+    to 320."""
+    geom = WIDE_GEOMETRIES[w]
+    t = int(12 * geom.sps) + 5
+    x, window, sp = edge_block(geom, 7, t, 60 + w)
+    want = bit_timing_plain(geom, torch.as_tensor(x), torch.as_tensor(window),
+                            torch.as_tensor(sp), False)
+    split = t // 3
+    for ch in range(7):
+        b1, v1, w1, s1 = kernel_model(geom, x[ch, :split], window[ch],
+                                      sp[ch], False, 96, ch * split)
+        b2, v2, w2, s2 = kernel_model(geom, x[ch, split:], w1, s1, False,
+                                      96, ch * (t - split))
+        np.testing.assert_array_equal(np.concatenate([b1, b2]),
+                                      want[0][ch].numpy())
+        np.testing.assert_array_equal(np.concatenate([v1, v2]),
+                                      want[1][ch].numpy())
+        np.testing.assert_array_equal(w2, want[2][ch].numpy())
+        assert float(s2) == float(want[3][ch])
+    x, window, _ = edge_block(geom, len(ODD_SP), t, 70 + w)
+    _, valid, _, _ = _hold(geom, x, window, ODD_SP, True, K_TILE)
+    assert not bool(valid[:6].any()) and bool(valid[6].all())
 
 
 def test_nibble_expansion():

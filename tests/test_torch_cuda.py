@@ -1,6 +1,6 @@
-"""Tests of the CUDA kernels (DQPSK, Gardner DQPSK and bit timing) and of
-the analog and analog-trunking chains on the card; they need a card and
-skip without one.
+"""Tests of the CUDA kernels (DQPSK, Gardner DQPSK, bit timing, the biquad
+and the CMA equalizer) and of the analog and analog-trunking chains on the
+card; they need a card and skip without one.
 
 The file imports no JAX, so that it runs on a machine with a card and no
 JAX installed. tests/conftest.py imports JAX, so run it there with
@@ -375,14 +375,129 @@ def test_bit_timing_kernel_rejects_what_it_does_not_take(card):
         bit_timing(geom, x, window, sp[:2])
     with pytest.raises(ValueError, match=r"\(C, T\)"):
         bit_timing(geom, x[0], window, sp)
-    # a delay line longer than the kernel's 64-bit word (LTR at 16 kHz,
-    # W = 106), refused before a launch; the plain loop takes it
-    wide = LTRFSKDemodulator(sample_rate=16000.0, device="cpu").geometry
+    # a delay line longer than the kernel's eight 64-bit words (LTR at 77
+    # kHz, W = 513), refused before a launch; the plain loop takes it
+    wide = LTRFSKDemodulator(sample_rate=77000.0, device="cpu").geometry
     x, window, sp = _timing_block(wide, 8, 16, 1, card)
     launches = bit_timing_cuda.bit_timing_cuda.launches
-    with pytest.raises(ValueError, match="W = 106 .* above the kernel's 64"):
+    with pytest.raises(ValueError, match="W = 513 .* above the kernel's 512"):
         bit_timing(wide, x, window, sp)
     assert bit_timing_cuda.bit_timing_cuda.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", list(walk.WIDE))
+def test_bit_timing_kernel_wide_windows_on_card(card, w):
+    """LTR's demodulator at audio rates whose delay line is more than one
+    64-bit word (W = 65, 106 at 16 kHz, 128, 320 at 48 kHz; and 53) on the
+    card: one launch a call, counted under W, and bits, valid, window and
+    sampling point identical to the plain loop on the edge blocks of
+    tests/test_torch_bit_timing_walk.py, T = 1, two calls with carried
+    state, and the odd counters."""
+    geom = walk.WIDE_GEOMETRIES[w]
+    t = int(40 * geom.sps) + 7
+    x, window, sp = (torch.as_tensor(a, device=card)
+                     for a in walk.edge_block(geom, 37, t, 50 + w))
+    fn = bit_timing_cuda.bit_timing_cuda
+    before, by_w = fn.launches, fn.launches_by[w]
+    got = bit_timing(geom, x, window, sp)
+    assert (fn.launches, fn.launches_by[w]) == (before + 1, by_w + 1)
+    want = bit_timing_plain(geom, x, window, sp)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(want[1].sum()) >= 37 * (t / geom.sps - 3)
+    for a, b in zip(bit_timing(geom, x[:, :1], window, sp),
+                    bit_timing_plain(geom, x[:, :1], window, sp)):
+        assert torch.equal(a, b)
+    split = t // 3
+    b1, v1, w1, s1 = bit_timing(geom, x[:, :split], window, sp, True)
+    b2, v2, w2, s2 = bit_timing(geom, x[:, split:], w1, s1, True)
+    want = bit_timing_plain(geom, x, window, sp, True)
+    assert torch.equal(torch.cat([b1, b2], 1), want[0])
+    assert torch.equal(torch.cat([v1, v2], 1), want[1])
+    assert torch.equal(w2, want[2]) and torch.equal(s2, want[3])
+    x, window, _ = (torch.as_tensor(a, device=card) for a in
+                    walk.edge_block(geom, len(walk.ODD_SP), t, 70 + w))
+    sp = torch.as_tensor(walk.ODD_SP, device=card)
+    got = bit_timing(geom, x, window, sp)
+    want = bit_timing_plain(geom, x, window, sp)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3].view(torch.int32), want[3].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64],
+                         ids=["float32", "complex64"])
+def test_biquad_kernel_on_card(card, dtype):
+    """``biquad_apply`` on the card launches the kernel once a call and
+    equals ``biquad_apply_plain`` on the card bit for bit (rows (3, 37)
+    of 1000 samples, not a multiple of its tile, in two calls with carried
+    state), and the CPU's plain loop within tests/test_torch_misc_dsp.py's
+    1e-5; another dtype is refused before the launch."""
+    from sdrtrunk_tpu_torch.dsp import biquad_cuda
+    from sdrtrunk_tpu_torch.dsp.misc import (biquad_apply, biquad_apply_plain,
+                                             biquad_design)
+
+    b, a = biquad_design("bandpass", 1200.0, 8000.0, q=5.0)
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((3, 37, 1000))
+    if dtype == torch.complex64:
+        x = x + 1j * rng.standard_normal((3, 37, 1000))
+    x = torch.as_tensor(x).to(dtype)
+    xc = x.to(card)
+    fn = biquad_cuda.biquad_cuda
+    before = fn.launches
+    y1, s1 = biquad_apply(xc[..., :333], b, a)
+    assert fn.launches == before + 1
+    y2, s2 = biquad_apply(xc[..., 333:], b, a, s1)
+    assert fn.launches == before + 2
+    y = torch.cat([y1, y2], -1)
+    want, want_s = biquad_apply_plain(xc, b, a)
+    assert torch.equal(y, want) and torch.equal(s2, want_s)
+    cpu, cpu_s = biquad_apply(x, b, a)
+    np.testing.assert_allclose(y.cpu().numpy(), cpu.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(s2.cpu().numpy(), cpu_s.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    with pytest.raises(ValueError, match="float32 or complex64"):
+        biquad_apply(xc.to(torch.complex128 if dtype == torch.complex64
+                           else torch.float64), b, a)
+    assert fn.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_cma_kernel_on_card(card):
+    """``cma_equalize`` on the card launches the kernel once a call and
+    equals ``cma_equalize_plain`` on the card bit for bit, on 2500 QPSK
+    samples through a static channel, at 11 taps and at 32; the CPU's
+    plain version within tests/test_torch_misc_dsp.py's 1e-4; more than
+    32 taps is refused before a launch."""
+    from sdrtrunk_tpu_torch.dsp import cma_cuda
+    from sdrtrunk_tpu_torch.dsp.misc import (cma_equalize, cma_equalize_plain,
+                                             cma_init)
+
+    rng = np.random.default_rng(22)
+    syms = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, 2500)))
+    x = torch.as_tensor(np.convolve(syms, [1.0, 0.25 - 0.1j])[:2500]
+                        .astype(np.complex64))
+    fn = cma_cuda.cma_cuda
+    for n_taps in (11, 32):
+        taps = cma_init(n_taps, device="cpu")
+        before = fn.launches
+        y, t = cma_equalize(x.to(card), taps.to(card), mu=0.003)
+        assert fn.launches == before + 1
+        want, want_t = cma_equalize_plain(x.to(card), taps.to(card),
+                                          mu=0.003)
+        assert torch.equal(y, want) and torch.equal(t, want_t)
+        cpu, cpu_t = cma_equalize(x, taps, mu=0.003)
+        np.testing.assert_allclose(y.cpu().numpy(), cpu.numpy(), atol=1e-4)
+        np.testing.assert_allclose(t.cpu().numpy(), cpu_t.numpy(), atol=1e-4)
+    assert abs(float(y[-500:].abs().mean()) - 1.0) < 0.05
+    before = fn.launches
+    with pytest.raises(ValueError, match="33 taps"):
+        cma_equalize(x.to(card), cma_init(33, device=card))
+    assert fn.launches == before
 
 
 @pytest.mark.cuda

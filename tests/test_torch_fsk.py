@@ -18,7 +18,9 @@ package on the CPU, and the kernel's arithmetic rehearsed in Python.
   are the signs of a low-passed noise, and a value within 1e-6 of zero
   would be needed to flip one.
 * ``bit_timing_plain`` against a pure-Python model of the kernel's
-  arithmetic (csrc/bit_timing.cu): the delay line as one 64-bit integer,
+  arithmetic (csrc/bit_timing.cu) at W <= 64: the delay line as one
+  64-bit integer (tests/test_torch_bit_timing_walk.py models the line of
+  ceil(W / 64) words),
   votes and crossings by masks and popcounts, the first and last crossing
   by the highest and lowest set bit, bit for bit on random decisions for
   both geometries, the two-crossing rule on a geometry where two crossings
@@ -355,9 +357,9 @@ def test_crossing_rules(crossings, want_error):
 
 def test_geometry_is_checked():
     """The crossing window must lie in the delay line, as the vote window
-    must; the line itself may be longer than the kernel's 64 decisions
+    must; the line itself may be longer than the kernel's 512 decisions
     (the plain loop takes any W, as the reference does; the kernel's
-    wrapper refuses W > 64, tests/test_torch_symbol_loop.py)."""
+    wrapper refuses W > 512, tests/test_torch_symbol_loop.py)."""
     with pytest.raises(ValueError, match="window_len"):
         BitTimingGeometry(16, 4, 8, 17, 8.0, 8.0, 0.25, True)
     assert BitTimingGeometry(65, 16, 32, 33, 16.0, 32.0, 0.25,
@@ -367,9 +369,9 @@ def test_geometry_is_checked():
 
 
 def test_fsk_above_the_kernels_window_matches_reference():
-    """LTR's demodulator at 16 kHz audio (W = 106, above the kernel's
-    64-decision line) on the CPU against the reference at the same rate:
-    the plain loop takes any W."""
+    """LTR's demodulator at 16 kHz audio (W = 106, a line of two 64-bit
+    words in the kernel) on the CPU against the reference at the same
+    rate: the plain loop takes any W."""
     jd = JFSK(sample_rate=16000.0)
     td = LTRFSKDemodulator(sample_rate=16000.0, device="cpu")
     assert td.window_len == jd.window_len == 106
@@ -384,3 +386,39 @@ def test_fsk_above_the_kernels_window_matches_reference():
                                     _batched(td.init_state()))
     _check_symbols(bits, valid, jbits, jvalid, len(audio) * 300 / 16000)
     _check_fsk_state(state, jstate)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ltr_decoder_at_48k_audio_matches_reference(seed):
+    """``LTRDecoder(LTRConfig(audio_rate=48000.0))``, a sound card's rate
+    (W = 320: a line of five 64-bit words in the kernel), on the CPU
+    against the reference's decoder at the same config, one shot and as
+    two blocks with carried state: bits and valid exact, the window exact
+    and the sampling point within 1e-5, as the 8 kHz cases above."""
+    from sdrtrunk_tpu.decoders.ltr import LTRConfig as JLTRConfig
+    from sdrtrunk_tpu.decoders.ltr import LTRDecoder as JLTRDecoder
+    from sdrtrunk_tpu_torch.decoders.ltr import LTRConfig, LTRDecoder
+
+    jd = JLTRDecoder(JLTRConfig(audio_rate=48000.0))
+    td = LTRDecoder(LTRConfig(audio_rate=48000.0), device="cpu")
+    assert td.fsk.window_len == jd.fsk.window_len == 320
+    rng = np.random.default_rng(40 + seed)
+    audio = _fsk_modulate(rng.integers(0, 2, 60).astype(np.uint8),
+                          fs=48000.0)
+    n = np.arange(len(audio))
+    audio = (audio + 0.05 + 0.3 * np.sin(2 * np.pi * 800.0 * n / 48000.0)
+             + 0.05 * rng.standard_normal(len(audio))).astype(np.float32)
+    jcall = jax.jit(jd.__call__)
+    jout, jstate = jcall(jnp.asarray(audio), jd.init_state())
+    out, state = td(torch.as_tensor(audio), td.init_state())
+    _check_symbols(out["bits"][None], out["valid"][None], jout["bits"],
+                   jout["valid"], len(audio) * 300 / 48000)
+    _check_fsk_state(_batched(state), jstate)
+    split = len(audio) // 3
+    out1, s1 = td(torch.as_tensor(audio[:split]), td.init_state())
+    out2, s2 = td(torch.as_tensor(audio[split:]), s1)
+    assert torch.equal(torch.cat([out1["valid"], out2["valid"]]),
+                       out["valid"])
+    assert torch.equal(torch.cat([out1["bits"], out2["bits"]]), out["bits"])
+    assert torch.equal(s2.window, state.window)
+    assert torch.equal(s2.sampling_point, state.sampling_point)

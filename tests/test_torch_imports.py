@@ -384,7 +384,8 @@ def test_bit_timing_wrapper_rejects_a_cpu_tensor(monkeypatch):
             torch.zeros((1,)))
 
 
-@pytest.mark.parametrize("name", ["dqpsk", "gardner", "bit_timing"])
+@pytest.mark.parametrize("name", ["dqpsk", "gardner", "bit_timing", "biquad",
+                                  "cma"])
 def test_nvcc_failure_raises_and_leaves_no_library(monkeypatch, tmp_path,
                                                    name):
     """The shared build helper runs nvcc once per source and raises with
@@ -397,6 +398,49 @@ def test_nvcc_failure_raises_and_leaves_no_library(monkeypatch, tmp_path,
     with pytest.raises(RuntimeError, match="no card here"):
         nvcc.load_kernel(name, f"{name}_launch", [])
     assert not list((tmp_path / "_build").glob("*.so"))
+
+
+@pytest.mark.parametrize("case", [
+    "dtype", "complex_coefficients", "cpu_rows", "cpu_stream", "taps",
+    "no_taps", "two_d", "window"])
+def test_recurrence_wrappers_refuse_before_building(monkeypatch, case):
+    """The biquad, CMA and bit-timing wrappers refuse what their kernels do
+    not take with ValueError before they build: a float64 row, complex
+    coefficients, a CPU tensor (``biquad_apply`` and ``cma_equalize``
+    never send one), more than 32 taps or none, a 2-D stream, and a delay
+    line above 512."""
+    from sdrtrunk_tpu_torch.dsp import biquad_cuda, cma_cuda
+
+    def fail():
+        raise AssertionError("built before refusing")
+
+    for mod in (biquad_cuda, cma_cuda, bit_timing_cuda):
+        monkeypatch.setattr(mod, "build", fail)
+    b, a = [0.2, 0.4, 0.2], [1.0, -0.5, 0.25]
+    x = torch.zeros((3, 16), device="meta")
+    z = torch.zeros(16, dtype=torch.complex64, device="meta")
+    call, match = {
+        "dtype": (lambda: biquad_cuda.biquad_cuda(x.double(), b, a),
+                  "float32 or complex64"),
+        "complex_coefficients": (lambda: biquad_cuda.biquad_cuda(
+            x, [0.2, 0.4 + 0.1j, 0.2], a), "three real coefficients"),
+        "cpu_rows": (lambda: biquad_cuda.biquad_cuda(
+            torch.zeros((3, 16)), b, a), "CUDA"),
+        "cpu_stream": (lambda: cma_cuda.cma_cuda(
+            torch.zeros(16, dtype=torch.complex64), torch.ones(11)), "CUDA"),
+        "taps": (lambda: cma_cuda.cma_cuda(z, torch.ones(33, device="meta")),
+                 "33 taps"),
+        "no_taps": (lambda: cma_cuda.cma_cuda(
+            z, torch.ones(0, device="meta")), "0 taps"),
+        "two_d": (lambda: cma_cuda.cma_cuda(
+            z[None], torch.ones(11, device="meta")), "1-D"),
+        "window": (lambda: bit_timing_cuda.bit_timing_cuda(
+            LTRFSKDemodulator(sample_rate=80000.0, device="cpu").geometry,
+            x, torch.zeros((3, 533), dtype=torch.int8),
+            torch.zeros(3)), "W = 533 .*above the kernel's 512"),
+    }[case]
+    with pytest.raises(ValueError, match=match):
+        call()
 
 
 @pytest.mark.parametrize("case", ["device", "dtype", "shape", "layout"])

@@ -15,8 +15,18 @@ blocked form); the biquad within 1e-5 relative (a feedback loop: XLA:CPU
 contracts ``b * x + z`` into fused multiply-adds, the port's loop rounds
 the product and the sum apart, and the loop carries the difference);
 the CMA equalizer within 1e-4 over 1000 samples for the same reason
-(its taps adapt on every sample); the synthesizer, the channelizer and
-the CIC channel's cleanup FIR within 1e-5.
+(its taps adapt on every sample; the port also takes |y|^2 as yr yr + yi
+yi and sums the taps' products as a halving tree, the kernel's order,
+where the reference takes hypot and its own sum); the synthesizer, the
+channelizer and the CIC channel's cleanup FIR within 1e-5.
+
+The biquad and the CMA kernels (csrc/biquad.cu, csrc/cma.cu) run only on
+the card (tests/test_torch_cuda.py holds them bit for bit against the
+plain versions there); here their arithmetic is rehearsed in NumPy
+float32, scalar and lane by lane as the kernels take it (a complex row as
+two real recurrences; the taps' sum as the warp's xor butterfly), and held
+bit for bit against the plain versions, and a CPU tensor is shown never
+to reach a kernel wrapper.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -33,11 +43,12 @@ from sdrtrunk_tpu.dsp.channelizer import channelize as jchannelize
 from sdrtrunk_tpu_torch.dsp import design
 from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer, channelize
 from sdrtrunk_tpu_torch.dsp.cic import CICChannel, cic_decimate, prime_factors
-from sdrtrunk_tpu_torch.dsp.misc import (biquad_apply, biquad_design,
-                                         biquad_init, cma_equalize, cma_init,
-                                         goertzel_magnitude, goertzel_power,
-                                         hilbert_taps, iq_correction,
-                                         real_to_complex)
+from sdrtrunk_tpu_torch.dsp.misc import (biquad_apply, biquad_apply_plain,
+                                         biquad_design, biquad_init,
+                                         cma_equalize, cma_equalize_plain,
+                                         cma_init, goertzel_magnitude,
+                                         goertzel_power, hilbert_taps,
+                                         iq_correction, real_to_complex)
 from sdrtrunk_tpu_torch.dsp.oscillator import (fs4_down_convert, mix_down,
                                                mix_up, oscillate)
 from sdrtrunk_tpu_torch.dsp.synthesizer import (TwoChannelSynthesizer,
@@ -157,6 +168,165 @@ def test_cma_equalizer_restores_modulus_like_reference():
     _close(y1, jy, 1e-4)
     _close(taps1, jtaps, 1e-4)
     _close(cma_init(device="cpu"), jmisc.cma_init(), 0.0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64],
+                         ids=["float32", "complex64"])
+def test_biquad_rows_and_carried_state_match_reference(dtype):
+    """Three rows (float32, and complex64 as the reference accepts) in two
+    calls with carried state, each row against the reference's
+    ``biquad_apply`` over the whole row (the reference takes a 1-D row;
+    it vmaps over leading axes)."""
+    b, a = biquad_design("highpass", 300.0, 8000.0, q=0.9)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3, 600))
+    if dtype is np.complex64:
+        x = x + 1j * rng.standard_normal((3, 600))
+    x = x.astype(dtype)
+    y1, s1 = biquad_apply(_t(x[:, :250]), b, a)
+    y2, s2 = biquad_apply(_t(x[:, 250:]), b, a, s1)
+    assert y1.dtype == s2.dtype == torch.as_tensor(x).dtype
+    assert s2.shape == (3, 2)
+    y = torch.cat([y1, y2], 1)
+    for row in range(3):
+        jy, jst = jmisc.biquad_apply(jnp.asarray(x[row]), b, a)
+        _close(y[row], jy, 1e-5, rtol=1e-5)
+        _close(s2[row], jst, 1e-5, rtol=1e-5)
+
+
+def _biquad_kernel_model(x, b, a, state):
+    """csrc/biquad.cu for one float32 row in NumPy float32 scalars: the
+    step in its order, a product and a sum rounded apart (--fmad=false)."""
+    f32 = np.float32
+    b0, b1, b2 = (f32(v) for v in b)
+    a1, a2 = f32(a[1]), f32(a[2])
+    z1, z2 = f32(state[0]), f32(state[1])
+    y = np.empty(len(x), np.float32)
+    for n, xn in enumerate(x.astype(np.float32)):
+        y[n] = f32(f32(b0 * xn) + z1)
+        z1 = f32(f32(f32(b1 * xn) - f32(a1 * y[n])) + z2)
+        z2 = f32(f32(b2 * xn) - f32(a2 * y[n]))
+    return y, np.array([z1, z2], np.float32)
+
+
+def test_biquad_kernel_arithmetic_equals_plain_loop():
+    """The kernel's step, and a complex row as two real recurrences (real
+    coefficients), bit for bit against the plain loop's float32 and
+    complex64 operations."""
+    b, a = biquad_design("bandpass", 1200.0, 8000.0, q=5.0)
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal(300) + 1j * rng.standard_normal(300)
+         ).astype(np.complex64)
+    st = np.array([0.25 - 0.5j, -0.125 + 0.75j], np.complex64)
+    for part in (np.real, np.imag):
+        y, z = biquad_apply_plain(_t(part(x).copy()), b, a,
+                                  _t(part(st).copy()))
+        my, mz = _biquad_kernel_model(part(x), b, a, part(st))
+        assert np.array_equal(y.numpy(), my) and np.array_equal(z.numpy(), mz)
+    y, z = biquad_apply_plain(_t(x), b, a, _t(st))
+    for part in (np.real, np.imag):
+        my, mz = _biquad_kernel_model(part(x), b, a, part(st))
+        assert np.array_equal(part(y.numpy()), my)
+        assert np.array_equal(part(z.numpy()), mz)
+
+
+def _cma_kernel_model(x, taps, modulus, mu):
+    """csrc/cma.cu in NumPy float32, lane by lane: lane k holds tap k and
+    buf[k]; the line shifts a lane a sample; each lane's product, then
+    the xor butterfly over the next power of two of the tap count (every
+    lane ends with the sum); the error and its clip; the update."""
+    f32 = np.float32
+    n_taps = len(taps)
+    tree = 1 << (n_taps - 1).bit_length()
+    tr = [f32(t.real) for t in taps] + [f32(0.0)] * (32 - n_taps)
+    ti = [f32(t.imag) for t in taps] + [f32(0.0)] * (32 - n_taps)
+    br, bi = [f32(0.0)] * 32, [f32(0.0)] * 32
+    mod, mu = f32(modulus), f32(mu)
+    y = np.empty(len(x), np.complex64)
+    for n, xn in enumerate(x.astype(np.complex64)):
+        br = [f32(xn.real)] + br[:-1]
+        bi = [f32(xn.imag)] + bi[:-1]
+        yr = [f32(f32(tr[k] * br[k]) - f32(ti[k] * bi[k])) if k < n_taps
+              else f32(0.0) for k in range(32)]
+        yi = [f32(f32(tr[k] * bi[k]) + f32(ti[k] * br[k])) if k < n_taps
+              else f32(0.0) for k in range(32)]
+        off = tree >> 1
+        while off:
+            yr = [f32(yr[k] + yr[k ^ off]) for k in range(32)]
+            yi = [f32(yi[k] + yi[k ^ off]) for k in range(32)]
+            off >>= 1
+        assert len({float(v) for v in yr[:tree]}) == 1
+        r, i = yr[0], yi[0]
+        f = f32(f32(f32(r * r) + f32(i * i)) - mod)
+        er, ei = f32(r * f), f32(i * f)
+        mag = np.sqrt(f32(f32(er * er) + f32(ei * ei)))
+        if mag > f32(1.0):
+            d = max(mag, f32(1e-12))
+            er, ei = f32(er / d), f32(ei / d)
+        for k in range(n_taps):
+            tr[k] = f32(tr[k] - f32(mu * f32(f32(br[k] * er)
+                                             + f32(bi[k] * ei))))
+            ti[k] = f32(ti[k] - f32(mu * f32(f32(br[k] * ei)
+                                             - f32(bi[k] * er))))
+        y[n] = complex(r, i)
+    return y, np.array([complex(a, b) for a, b in zip(tr[:n_taps],
+                                                       ti[:n_taps])],
+                       np.complex64)
+
+
+@pytest.mark.parametrize("n_taps", [11, 1, 5, 32])
+def test_cma_kernel_arithmetic_equals_plain_loop(n_taps):
+    """The kernel's lane-by-lane arithmetic bit for bit against the plain
+    version, at the default 11 taps (a tree over 16 lanes), one tap, five
+    and the kernel's 32; QPSK through a static channel, with samples
+    whose clip engages (|e| > 1) at the start."""
+    rng = np.random.default_rng(13)
+    syms = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, 300)))
+    x = 1.6 * np.convolve(syms, [1.0, 0.25 - 0.1j])[:300]
+    x = x.astype(np.complex64)
+    taps = np.zeros(n_taps, np.complex64)
+    taps[0] = 1.0
+    taps[1:] = 0.01 * (rng.standard_normal(n_taps - 1)
+                       + 1j * rng.standard_normal(n_taps - 1))
+    y, t = cma_equalize_plain(_t(x), _t(taps), modulus=1.0, mu=0.003)
+    my, mt = _cma_kernel_model(x, taps, 1.0, 0.003)
+    assert np.array_equal(y.numpy(), my)
+    assert np.array_equal(t.numpy(), mt)
+
+
+def test_cpu_tensors_never_reach_the_kernel_wrappers(monkeypatch):
+    """``biquad_apply`` and ``cma_equalize`` send a CPU tensor to their
+    plain versions: with both wrappers' builds made to raise, the CPU
+    calls still return the plain versions' results. A tensor elsewhere
+    (here on the meta device) goes to the wrapper, which refuses it, and
+    the plain versions do not run in its place."""
+    from sdrtrunk_tpu_torch.dsp import biquad_cuda, cma_cuda, misc
+
+    def fail():
+        raise AssertionError("a CPU tensor reached a kernel wrapper")
+
+    monkeypatch.setattr(biquad_cuda, "build", fail)
+    monkeypatch.setattr(cma_cuda, "build", fail)
+    b, a = biquad_design("lowpass", 1000.0, 8000.0)
+    x = torch.as_tensor(np.random.default_rng(14).standard_normal(
+        (2, 64)).astype(np.float32))
+    got = biquad_apply(x, b, a)
+    want = biquad_apply_plain(x, b, a)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    z = torch.complex(x[0], x[1])
+    got = cma_equalize(z, mu=0.003)
+    want = cma_equalize_plain(z, cma_init(device="cpu"), mu=0.003)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain loop ran for a non-CPU tensor")
+
+    monkeypatch.setattr(misc, "biquad_apply_plain", plain)
+    monkeypatch.setattr(misc, "cma_equalize_plain", plain)
+    with pytest.raises(ValueError, match="CUDA"):
+        misc.biquad_apply(x.to("meta"), b, a)
+    with pytest.raises(ValueError, match="CUDA"):
+        misc.cma_equalize(z.to("meta"), cma_init(device="meta"))
 
 
 def test_iq_correction_removes_dc_like_reference():

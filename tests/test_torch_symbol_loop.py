@@ -282,16 +282,19 @@ def test_wrappers_refuse_a_window_above_their_kernel(kind):
     its kernel's, before it builds or launches anything (here, with no
     nvcc and no card, a build or a launch would raise something else):
     W = 130 for the symbol loops (above 128, at 312 kHz and 4800 Bd),
-    W = 65 for bit timing (above its 64-bit delay line)."""
+    W = 513 for bit timing (above its eight-word delay line: LTR at 77 kHz
+    audio)."""
     from sdrtrunk_tpu_torch.dsp import bit_timing_cuda, dqpsk_cuda, gardner_cuda
-    from sdrtrunk_tpu_torch.dsp.bit_timing import BitTimingGeometry
+    from sdrtrunk_tpu_torch.dsp.fsk import LTRFSKDemodulator
 
     if kind == "bit_timing":
-        geom = BitTimingGeometry(65, 16, 32, 33, 16.0, 32.0, 0.25, True)
-        with pytest.raises(ValueError, match="W = 65 .*above the kernel's 64"):
+        geom = LTRFSKDemodulator(sample_rate=77000.0, device="cpu").geometry
+        assert geom.window_len == 513
+        with pytest.raises(ValueError,
+                           match="W = 513 .*above the kernel's 512"):
             bit_timing_cuda.bit_timing_cuda(
-                geom, torch.zeros((2, 16)), torch.zeros((2, 65), dtype=torch.int8),
-                torch.ones(2))
+                geom, torch.zeros((2, 16)),
+                torch.zeros((2, 513), dtype=torch.int8), torch.ones(2))
         return
     cls, wrapper = ((DQPSKDemodulator, dqpsk_cuda.dqpsk_cuda)
                     if kind == "dqpsk" else
