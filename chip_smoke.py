@@ -23,7 +23,7 @@ failure (the exit code is then not 0):
    each library's build time; ptxas's registers and spills for each
    instantiation (a symbol loop's lane layout (G, K) and the window
    lengths it serves, the bit-timing line's 64-bit words L, the biquad's
-   floats a sample V);
+   floats a sample V and copy path, the CMA's tree width P);
 3. edge cases of the kernels' symbol-major loop, each kernel held bit for
    bit against its plain loop at every live window length and at W = 13,
    20, 21, 32, 40 and 80 (captures at 32 to 192 kHz; 25 kHz channels),
@@ -177,7 +177,9 @@ failure (the exit code is then not 0):
    CPU within tests/test_torch_misc_dsp.py's tolerances, one biquad and
    one CMA launch; then the biquad and the CMA kernels held bit for bit
    against their plain versions on the card on the same inputs, timed by
-   CUDA events beside their bytes bound and their chain's floor;
+   CUDA events beside their bytes bound and their chain's floor, and
+   again on complex64 rows (1023 x 10240) and at 32 taps, each of these
+   also against the CPU within the same tolerances;
 22. ``parallel``: the sharded channelizer pipeline over torch.distributed
    at world size 1 over NCCL (one card gives one rank): ``python -m
    sdrtrunk_tpu_torch.parallel.multiprocess --device cuda`` as a process
@@ -422,15 +424,18 @@ def build_kernels() -> dict:
                 entry = f"{m.group(1)}<G={g},K={k}>"
                 regs[entry] = {"windows": _windows_of(g, k)}
             # bit timing by its line's 64-bit words L (W <= 64 L), the
-            # biquad by its floats a sample (1 float32, 2 complex64)
+            # biquad by its floats a sample (1 float32, 2 complex64) and its
+            # copies (1 bulk), the CMA by its tree's width P
             m = re.search(r"Compiling entry function '.*?(bit_timing|biquad)"
-                          r"_kernelILi(\d+)E", line)
+                          r"_kernelILi(\d+)E(?:Lb(\d)E)?", line)
             if m:
                 entry = (f"bit_timing<L={m.group(2)}>"
                          if m.group(1) == "bit_timing"
-                         else f"biquad<V={m.group(2)}>")
-            if re.search(r"Compiling entry function '.*?cma_kernel", line):
-                entry = "cma"
+                         else f"biquad<V={m.group(2)},bulk={m.group(3)}>")
+            m = re.search(r"Compiling entry function '.*?cma_kernelILi(\d+)E",
+                          line)
+            if m:
+                entry = f"cma<P={m.group(1)}>"
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m and entry:
@@ -3819,7 +3824,9 @@ def _dsp_inputs() -> dict:
     r = rng.standard_normal(3000).astype(np.float32)
     rows = rng.standard_normal((BIQUAD_C, BIQUAD_T)).astype(np.float32)
     b, a = misc.biquad_design("bandpass", 1200.0, 8000.0, q=5.0)
-    return {"z": z, "qpsk": qpsk, "r": r, "rows": rows, "b": b, "a": a}
+    crows = rng.standard_normal((BIQUAD_C, BIQUAD_T, 2), np.float32)
+    return {"z": z, "qpsk": qpsk, "r": r, "rows": rows, "b": b, "a": a,
+            "crows": crows.view(np.complex64)[..., 0]}
 
 
 def _dsp(card: str, inputs: dict) -> dict:
@@ -3884,7 +3891,8 @@ def _sm_clock_hz() -> float:
 
 def _recurrence_record(card: str, name: str, source: str, replaces: str,
                        kernel, plain, nbytes: int, flops: int,
-                       chain_samples: int, shape: list) -> dict:
+                       chain_samples: int, shape: list,
+                       label: str = "") -> dict:
     """A serial recurrence's kernel against its plain version on the card,
     bit for bit, timed by CUDA events (the kernel over 5 calls, the plain
     loop once) beside its bound: bytes over the memory rate or its float32
@@ -3913,7 +3921,8 @@ def _recurrence_record(card: str, name: str, source: str, replaces: str,
                           else (by_ops, "operations"))
     chain_ms = (chain_samples * CHAIN_OPS[name] * CHAIN_OP_CYCLES
                 / _sm_clock_hz() * 1e3)
-    print(f"[receiver] {card}: {name} {shape}: identical to the plain loop "
+    print(f"[receiver] {card}: {name}{label} {shape}: identical to the "
+          f"plain loop "
           f"on the card (output and state); kernel {kernel_ms:.4f} ms "
           f"against a {bound_ms:.4f} ms {bound_by} bound "
           f"({100 * bound_ms / kernel_ms:.2f}% of it) and a {chain_ms:.4f} "
@@ -3926,34 +3935,68 @@ def _recurrence_record(card: str, name: str, source: str, replaces: str,
             "plain_shape": shape}
 
 
+def _against_cpu(card: str, name: str, got, cpu, tol: float) -> float:
+    """Max abs difference of the card's outputs (output, state) from the
+    CPU's plain version; raises beyond tol."""
+    err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, cpu))
+    print(f"[receiver] {card}: {name} against the CPU, max abs err {err}",
+          flush=True)
+    if not err <= tol:
+        raise AssertionError(f"receiver: {name} {err} from the CPU, beyond "
+                             f"{tol}")
+    return err
+
+
 def check_recurrences(card: str, inputs: dict) -> dict:
-    """The biquad at BIQUAD_C x BIQUAD_T float32 and the CMA equalizer on
-    CMA_T samples, each kernel against its plain version on the card (no
-    PyTorch call computes either: library_ms is None)."""
+    """The biquad at BIQUAD_C x BIQUAD_T float32 and complex64 and the CMA
+    equalizer on CMA_T samples at 11 and 32 taps, each kernel against its
+    plain version on the card (no PyTorch call computes either: library_ms
+    is None); the complex64 rows and the 32 taps, which ``_dsp`` does not
+    run, also against the CPU. The complex64 and 32-tap records ride in
+    their entry under "complex64" and "taps32"."""
     import torch
 
     from sdrtrunk_tpu_torch.dsp import misc
     from sdrtrunk_tpu_torch.dsp.biquad_cuda import biquad_cuda
     from sdrtrunk_tpu_torch.dsp.cma_cuda import cma_cuda
 
-    rows = torch.as_tensor(inputs["rows"], device="cuda")
     b, a = inputs["b"], inputs["a"]
-    c, t = rows.shape
-    biquad = _recurrence_record(
-        card, "biquad", "sdrtrunk_tpu_torch/csrc/biquad.cu",
-        "sdrtrunk_tpu/dsp/misc.py:91", lambda: biquad_cuda(rows, b, a),
-        lambda: misc.biquad_apply_plain(rows, b, a),
-        2 * rows.numel() * 4 + 2 * c * 2 * 4, 7 * c * t, t, [c, t])
+    biquad = {}
+    for dtype in ("float32", "complex64"):
+        rows = torch.as_tensor(inputs["rows" if dtype == "float32"
+                                      else "crows"], device="cuda")
+        c, t = rows.shape
+        nbytes = 2 * rows.numel() * rows.element_size() \
+            + 2 * c * 2 * rows.element_size()
+        biquad[dtype] = _recurrence_record(
+            card, "biquad", "sdrtrunk_tpu_torch/csrc/biquad.cu",
+            "sdrtrunk_tpu/dsp/misc.py:91",
+            lambda rows=rows: biquad_cuda(rows, b, a),
+            lambda rows=rows: misc.biquad_apply_plain(rows, b, a), nbytes,
+            7 * c * t * (rows.element_size() // 4), t, [c, t], f" {dtype}")
+    biquad["complex64"]["cpu_max_abs_err"] = _against_cpu(
+        card, "biquad complex64", biquad_cuda(rows, b, a),
+        misc.biquad_apply_plain(torch.as_tensor(inputs["crows"]), b, a),
+        _DSP_TOL["biquad"])
     x = torch.as_tensor(inputs["qpsk"], device="cuda")
-    taps = misc.cma_init(device="cuda")
-    n, k = x.shape[0], taps.shape[0]
-    cma = _recurrence_record(
-        card, "cma", "sdrtrunk_tpu_torch/csrc/cma.cu",
-        "sdrtrunk_tpu/dsp/misc.py:123",
-        lambda: cma_cuda(x, taps, mu=0.003),
-        lambda: misc.cma_equalize_plain(x, taps, mu=0.003),
-        2 * n * 8 + 2 * k * 8, n * (14 * k + 20), n, [n])
-    return {"biquad": biquad, "cma": cma}
+    cma = {}
+    for k in (11, 32):
+        taps = misc.cma_init(k, device="cuda")
+        n = x.shape[0]
+        cma[k] = _recurrence_record(
+            card, "cma", "sdrtrunk_tpu_torch/csrc/cma.cu",
+            "sdrtrunk_tpu/dsp/misc.py:123",
+            lambda taps=taps: cma_cuda(x, taps, mu=0.003),
+            lambda taps=taps: misc.cma_equalize_plain(x, taps, mu=0.003),
+            2 * n * 8 + 2 * k * 8, n * (14 * k + 20), n, [n],
+            f" {k} taps")
+        cma[k]["taps"] = k
+    cma[32]["cpu_max_abs_err"] = _against_cpu(
+        card, "cma 32 taps", cma_cuda(x, taps, mu=0.003),
+        misc.cma_equalize_plain(x.cpu(), taps.cpu(), mu=0.003),
+        _DSP_TOL["cma_equalize"])
+    return {"biquad": {**biquad["float32"], "complex64": biquad["complex64"]},
+            "cma": {**cma[11], "taps32": cma[32]}}
 
 
 def run_receiver(card: str) -> dict:

@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from .nvcc import check_tensor, load_kernel
+from .nvcc import check_count, check_tensor, load_kernel
 
 __all__ = ["build", "biquad_cuda"]
 
@@ -45,24 +45,27 @@ def biquad_cuda(x: torch.Tensor, b, a, state: torch.Tensor | None = None):
     """Launch the kernel on a (..., N) float32 or complex64 CUDA tensor,
     one row a leading index, with state (..., 2) (z1, z2) of x's dtype
     (None: zeros). Returns (y like x, new state), new tensors. Raises
-    ValueError on another dtype, on complex coefficients and on a state
-    the kernel does not take before it launches, and raises on a build
-    failure and on a nonzero launch status."""
+    ValueError on another dtype, on complex coefficients, on more rows or
+    samples a row than a C int holds (the kernel indexes a row in 64 bits)
+    and on a state the kernel does not take before it builds or launches,
+    and raises on a build failure and on a nonzero launch status."""
     name = "biquad_cuda"
     if x.dtype not in (torch.float32, torch.complex64) or x.dim() < 1:
         raise ValueError(f"{name}: x must be a float32 or complex64 tensor "
                          f"(..., N), got {x.dtype} {tuple(x.shape)}")
     b0, b1, b2 = _real_coefficients(name, "b", b)
     _, a1, a2 = _real_coefficients(name, "a", a)
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    rows = math.prod(lead)
+    check_count(name, "rows", rows)
+    check_count(name, "N", n)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x must be on a CUDA device, got {x.device}")
-    lead, n = tuple(x.shape[:-1]), x.shape[-1]
     if state is None:
         state = torch.zeros((*lead, 2), dtype=x.dtype, device=x.device)
     state = state.contiguous()
     check_tensor(name, "state", state, x.dtype, (*lead, 2), x.device)
     lib = build()
-    rows = math.prod(lead)
     x = x.contiguous()
     y = torch.empty_like(x)
     if rows == 0:                           # nothing to launch

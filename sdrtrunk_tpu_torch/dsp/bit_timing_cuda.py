@@ -14,13 +14,16 @@ import functools
 
 import torch
 
-from .nvcc import check_tensor, load_kernel
+from .nvcc import INT_MAX, check_count, check_tensor, load_kernel
 
-__all__ = ["MAX_WINDOW", "build", "bit_timing_cuda"]
+__all__ = ["MAX_C", "MAX_T", "MAX_WINDOW", "build", "bit_timing_cuda"]
 
 # the longest delay line the kernel takes: eight 64-bit words
 # (csrc/bit_timing.cu kMaxLineWords); LTR at 300 Bd up to 76.8 kHz audio
 MAX_WINDOW = 512
+# the most channels and samples a channel (C ints): the grid (C + 3) / 4
+# blocks, and a tile's end t0 + 8192 (csrc/bit_timing.cu kTile)
+MAX_C, MAX_T = INT_MAX - 3, INT_MAX - 8192
 
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 6
              + [ctypes.c_float] * 3 + [ctypes.c_void_p])
@@ -41,8 +44,9 @@ def bit_timing_cuda(geom, x: torch.Tensor, window: torch.Tensor,
     new sampling_point (C,) float32), all new tensors. The kernel writes
     every byte of ``bits`` and ``valid``; ``bits`` is 0 wherever ``valid``
     is not set. Raises ValueError on a window length above ``MAX_WINDOW``
-    before it builds or launches, and raises on a build failure, on a
-    tensor the kernel does not take, and on a nonzero launch status.
+    and on a C or T above ``MAX_C`` / ``MAX_T`` before it builds or
+    launches, and raises on a build failure, on a tensor the kernel does
+    not take, and on a nonzero launch status.
     """
     name = "bit_timing_cuda"
     w = geom.window_len
@@ -50,6 +54,9 @@ def bit_timing_cuda(geom, x: torch.Tensor, window: torch.Tensor,
         raise ValueError(
             f"{name}: window length W = {w} (sps {geom.sps}) is above the "
             f"kernel's {MAX_WINDOW}, its longest delay line")
+    if x.dim() == 2:
+        check_count(name, "C", x.shape[0], MAX_C)
+        check_count(name, "T", x.shape[1], MAX_T)
     lib = build()
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x must be on a CUDA device, got {x.device}")

@@ -14,11 +14,12 @@ import functools
 import numpy as np
 import torch
 
-from .nvcc import check_tensor, load_kernel
+from .nvcc import check_count, check_tensor, load_kernel
 
 __all__ = ["MAX_TAPS", "build", "cma_cuda"]
 
-# the most taps the kernel takes: one a lane of its warp (csrc/cma.cu)
+# the most taps the kernel takes (csrc/cma.cu: its delay line carries 31
+# samples across tiles, and its tree spreads over at most one warp)
 MAX_TAPS = 32
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -38,9 +39,10 @@ def cma_cuda(x: torch.Tensor, taps: torch.Tensor, modulus: float = 1.0,
     """Launch the kernel on a 1-D CUDA stream, cast to complex64 as the
     plain loop casts it, from taps (n_taps,) (cast likewise). Returns
     (equalized stream (N,) complex64, final taps), new tensors. Raises
-    ValueError on a tap count outside 1 .. MAX_TAPS and on a tensor the
-    kernel does not take before it builds or launches, and raises on a
-    build failure and on a nonzero launch status."""
+    ValueError on a tap count outside 1 .. MAX_TAPS, on a stream longer
+    than a C int holds and on a tensor the kernel does not take before it
+    builds or launches, and raises on a build failure and on a nonzero
+    launch status."""
     name = "cma_cuda"
     if x.dim() != 1 or taps.dim() != 1:
         raise ValueError(f"{name}: x and taps must be 1-D, got "
@@ -48,7 +50,8 @@ def cma_cuda(x: torch.Tensor, taps: torch.Tensor, modulus: float = 1.0,
     n_taps = taps.shape[0]
     if not 1 <= n_taps <= MAX_TAPS:
         raise ValueError(f"{name}: {n_taps} taps; the kernel takes 1 to "
-                         f"{MAX_TAPS}, one a lane of its warp")
+                         f"{MAX_TAPS}, over the lanes of one warp")
+    check_count(name, "N", x.shape[0])
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x must be on a CUDA device, got {x.device}")
     x = x.to(torch.complex64).contiguous()

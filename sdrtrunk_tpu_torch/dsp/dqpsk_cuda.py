@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from .nvcc import check_inputs, check_window, load_kernel
+from .nvcc import check_inputs, check_sizes, check_window, load_kernel
 
 __all__ = ["build", "dqpsk_cuda"]
 
@@ -35,13 +35,15 @@ def dqpsk_cuda(demod, x: torch.Tensor, state):
     Returns ((T, C) uint8 ``dibit | valid << 2``, new DQPSKState). The
     state is in the reference layout (window (C, W)); outputs are new
     tensors (``out`` zero-filled, the state from ``torch.empty``). Raises
-    ValueError on a window length above ``nvcc.MAX_WINDOW`` before it
-    builds or launches, and raises on a build failure, on a tensor the
-    kernel does not take, and on a nonzero launch status.
+    ValueError on a window length above ``nvcc.MAX_WINDOW`` and on a C or
+    T above ``nvcc.SYMBOL_LOOP_MAX_C`` / ``_MAX_T`` before it builds or
+    launches, and raises on a build failure, on a tensor the kernel does
+    not take, and on a nonzero launch status.
     """
     from .psk import DQPSKState
 
     check_window("dqpsk_cuda", demod)
+    check_sizes("dqpsk_cuda", x)
     lib = build()
     x = check_inputs("dqpsk_cuda", demod, x, state)
     c, t = x.shape

@@ -13,8 +13,8 @@ import functools
 
 import torch
 
-from .nvcc import (MAX_WINDOW, MIN_WINDOW, check_inputs, check_window,
-                   load_kernel)
+from .nvcc import (MAX_WINDOW, MIN_WINDOW, check_inputs, check_sizes,
+                   check_window, load_kernel)
 
 __all__ = ["WINDOWS", "build", "gardner_cuda"]
 
@@ -40,13 +40,15 @@ def gardner_cuda(demod, x: torch.Tensor, state):
     Returns ((T, C) uint8 ``dibit | valid << 2``, new GardnerState). The
     state is in the reference layout (window (C, W)); outputs are new
     tensors (``out`` zero-filled, the state from ``torch.empty``). Raises
-    ValueError on a window length outside ``WINDOWS`` before it builds or
+    ValueError on a window length outside ``WINDOWS`` and on a C or T
+    above ``nvcc.SYMBOL_LOOP_MAX_C`` / ``_MAX_T`` before it builds or
     launches, and raises on a build failure, on a tensor the kernel does
     not take, and on a nonzero launch status.
     """
     from .psk import GardnerState
 
     check_window("gardner_cuda", demod)
+    check_sizes("gardner_cuda", x)
     lib = build()
     x = check_inputs("gardner_cuda", demod, x, state)
     c, t = x.shape

@@ -11,7 +11,11 @@ the report is kept beside the library as ``lib<name>_<key>.log``.
 The symbol-loop kernels (dqpsk.cu, gardner.cu) take the same inputs: a
 (C, T) complex64 stream, the (129, 8) interpolator bank and the state in
 the reference layout, at a window length W in [MIN_WINDOW, MAX_WINDOW];
-``check_window`` and ``check_inputs`` refuse anything else.
+``check_window`` and ``check_inputs`` refuse anything else. Every kernel
+takes its counts as C ints, which ctypes wraps without a word (2**31 + 5
+arrives as -2147483643, 2**32 + 5 as 5): ``check_count`` refuses a count
+above what the entry point and the kernel's index hold, before any build
+or launch.
 """
 from __future__ import annotations
 
@@ -26,9 +30,11 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "MAX_WINDOW", "MIN_WINDOW", "NVCC_FLAGS",
-           "check_inputs", "check_tensor", "check_window", "lane_layout",
-           "load_kernel", "ptxas_report", "ring_size"]
+__all__ = ["BUILD_DIR", "CSRC", "INT_MAX", "MAX_WINDOW", "MIN_WINDOW",
+           "NVCC_FLAGS", "SYMBOL_LOOP_MAX_C", "SYMBOL_LOOP_MAX_T",
+           "check_count", "check_inputs", "check_sizes", "check_tensor",
+           "check_window", "lane_layout", "load_kernel", "ptxas_report",
+           "ring_size"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -40,6 +46,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the window lengths the symbol-loop kernels take (csrc/psk_common.cuh
 # kMinWindow, kMaxWindow): 4 to 64 samples a symbol
 MIN_WINDOW, MAX_WINDOW = 8, 128
+
+# the largest C int, the type of every kernel's counts
+INT_MAX = 2**31 - 1
+# the symbol-loop kernels' limits: the grid (C + 3) / 4 blocks at most,
+# and a pass reads up to 63 samples past its start
+SYMBOL_LOOP_MAX_C, SYMBOL_LOOP_MAX_T = INT_MAX - 3, INT_MAX - 63
 
 _locks: dict[str, threading.Lock] = {}
 _locks_guard = threading.Lock()
@@ -107,6 +119,26 @@ def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype: torch.dtype,
             f"{kernel}: {name} must be a contiguous {dtype} tensor of "
             f"shape {shape} on {device}; got {t.dtype} {tuple(t.shape)} on "
             f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def check_count(kernel: str, name: str, value: int,
+                limit: int = INT_MAX) -> None:
+    """Raise ValueError unless 0 <= value <= limit: a count the kernel's C
+    entry point (an int) and its index hold. Checked before any build or
+    launch, and before the device check, so a test can show it on a meta
+    tensor."""
+    if not 0 <= value <= limit:
+        raise ValueError(f"{kernel}: {name} = {value} is above the kernel's "
+                         f"limit of {limit} (its C entry point takes a "
+                         f"32-bit int)")
+
+
+def check_sizes(kernel: str, x: torch.Tensor) -> None:
+    """The symbol-loop kernels' counts of a (C, T) block (another shape is
+    left to ``check_inputs``)."""
+    if x.dim() == 2:
+        check_count(kernel, "C", x.shape[0], SYMBOL_LOOP_MAX_C)
+        check_count(kernel, "T", x.shape[1], SYMBOL_LOOP_MAX_T)
 
 
 def check_inputs(kernel: str, demod, x: torch.Tensor, state) -> torch.Tensor:

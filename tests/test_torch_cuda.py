@@ -467,6 +467,67 @@ def test_biquad_kernel_on_card(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64],
+                         ids=["float32", "complex64"])
+def test_biquad_kernel_layouts_on_card(card, dtype):
+    """The biquad kernel bit for bit against ``biquad_apply_plain`` on the
+    card over its copy paths: rows whose length is a multiple of 4 floats
+    (one bulk copy a row a stage) and rows whose length is not (4-byte
+    copies, an unaligned tail), a row that starts off 16 bytes (a view at
+    an offset), several tiles and less than one, and row counts that are
+    not a multiple of the 8 rows a warp, with a carried state."""
+    from sdrtrunk_tpu_torch.dsp import biquad_cuda
+    from sdrtrunk_tpu_torch.dsp.misc import biquad_apply_plain, biquad_design
+
+    b, a = biquad_design("lowpass", 900.0, 8000.0, q=0.9)
+    rng = np.random.default_rng(23)
+    fn = biquad_cuda.biquad_cuda
+    for rows, n, offset in ((9, 5000, 0), (7, 5001, 0), (1, 3, 0),
+                            (17, 1027, 0), (3, 2048, 1), (1, 513, 1)):
+        x = rng.standard_normal((rows, n + offset))
+        st = rng.standard_normal((rows, 2))
+        if dtype == torch.complex64:
+            x = x + 1j * rng.standard_normal(x.shape)
+            st = st + 1j * rng.standard_normal(st.shape)
+        x = torch.as_tensor(x).to(dtype).to(card)
+        st = torch.as_tensor(st).to(dtype).to(card)
+        if offset:                          # rows of a flat view, 4 bytes on
+            x = x.flatten()[offset:offset + rows * n].view(rows, n)
+            assert x.is_contiguous()
+        before = fn.launches
+        y, s2 = fn(x, b, a, st)
+        assert fn.launches == before + 1
+        want, want_s = biquad_apply_plain(x, b, a, st)
+        assert torch.equal(y, want) and torch.equal(s2, want_s), \
+            (rows, n, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_taps", [1, 32])
+def test_cma_kernel_over_tiles_on_card(card, n_taps):
+    """The CMA kernel over several of its tiles (two of 2048 samples and
+    part of a third; the delay line carried across each boundary), bit for
+    bit against ``cma_equalize_plain`` on the card, at 1 tap (no tree) and
+    at 32 (three shuffled levels)."""
+    from sdrtrunk_tpu_torch.dsp import cma_cuda
+    from sdrtrunk_tpu_torch.dsp.misc import cma_equalize_plain
+
+    rng = np.random.default_rng(24)
+    n = 2 * 2048 + 777
+    syms = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, n)))
+    x = torch.as_tensor((1.6 * np.convolve(syms, [1.0, 0.25 - 0.1j])[:n])
+                        .astype(np.complex64)).to(card)
+    taps = np.zeros(n_taps, np.complex64)
+    taps[0] = 1.0
+    taps[1:] = 0.01 * (rng.standard_normal(n_taps - 1)
+                       + 1j * rng.standard_normal(n_taps - 1))
+    taps = torch.as_tensor(taps).to(card)
+    y, t = cma_cuda.cma_cuda(x, taps, mu=0.003)
+    want, want_t = cma_equalize_plain(x, taps, mu=0.003)
+    assert torch.equal(y, want) and torch.equal(t, want_t)
+
+
+@pytest.mark.cuda
 def test_cma_kernel_on_card(card):
     """``cma_equalize`` on the card launches the kernel once a call and
     equals ``cma_equalize_plain`` on the card bit for bit, on 2500 QPSK

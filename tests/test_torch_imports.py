@@ -2,8 +2,8 @@
 and its kernel path never falls back.
 
 * Every file of sdrtrunk_tpu_torch/, chip_smoke.py,
-  tests/test_torch_cuda.py, tools/symbol_loop_split.py and
-  tools/bit_timing_blocks.py is parsed, and no import of jax, of
+  tests/test_torch_cuda.py, tools/symbol_loop_split.py,
+  tools/bit_timing_blocks.py and tools/recurrence_split.py is parsed, and no import of jax, of
   sdrtrunk_tpu or of any sdrtrunk_tpu.* module is allowed (the machine
   with the card has no JAX installed, and the port keeps its own copy of
   the host layer it needs: tests/test_torch_host_copy.py).
@@ -31,8 +31,8 @@ and its kernel path never falls back.
   is never run. The shared nvcc helper raises when nvcc fails, and leaves
   no library behind, and the input check the wrappers share refuses a
   tensor of the wrong device, dtype, shape or layout.
-* The bit-timing phase-split tool's text edits still find their places in
-  csrc/bit_timing.cu.
+* The phase-split tools' text edits still find their places in
+  csrc/bit_timing.cu, csrc/biquad.cu and csrc/cma.cu.
 """
 import ast
 import json
@@ -75,7 +75,8 @@ def _port_files() -> list[Path]:
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tests" / "test_torch_cuda.py",
                                          ROOT / "tools" / "symbol_loop_split.py",
-                                         ROOT / "tools" / "bit_timing_blocks.py"]
+                                         ROOT / "tools" / "bit_timing_blocks.py",
+                                         ROOT / "tools" / "recurrence_split.py"]
 
 
 def _imported(tree: ast.AST) -> list[str]:
@@ -132,6 +133,34 @@ def test_block_sweep_tool_finds_its_marker():
     assert copy.count("extern \"C\" int bit_timing_launch(") == 1
     assert "kBlock" not in text
     assert len(bit_timing_cuda._ARGTYPES) == 19
+
+
+@pytest.mark.parametrize("kernel,phases,clocks", [
+    ("biquad", ("start", "stage", "walk", "store", "next", "end"), 5),
+    ("cma", ("start", "products", "error", "clip", "update", "next", "end"),
+     6)])
+def test_recurrence_split_tool_finds_its_markers(kernel, phases, clocks):
+    """tools/recurrence_split.py builds a clock64 copy of csrc/biquad.cu
+    and csrc/cma.cu by text edits at the kernels' phase markers (the
+    ``// --- name`` comments), each there once, and a variant of each by
+    one edit of a constant that must be there once; the copies keep the C
+    entry point the wrapper's argument types describe."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "recurrence_split", ROOT / "tools" / "recurrence_split.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    text = (nvcc.CSRC / f"{kernel}.cu").read_text()
+    for phase in phases:
+        assert len(re.findall(rf"^ *// --- {phase}\n", text, re.M)) == 1
+    copy = tool.instrument(kernel, text)
+    assert copy.count("clock64()") == clocks and "read_clk" in copy
+    assert copy.count(f'extern "C" int {kernel}_launch(') == 1
+    for old, _ in tool._VARIANTS[kernel].values():
+        assert text.count(old) == 1
+    with pytest.raises(ValueError, match="no edit set"):
+        tool.instrument(kernel, text.replace("// --- walk", "").replace(
+            "// --- error", ""))
 
 
 _DRIVE = """

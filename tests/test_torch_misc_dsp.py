@@ -28,6 +28,9 @@ two real recurrences; the taps' sum as the warp's xor butterfly), and held
 bit for bit against the plain versions, and a CPU tensor is shown never
 to reach a kernel wrapper.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -230,68 +233,228 @@ def test_biquad_kernel_arithmetic_equals_plain_loop():
         assert np.array_equal(part(z.numpy()), mz)
 
 
+def _cma_source_constants() -> dict:
+    """kTile, kHist, kLaneTaps and kClip of csrc/cma.cu."""
+    text = (Path(__file__).resolve().parent.parent / "sdrtrunk_tpu_torch"
+            / "csrc" / "cma.cu").read_text()
+    got = {name: re.search(rf"constexpr \w+ {name} = ([0-9.]+)f?;",
+                           text).group(1)
+           for name in ("kTile", "kHist", "kLaneTaps", "kClip")}
+    return {k: float(v) if k == "kClip" else int(v) for k, v in got.items()}
+
+
 def _cma_kernel_model(x, taps, modulus, mu):
-    """csrc/cma.cu in NumPy float32, lane by lane: lane k holds tap k and
-    buf[k]; the line shifts a lane a sample; each lane's product, then
-    the xor butterfly over the next power of two of the tap count (every
-    lane ends with the sum); the error and its clip; the update."""
+    """csrc/cma.cu in NumPy float32, lane by lane: slot i of lane j < Q =
+    P / T (T = min(P, kLaneTaps)) holds tap j + Q i and reads its delay
+    line from the staged tile by index (two tiles of kTile samples, the
+    last kHist of one carried in front of the next); a slot past the taps,
+    and every slot of a lane at or above Q, reads +0 and holds +0 taps.
+    Every slot's products (+0 exactly for those), its lane's own halving
+    sums (the tree's first log2 T levels), then the xor butterfly over Q
+    lanes (every lane below Q ends with the sum); the error; every slot's
+    update, taken from the clipped error (the square root and divisions)
+    only when er er + ei ei > kClip. The square root is the device's: the
+    card's (the kernel's sqrtf and torch's on a CUDA tensor) is correctly
+    rounded, torch's on this CPU is an ulp off for some inputs
+    (sqrt(4.802518) gives 2.1914647, not 2.191465), so the model takes
+    torch's, as the plain version does here."""
     f32 = np.float32
+    c = _cma_source_constants()
+    tile, hist = c["kTile"], c["kHist"]
     n_taps = len(taps)
-    tree = 1 << (n_taps - 1).bit_length()
-    tr = [f32(t.real) for t in taps] + [f32(0.0)] * (32 - n_taps)
-    ti = [f32(t.imag) for t in taps] + [f32(0.0)] * (32 - n_taps)
-    br, bi = [f32(0.0)] * 32, [f32(0.0)] * 32
-    mod, mu = f32(modulus), f32(mu)
+    p = 1 << (n_taps - 1).bit_length()
+    t = min(p, c["kLaneTaps"])
+    q = p // t
+    lane = np.arange(32)[:, None]
+    tap = lane + q * np.arange(t)[None, :]              # (32, T)
+    on = (lane < q) & (tap < n_taps)
+    back = np.where(lane < q, tap, 0)
+    taps = np.asarray(taps, np.complex64)
+    tr = np.where(on, taps.real[np.minimum(tap, n_taps - 1)], f32(0.0))
+    ti = np.where(on, taps.imag[np.minimum(tap, n_taps - 1)], f32(0.0))
+    tr, ti = tr.astype(np.float32), ti.astype(np.float32)
+    mod, mu, clip = f32(modulus), f32(mu), f32(c["kClip"])
+    x = np.asarray(x, np.complex64)
     y = np.empty(len(x), np.complex64)
-    for n, xn in enumerate(x.astype(np.complex64)):
-        br = [f32(xn.real)] + br[:-1]
-        bi = [f32(xn.imag)] + bi[:-1]
-        yr = [f32(f32(tr[k] * br[k]) - f32(ti[k] * bi[k])) if k < n_taps
-              else f32(0.0) for k in range(32)]
-        yi = [f32(f32(tr[k] * bi[k]) + f32(ti[k] * br[k])) if k < n_taps
-              else f32(0.0) for k in range(32)]
-        off = tree >> 1
-        while off:
-            yr = [f32(yr[k] + yr[k ^ off]) for k in range(32)]
-            yi = [f32(yi[k] + yi[k ^ off]) for k in range(32)]
-            off >>= 1
-        assert len({float(v) for v in yr[:tree]}) == 1
-        r, i = yr[0], yi[0]
-        f = f32(f32(f32(r * r) + f32(i * i)) - mod)
-        er, ei = f32(r * f), f32(i * f)
-        mag = np.sqrt(f32(f32(er * er) + f32(ei * ei)))
-        if mag > f32(1.0):
-            d = max(mag, f32(1e-12))
-            er, ei = f32(er / d), f32(ei / d)
-        for k in range(n_taps):
-            tr[k] = f32(tr[k] - f32(mu * f32(f32(br[k] * er)
-                                             + f32(bi[k] * ei))))
-            ti[k] = f32(ti[k] - f32(mu * f32(f32(br[k] * ei)
-                                             - f32(bi[k] * er))))
-        y[n] = complex(r, i)
-    return y, np.array([complex(a, b) for a, b in zip(tr[:n_taps],
-                                                       ti[:n_taps])],
-                       np.complex64)
+    sx = np.zeros((2, hist + tile + 1), np.complex64)
+    tiles = -(-len(x) // tile)
+    for k in range(tiles):
+        t0, n = k * tile, min(tile, len(x) - k * tile)
+        sx[k & 1, hist:hist + n] = x[t0:t0 + n]
+        for m in range(n):
+            b = np.where(on, sx[k & 1, hist + m - back], np.complex64(0))
+            br, bi = b.real.astype(np.float32), b.imag.astype(np.float32)
+            pr, pi = tr * br - ti * bi, tr * bi + ti * br
+            h = t // 2
+            while h:
+                pr = pr[:, :h] + pr[:, h:2 * h]
+                pi = pi[:, :h] + pi[:, h:2 * h]
+                h //= 2
+            yr, yi = pr[:, 0], pi[:, 0]
+            off = q // 2
+            while off:
+                yr = yr + yr[np.arange(32) ^ off]
+                yi = yi + yi[np.arange(32) ^ off]
+                off //= 2
+            assert len({float(v) for v in yr[:q]}) == 1
+            r, i = yr[0], yi[0]
+            f = f32(f32(f32(r * r) + f32(i * i)) - mod)
+            er, ei = f32(r * f), f32(i * f)
+            m2 = f32(f32(er * er) + f32(ei * ei))
+            if m2 > clip:
+                # the square root as the plain version takes it here
+                d = max(f32(torch.sqrt(torch.tensor(m2)).item()), f32(1e-12))
+                er, ei = f32(er / d), f32(ei / d)
+            tr, ti = (tr - mu * (br * er + bi * ei),
+                      ti - mu * (br * ei - bi * er))
+            # the off slots stay +0 (or NaN once er is, as every tap then)
+            off_slots = np.concatenate([tr[~on], ti[~on]])
+            assert np.all((off_slots == 0) & ~np.signbit(off_slots)) \
+                or np.isnan(er)
+            y[t0 + m] = complex(r, i)
+        if k + 1 < tiles:
+            sx[(k + 1) & 1, :hist] = sx[k & 1, tile:tile + hist]
+    out = np.zeros(n_taps, np.complex64)
+    out.real[tap[on]] = tr[on]
+    out.imag[tap[on]] = ti[on]
+    return y, out
 
 
-@pytest.mark.parametrize("n_taps", [11, 1, 5, 32])
-def test_cma_kernel_arithmetic_equals_plain_loop(n_taps):
-    """The kernel's lane-by-lane arithmetic bit for bit against the plain
-    version, at the default 11 taps (a tree over 16 lanes), one tap, five
-    and the kernel's 32; QPSK through a static channel, with samples
-    whose clip engages (|e| > 1) at the start."""
-    rng = np.random.default_rng(13)
-    syms = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, 300)))
-    x = 1.6 * np.convolve(syms, [1.0, 0.25 - 0.1j])[:300]
-    x = x.astype(np.complex64)
+def _cma_input(n, n_taps, seed):
+    """QPSK through a static channel, scaled so that the clip engages
+    (|e| > 1) at the start, and taps near a center spike."""
+    rng = np.random.default_rng(seed)
+    syms = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, n)))
+    x = (1.6 * np.convolve(syms, [1.0, 0.25 - 0.1j])[:n]).astype(np.complex64)
     taps = np.zeros(n_taps, np.complex64)
     taps[0] = 1.0
     taps[1:] = 0.01 * (rng.standard_normal(n_taps - 1)
                        + 1j * rng.standard_normal(n_taps - 1))
+    return x, taps
+
+
+@pytest.mark.parametrize("n_taps", [11, 1, 4, 5, 16, 17, 32])
+def test_cma_kernel_arithmetic_equals_plain_loop(n_taps):
+    """The kernel's lane-by-lane arithmetic bit for bit against the plain
+    version, at the default 11 taps (a tree over 16: 8 lanes of 2 taps,
+    three shuffled levels), one tap (no tree), four, five, sixteen,
+    seventeen and the kernel's 32 (16 lanes, four shuffled levels); QPSK
+    through a static channel, with samples whose clip engages (|e| > 1)
+    at the start."""
+    x, taps = _cma_input(300, n_taps, 13)
     y, t = cma_equalize_plain(_t(x), _t(taps), modulus=1.0, mu=0.003)
     my, mt = _cma_kernel_model(x, taps, 1.0, 0.003)
     assert np.array_equal(y.numpy(), my)
     assert np.array_equal(t.numpy(), mt)
+
+
+@pytest.mark.parametrize("n_taps", [11, 32])
+def test_cma_kernel_tiles_carry_the_delay_line(n_taps):
+    """A stream longer than the kernel's tile (kTile + 300 samples): the
+    delay line read across the tile boundary from the kHist samples
+    carried in front of the next tile, bit for bit against the plain
+    version."""
+    tile = _cma_source_constants()["kTile"]
+    x, taps = _cma_input(tile + 300, n_taps, 15)
+    y, t = cma_equalize_plain(_t(x), _t(taps), modulus=1.0, mu=0.003)
+    my, mt = _cma_kernel_model(x, taps, 1.0, 0.003)
+    assert np.array_equal(y.numpy(), my)
+    assert np.array_equal(t.numpy(), mt)
+
+
+def test_cma_clip_threshold_equals_the_square_root_test():
+    """The kernel takes the clip's square root only when m = er er + ei ei
+    > kClip = 1 + 2^-23: a correctly rounded square root is monotone and
+    rounds sqrt(1 + 2^-23) to 1, so the test equals sqrt(m) > 1 exactly.
+    Held on every float32 within 2^-10 of 1, and 0, inf and nan."""
+    clip = np.float32(_cma_source_constants()["kClip"])
+    assert clip == np.float32(1) + np.float32(2.0 ** -23)
+    lo = np.float32(1 - 2.0 ** -10).view(np.int32)
+    hi = np.float32(1 + 2.0 ** -10).view(np.int32)
+    m = np.arange(lo, hi + 1, dtype=np.int32).view(np.float32)
+    m = np.concatenate([m, np.float32([0.0, np.inf, np.nan])])
+    assert len(m) == 2 ** 13 + 2 ** 14 + 1 + 3
+    with np.errstate(invalid="ignore"):
+        assert np.array_equal(m > clip, np.sqrt(m) > np.float32(1))
+    # and against torch's square root on this CPU, which the plain version
+    # takes here (not correctly rounded everywhere, but not near 1)
+    assert np.array_equal(m > clip, (torch.sqrt(_t(m)) > 1).numpy())
+    assert np.sqrt(clip) == 1 and np.sqrt(np.nextafter(clip, np.inf)) > 1
+
+
+def _biquad_tiles_model(x, b, a, state, tile, stages, kv):
+    """csrc/biquad.cu's data movement for one row of NF floats (kv floats
+    a sample, a complex row interleaved): tiles of `tile` floats through a
+    ring of `stages` stage buffers filled stages - 1 tiles ahead, each
+    walked a float4 at a time with the float4 after it read ahead, then an
+    unaligned tail, y written in place and stored; the step as
+    ``_biquad_kernel_model``'s."""
+    f32 = np.float32
+    b0, b1, b2 = (f32(v) for v in b)
+    a1, a2 = f32(a[1]), f32(a[2])
+    z1 = [f32(v) for v in state[0]]
+    z2 = [f32(v) for v in state[1]]
+    nf = len(x)
+    ring = np.full((stages, tile + 4), np.nan, np.float32)
+    y = np.full(nf, np.nan, np.float32)
+    tiles = -(-nf // tile)
+
+    def fill(i):
+        n = min(tile, nf - i * tile)
+        ring[i % stages, :n] = x[i * tile:i * tile + n]
+
+    def step(xn, v):
+        yn = f32(f32(b0 * xn) + z1[v])
+        z1[v] = f32(f32(f32(b1 * xn) - f32(a1 * yn)) + z2[v])
+        z2[v] = f32(f32(b2 * xn) - f32(a2 * yn))
+        return yn
+
+    for i in range(min(stages - 1, tiles)):
+        fill(i)
+    for i in range(tiles):
+        row, n = ring[i % stages], min(tile, nf - i * tile)
+        n4 = n & ~3
+        cur = row[0:4].copy()
+        for f in range(0, n4, 4):
+            nxt = row[f + 4:f + 8].copy()
+            row[f:f + 4] = [step(cur[j], j % kv) for j in range(4)]
+            cur = nxt
+        for f in range(n4, n, kv):
+            for v in range(kv):
+                row[f + v] = step(row[f + v], v)
+        y[i * tile:i * tile + n] = row[:n]
+        if i + stages - 1 < tiles:
+            fill(i + stages - 1)
+    return y, np.array([z1, z2], np.float32)
+
+
+@pytest.mark.parametrize("nf,kv", [(1000, 1), (1003, 1), (64, 1), (3, 1),
+                                   (1002, 2), (1000, 2), (2, 2)])
+def test_biquad_kernel_tiles_equal_plain_loop(nf, kv):
+    """The kernel's tiling (read from csrc/biquad.cu, at a quarter of its
+    tile to cross more tiles) with its float4 walk and tail, bit for bit
+    against the plain loop on a float32 row and on a complex64 row's
+    interleaved floats, rows whose length is a multiple of 4 (the bulk
+    copies) or not."""
+    text = (Path(__file__).resolve().parent.parent / "sdrtrunk_tpu_torch"
+            / "csrc" / "biquad.cu").read_text()
+    tile = int(re.search(r"constexpr int kTile = (\d+);", text).group(1)) // 4
+    stages = int(re.search(r"constexpr int kStages = (\d+);", text).group(1))
+    b, a = biquad_design("bandpass", 1200.0, 8000.0, q=5.0)
+    x = np.random.default_rng(16).standard_normal(nf).astype(np.float32)
+    st = np.array([[0.25, -0.5], [-0.125, 0.75]], np.float32)[:, :kv]
+    if kv == 1:
+        want, want_st = biquad_apply_plain(_t(x), b, a, _t(st[:, 0].copy()))
+        want, want_st = want.numpy(), want_st.numpy()[:, None]
+    else:
+        z = x.view(np.complex64)
+        w, ws = biquad_apply_plain(_t(z), b, a,
+                                   _t(st[:, 0] + 1j * st[:, 1]).to(
+                                       torch.complex64))
+        want = w.numpy().view(np.float32)
+        want_st = np.stack([ws.numpy().real, ws.numpy().imag], 1)
+    y, z = _biquad_tiles_model(x, b, a, st, tile, stages, kv)
+    assert np.array_equal(y, want) and np.array_equal(z, want_st)
 
 
 def test_cpu_tensors_never_reach_the_kernel_wrappers(monkeypatch):
