@@ -13,7 +13,7 @@ bit-timing and symbol-loop kernels, ``c4fm``, ``c4fm_25k``, ``p25p2``,
 ``multibank``, ``worker``: the live loops; ``cli``, ``monitor``,
 ``monitor_mixed``: the application; ``parity``, ``receiver``: the
 per-channel path and the static receiver; ``parallel``: the sharded
-channelizer pipeline) run those alone, after the environment and the
+channelizer pipeline; ``bench``: the port's bench) run those alone, after the environment and the
 build, in this order; an unknown name raises. Each phase raises on
 failure (the exit code is then not 0):
 
@@ -191,12 +191,20 @@ failure (the exit code is then not 0):
    5e-5), ms a chunk and MS/s beside the single-device path's ms and the
    ``all_to_all_single``'s; no kernel launches. The group is destroyed
    before the phase returns.
+23. ``bench``: the port's bench.py, ``bench_torch.py``: ``--smoke`` in a
+   subprocess (the channelizer, the DQPSK and Gardner kernels at C = 1,
+   the bit-timing kernel through the LTR demodulator, de-emphasis, the
+   resampler and the two-channel synthesizer on the card against the
+   CPU), every family passing; then its ``bench_receiver`` for NBFM and
+   C4FM at full width (1023 channels, 1024 x 5120 chunks, 24 timed
+   iterations after the first call) in this process, their MS/s and
+   ``roofline_nbfm``; 25 DQPSK launches, all from the C4FM leg.
 
-During every live phase (5-22, 5a) a spy on the calls that reach the kernel
+During every live phase (5-23, 5a) a spy on the calls that reach the kernel
 wrappers records the (kernel, C, T) of each launch on the card; after the
 phase, each shape it recorded is held bit for bit against its plain loop
 as phase 4 holds the 1023-channel ones, unless this run held that shape
-already (phases 5, 6, 8, 11, 12, 16 and 18 give phase 4's shapes).
+already (phases 5, 6, 8, 11, 12, 16, 18 and 23 give phase 4's shapes).
 
 Phases 17-20 write their captures, playlists, what the CLI writes, the
 golden set and the checkpoint under the git-ignored
@@ -3016,33 +3024,6 @@ def run_cli(card: str) -> dict:
     return {"card": card, "commands": runs, "kernel_launches": launches}
 
 
-def _host_cpu() -> dict:
-    """The host's CPU model and core count: lscpu's model name, else
-    /proc/cpuinfo's (an x86 'model name', an Arm 'CPU part'), with the
-    machine's architecture."""
-    import os
-    import platform
-    model = None
-    try:
-        out = subprocess.run(["lscpu"], capture_output=True, text=True,
-                             timeout=30).stdout
-        model = next((line.split(":", 1)[1].strip()
-                      for line in out.splitlines()
-                      if line.startswith("Model name")), None)
-    except (OSError, subprocess.SubprocessError):
-        pass
-    if model is None:
-        try:
-            info = Path("/proc/cpuinfo").read_text().splitlines()
-        except OSError:
-            info = []
-        model = next((line.split(":", 1)[1].strip() for key in
-                      ("model name", "CPU part") for line in info
-                      if line.startswith(key)), None)
-    return {"cpu": model, "machine": platform.machine(),
-            "cores": os.cpu_count()}
-
-
 def _timed_host(orch, calls: list, framed: list) -> None:
     """Time the live loop's host layer (``_host_layer``) call by call into
     `calls`, count the messages a bank framer's ``frame_chunk`` returns
@@ -3077,6 +3058,8 @@ def _monitor_record(run: dict, orch, host_calls: list, chunk: int,
     """Realtime factor, wall and host ms a chunk over the timed chunks of
     a monitor run (from the print times of its per-chunk metrics lines),
     the device's busy ms a chunk and idle share, the host's CPU."""
+    import bench_torch
+
     times = [t for t, row in zip(run["times"], run["rows"])
              if isinstance(row, dict) and "t" in row]
     timed = len(times) - warmup
@@ -3089,7 +3072,7 @@ def _monitor_record(run: dict, orch, host_calls: list, chunk: int,
             "host_ms_per_chunk": sum(host_calls[-timed:]) * 1e3 / timed,
             "device_busy_ms_per_chunk": busy,
             "device_idle_share": 1.0 - busy / (wall * 1e3),
-            **_host_cpu()}
+            **bench_torch._host()}
 
 
 def _event_rows(path: Path) -> list:
@@ -4147,12 +4130,68 @@ def run_parallel(card: str) -> dict:
     return result
 
 
+# --- bench: the port's bench.py ------------------------------------------
+
+BENCH_ITERS = 24                 # bench_torch.py's full-size iterations
+SMOKE_TIMEOUT_S = 300
+
+
+def run_bench(card: str) -> dict:
+    """bench_torch.py on the card: its kernel-family smoke (``--smoke``) in
+    a subprocess, every family passing, then its two flagship receiver
+    legs in this process at full width, ``bench_receiver`` for NBFM and
+    C4FM (M = 1024, 1023 channels, chunks of 1024 x 5120, 24 timed
+    iterations), their MS/s and ``roofline_nbfm``; the C4FM leg launches
+    the DQPSK kernel once a call, the NBFM leg no kernel."""
+    import torch
+
+    import bench_torch
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "bench_torch.py"),
+                           "--smoke"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=SMOKE_TIMEOUT_S)
+    rows = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    families = {r["smoke"]: r for r in rows if "smoke" in r}
+    print(f"[bench] {card}: bench_torch.py --smoke exit {proc.returncode} "
+          f"in {time.perf_counter() - t0:.1f} s: " + json.dumps(families),
+          flush=True)
+    if proc.returncode or len(families) != 7 \
+            or not all(r["ok"] for r in families.values()):
+        raise AssertionError(f"bench: --smoke failed (exit "
+                             f"{proc.returncode}): {proc.stdout[-1500:]} "
+                             f"{proc.stderr[-1500:]}")
+
+    _reset_launches()
+    nbfm, rx = bench_torch.bench_receiver("nbfm", M, CHUNK_BLOCKS,
+                                          BENCH_ITERS, "audio")
+    nbfm_launches = _read_launches()
+    c4fm, _ = bench_torch.bench_receiver("c4fm", M, CHUNK_BLOCKS,
+                                         BENCH_ITERS, "power_db")
+    launches = _read_launches()
+    roofline = bench_torch.roofline_nbfm(rx, nbfm["msps"])
+    result = {"card": card, "smoke": families, "nbfm": nbfm, "c4fm": c4fm,
+              "roofline": roofline, "kernel_launches": launches}
+    print(f"[bench] {card}: bench_receiver " + json.dumps(
+        {k: result[k] for k in ("nbfm", "c4fm", "roofline")}), flush=True)
+    want = {e: BENCH_ITERS + 1 if e == "dqpsk" else 0 for e in _ENTRY_KEYS}
+    if any(nbfm_launches.values()) or launches != want:
+        raise AssertionError(f"bench: launches {nbfm_launches} (NBFM), "
+                             f"{launches} (both), expected {want}")
+    if not (nbfm["msps"] > 0 and c4fm["msps"] > 0
+            and nbfm["channels"] == c4fm["channels"] == SLOTS):
+        raise AssertionError(f"bench: {nbfm}, {c4fm}")
+    torch.cuda.synchronize()
+    return result
+
+
 # phases a run can name, in the order a run takes them; the environment
 # and the build always run
 PHASES = ("edges", "bits", "psk", "c4fm", "c4fm_25k", "p25p2", "lsm", "dmr",
           "nbfm", "am", "ltr", "mpt1327", "slots", "slots_p25p2",
           "multibank", "worker", "cli", "monitor", "monitor_mixed", "parity",
-          "receiver", "parallel")
+          "receiver", "parallel", "bench")
 _LIVE = {"c4fm": run_c4fm, "c4fm_25k": run_c4fm_25k, "p25p2": run_p25p2,
          "lsm": run_lsm, "dmr": run_dmr, "nbfm": run_nbfm, "am": run_am,
          "ltr": run_ltr,
@@ -4160,7 +4199,8 @@ _LIVE = {"c4fm": run_c4fm, "c4fm_25k": run_c4fm_25k, "p25p2": run_p25p2,
          "slots_p25p2": run_slots_p25p2, "multibank": run_multibank,
          "worker": run_worker, "cli": run_cli, "monitor": run_monitor,
          "monitor_mixed": run_monitor_mixed, "parity": run_parity,
-         "receiver": run_receiver, "parallel": run_parallel}
+         "receiver": run_receiver, "parallel": run_parallel,
+         "bench": run_bench}
 
 
 def check_shape(card: str, entry: str, c: int, t: int) -> dict:

@@ -13,7 +13,7 @@ Commands, flags and JSON lines are the reference's:
   monitor          --playlist cfg.json ...       live trunked monitoring
   playlist         ACTION --playlist cfg.json    headless playlist editor
   import-playlist  <playlist.xml> <out.json>     import a reference playlist
-  bench                                          not ported (exits 2)
+  bench            [--small] [--trace]           throughput benchmark
 
 The device: every command runs on the card unless ``--platform cpu`` is
 given, which enters ``use_device("cpu")`` for the whole command. This
@@ -413,10 +413,17 @@ def cmd_waterfall(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    print("sdrtrunk_tpu_torch: the port has no bench yet (ROADMAP Queue 1 "
-          "item 9); python3 chip_smoke.py times the live loops on the card",
-          file=sys.stderr)
-    return 2
+    """The repository root's bench_torch.py (the port's bench.py): the
+    full bench on the card, --small on the CPU, --trace a torch.profiler
+    trace. Returns its exit code: 1 when a leg recorded an error."""
+    import bench_torch
+    flags = []
+    if args.small:
+        flags.append("--small")
+    if getattr(args, "trace", False):
+        flags.append("--profile")
+    sys.argv = ["bench_torch.py"] + flags
+    return bench_torch.main()
 
 
 def cmd_monitor(args) -> int:
@@ -659,11 +666,10 @@ def main(argv=None) -> int:
                    help="render an ASCII waterfall preview")
     p.set_defaults(fn=cmd_waterfall)
 
-    p = sub.add_parser("bench", help="throughput benchmark (not ported: "
-                                     "exits 2)")
+    p = sub.add_parser("bench", help="throughput benchmark")
     p.add_argument("--small", action="store_true")
     p.add_argument("--trace", action="store_true",
-                   help="write a profiler trace alongside the bench")
+                   help="write a torch.profiler trace alongside the bench")
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("monitor", help="LIVE trunked monitoring: "

@@ -17,12 +17,15 @@ commands it does not cover:
   same arrays in the .npz;
 * monitor --source test for 2 chunks: the same header and summary lines
   and, but for the upload timing, the same metrics lines;
-* the same subcommands, flags and choices; bench exits 2 in the port.
+* the same subcommands, flags and choices; bench reaches the port's
+  bench_torch.main with the sys.argv flags the reference gives
+  bench.main (--small, and --profile for --trace).
 
 tests/test_torch_cli_decode.py holds decode and the digital replay.
 """
 import json
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -229,7 +232,25 @@ def test_same_subcommands_and_flags():
         assert sorted(set(port[sub])) == sorted(set(want)), sub
 
 
-def test_bench_exits_2_naming_the_roadmap(capsys):
-    assert port_cli.main(["bench", "--small"]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP" in err and "item 9" in err and len(err.splitlines()) == 1
+@pytest.mark.parametrize("flags", [[], ["--small"], ["--trace"],
+                                   ["--small", "--trace"]])
+def test_bench_reaches_bench_torch_main_with_the_reference_flags(
+        monkeypatch, flags):
+    import bench
+    import bench_torch
+    seen = {}
+
+    def record(name, code):
+        def main():
+            seen[name] = list(sys.argv)
+            return code
+        return main
+
+    monkeypatch.setattr(sys, "argv", list(sys.argv))
+    monkeypatch.setattr(bench, "main", record("ref", None))
+    monkeypatch.setattr(bench_torch, "main", record("port", 1))
+    assert ref_cli.main(["bench", *flags]) == 0
+    assert port_cli.main(["bench", *flags]) == 1      # its exit code
+    assert seen["ref"][0] == "bench.py"
+    assert seen["port"] == ["bench_torch.py", *seen["ref"][1:]]
+    assert ("--profile" in seen["port"]) == ("--trace" in flags)

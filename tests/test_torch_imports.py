@@ -1,15 +1,15 @@
 """The port stands alone: it imports no JAX and nothing of sdrtrunk_tpu,
 and its kernel path never falls back.
 
-* Every file of sdrtrunk_tpu_torch/, chip_smoke.py,
+* Every file of sdrtrunk_tpu_torch/, chip_smoke.py, bench_torch.py,
   tests/test_torch_cuda.py, tools/symbol_loop_split.py,
   tools/bit_timing_blocks.py and tools/recurrence_split.py is parsed, and no import of jax, of
   sdrtrunk_tpu or of any sdrtrunk_tpu.* module is allowed (the machine
   with the card has no JAX installed, and the port keeps its own copy of
   the host layer it needs: tests/test_torch_host_copy.py).
 * A fresh interpreter imports every port module (the CLI, the monitor,
-  the copied sources, service and application modules among them) and
-  chip_smoke, then
+  the copied sources, service and application modules among them),
+  chip_smoke and bench_torch, then
   drives the port's CPU Orchestrator for one chunk at a tiny width: the
   bank tier for c4fm, p25p2, lsm, dmr, nbfm, am, ltr and mpt1327 (the bank
   processors' lazy imports run there), the per-slot path for the six
@@ -73,6 +73,7 @@ def _port_files() -> list[Path]:
     # test_torch_cuda.py and the tools run on the card's machine, which has
     # no JAX
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "bench_torch.py",
                                          ROOT / "tests" / "test_torch_cuda.py",
                                          ROOT / "tools" / "symbol_loop_split.py",
                                          ROOT / "tools" / "bit_timing_blocks.py",
@@ -222,7 +223,7 @@ def test_fresh_interpreter_loads_no_jax():
     mods = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
                   .removesuffix(".__init__") for p in PORT.rglob("*.py"))
     code = ("".join(f"import {m}\n" for m in mods)
-            + "import chip_smoke\n" + _DRIVE
+            + "import chip_smoke\nimport bench_torch\n" + _DRIVE
             + "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'sdrtrunk_tpu'))\n"
             "assert not bad, bad\n"
