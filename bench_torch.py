@@ -15,6 +15,13 @@ state), the host clock runs around work that ends in
 ``torch.cuda.synchronize()``, and a real output slice is pulled to the host
 after the loop.
 
+The 1023-slot bank legs are a scene builder each (``scene_*``: bench.py's
+bytes, synthesized on the host as bench.py synthesizes them, and a ready
+Orchestrator) and ``run_bank``, which runs and times it.
+``bank_digest`` digests what a bank decoded in a form both packages give,
+and ``compare_digests`` holds it to the JAX package's
+(tests/torch_reference/banks_1023.json; ``chip_smoke.py reference``).
+
 Prints the full JSON line, then the headline (bench.py's keys, with
 ``live_c4fm_h2d_mbps`` for its ``live_c4fm_tunnel`` and
 ``nvlink_predicted_efficiency`` for its ``ici_predicted_efficiency``) as
@@ -38,12 +45,15 @@ or directly from the repository root. It imports torch, numpy and
 sdrtrunk_tpu_torch only.
 """
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -122,37 +132,39 @@ def roofline_nbfm(rx, msps: float) -> dict:
 
 def _synth_iq8_chunks(base, starts, bins, k, m, total_chunks, chunk,
                       hmat, amp=0.5):
-    """int8 (chunk, 2) wideband chunks through the synthesis bank, on
-    hmat's device, with the filter state carried across chunk seams: each
-    chunk re-synthesizes the previous one's last 2T blocks (pad, even, so
-    block parity holds) and drops the warm-up, which equals one-shot
-    synthesis. Independent chunks would lose the overlap-add tail at every
-    seam, an artifact a real capture never has. The scale to int8 and the
-    truncation are bench.py's."""
-    import torch
+    """int8 (chunk, 2) wideband chunks through the synthesis bank on the
+    host, bench.py's bytes: the same NumPy operations in the same order
+    (``synthesize_bank_host`` is the reference's synthesis bank), with the
+    filter state carried across chunk seams: each chunk re-synthesizes the
+    previous one's last 2T blocks (pad, even, so block parity holds) and
+    drops the warm-up, which equals one-shot synthesis. Independent chunks
+    would lose the overlap-add tail at every seam, an artifact a real
+    capture never has. hmat may be a tensor on any device."""
+    from sdrtrunk_tpu_torch.dsp.synthesizer import synthesize_bank_host
 
-    from sdrtrunk_tpu_torch.dsp.synthesizer import synthesize_bank
-
-    hmat = torch.as_tensor(hmat)
-    dev = hmat.device
+    if hasattr(hmat, "cpu"):
+        hmat = hmat.cpu().numpy()
+    hmat = np.asarray(hmat)
     pad = 2 * hmat.shape[0]
     half = m // 2
-    base = torch.as_tensor(np.asarray(base, np.complex64), device=dev)
-    starts = torch.as_tensor(np.asarray(starts), device=dev)
-    bins = torch.as_tensor(np.asarray(bins), device=dev)
-    ramp = torch.arange(k, device=dev)
-    tail = torch.zeros((pad, m), dtype=torch.complex64, device=dev)
-    xs = []
+    tail = np.zeros((pad, m), np.complex64)
+    us = []
     for j in range(total_chunks):
-        u = torch.zeros((pad + k, m), dtype=torch.complex64, device=dev)
+        u = np.zeros((pad + k, m), np.complex64)
         u[:pad] = tail
-        u[pad:, bins] = base[starts[:, None] + j * k + ramp[None, :]].T * amp
-        tail = u[-pad:].clone()
-        xs.append(torch.view_as_real(
-            synthesize_bank(u, hmat)[pad * half: pad * half + chunk]))
-    scale = 118.0 / max(float(x.abs().max()) for x in xs)
-    return [torch.clamp(x * scale, -127, 127).to(torch.int8).cpu().numpy()
-            for x in xs]
+        idx = starts[:, None] + j * k + np.arange(k)[None, :]
+        u[pad:, bins] = base[idx].T * amp
+        tail = u[-pad:].copy()
+        us.append(u)
+    # the chunks are independent once their inputs are: NumPy releases
+    # the GIL in the FFT and the array arithmetic
+    with ThreadPoolExecutor(min(4, len(us), os.cpu_count() or 1)) as pool:
+        xs = list(pool.map(lambda u: synthesize_bank_host(u, hmat)[
+            pad * half: pad * half + chunk], us))
+    scale = 118.0 / max(max(np.abs(x.real).max(), np.abs(x.imag).max())
+                        for x in xs)
+    return [np.clip(np.stack([x.real, x.imag], -1) * scale, -127, 127
+                    ).astype(np.int8) for x in xs]
 
 
 def _sync(dev) -> None:
@@ -375,17 +387,50 @@ def _chunk_source(iq8_chunks, chunk: int):
     return source
 
 
-def bench_orchestrator_bank(slots: int = 1023, timed_chunks: int = 4,
+@dataclass
+class BankScene:
+    """A bank leg's scene: the int8 chunks it feeds and the Orchestrator
+    that runs them, slots activated (and for P25 Phase 2 the scramble
+    parameters set); ``warmup`` untimed chunks then ``timed_chunks``;
+    ``segments`` the (slot, AudioSegment) pairs the bank drains, in the
+    order ``orch.audio_segments`` takes them (``_segment_slots``)."""
+    kind: str                   # "c4fm", "dmr", "p25p2" or "nbfm"
+    orch: object
+    chunks: list
+    warmup: int
+    timed_chunks: int
+    segments: list
+    ingest: str = "auto"
+
+
+def _segment_slots(orch) -> list:
+    """Record each AudioSegment the bank processor drains beside its slot:
+    wraps ``orch.bank_proc.drain_audio`` on this instance (both packages'
+    bank processors have it) and returns the list it fills."""
+    pairs = []
+    proc = orch.bank_proc
+    if proc is None:            # host_process=True: the worker drains
+        return pairs
+    drain = proc.drain_audio
+
+    def drain_audio(slot):
+        done = drain(slot)
+        pairs.extend((slot, seg) for seg in done)
+        return done
+    proc.drain_audio = drain_audio
+    return pairs
+
+
+def scene_orchestrator_bank(slots: int = 1023, timed_chunks: int = 4,
                             chunk_blocks: int = 5120,
-                            ingest: str = "auto") -> dict:
-    """The 1000-channel live target end to end: 12.8 MHz wideband, every
-    usable bin carrying a P25P1 voice call cycle, int8 IQ (or packed int4)
-    uploaded to the card, the orchestrator's bank-mode device step
-    (channelize -> 1023-wide DQPSK kernel -> compaction + sync correlation
-    -> bit-packed transfer) and the full host layer (bank framer, message
-    decode, decoder states, MBE audio segments) for every chunk.
-    realtime_factor >= 1.0 means the product loop keeps up with 1023
-    channels."""
+                            ingest: str = "auto") -> BankScene:
+    """The scene of the 1000-channel live target end to end: 12.8 MHz
+    wideband, every usable bin carrying a P25P1 voice call cycle, int8 IQ
+    (or packed int4) uploaded to the card, the orchestrator's bank-mode
+    device step (channelize -> 1023-wide DQPSK kernel -> compaction + sync
+    correlation -> bit-packed transfer) and the full host layer (bank
+    framer, message decode, decoder states, MBE audio segments) for every
+    chunk. The chunks are bench.py's bytes (``_synth_iq8_chunks``)."""
     from sdrtrunk_tpu_torch import resolve_device
     from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
     from sdrtrunk_tpu_torch.protocol.p25p1.duid import DUID
@@ -443,37 +488,20 @@ def bench_orchestrator_bank(slots: int = 1023, timed_chunks: int = 4,
     for off in offsets[1:]:
         orch._activate(460e6 + off, IdentifierCollection())
     assert sum(s.active for s in orch.slots) == slots
-
-    orch.run(max_chunks=warmup)                # kernel load + acquisition
-    t0 = time.perf_counter()
-    metrics = orch.run(max_chunks=timed_chunks)
-    elapsed = time.perf_counter() - t0
-    msps = chunk * timed_chunks / elapsed / 1e6
-    status = orch.channel_status()
-    frames = sum(s["frames"] for s in status)
-    return {
-        "msps": msps,
-        "realtime_factor": msps * 1e6 / fs,
-        "slots": slots,
-        "active_channels": metrics.get("active_channels"),
-        "wideband_rate_msps": fs / 1e6,
-        "chunk_samples": chunk,
-        "chunks": timed_chunks,
-        "frames_decoded": int(frames),
-        "audio_segments": len(orch.audio_segments),
-        "ingest_format": _ingest_label(ingest),
-    }
+    return BankScene("c4fm", orch, iq8_chunks, warmup, timed_chunks,
+                     _segment_slots(orch), ingest)
 
 
-def bench_orchestrator_bank_dmr(slots: int = 1023, timed_chunks: int = 4,
+def scene_orchestrator_bank_dmr(slots: int = 1023, timed_chunks: int = 4,
                                 chunk_blocks: int = 5120,
                                 host_process: bool = False,
-                                ingest: str = "auto") -> dict:
-    """The DMR leg of the 1000-channel live target: 12.8 MHz int8 IQ, every
-    usable bin carrying a continuous DMR call cycle (voice header -> 4
-    voice superframes with embedded LC -> terminator), decoded by the
-    orchestrator's DMR bank tier (the DQPSK kernel at gain 0.4, device
-    7-pattern sync correlation, the host DMRBankFramer)."""
+                                ingest: str = "auto") -> BankScene:
+    """The scene of the DMR leg of the 1000-channel live target: 12.8 MHz
+    int8 IQ (bench.py's bytes), every usable bin carrying a continuous DMR
+    call cycle (voice header -> 4 voice superframes with embedded LC ->
+    terminator), decoded by the orchestrator's DMR bank tier (the DQPSK
+    kernel at gain 0.4, device 7-pattern sync correlation, the host
+    DMRBankFramer)."""
     from sdrtrunk_tpu_torch import resolve_device
     from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
     from sdrtrunk_tpu_torch.protocol.bits import bits_to_dibits
@@ -540,38 +568,21 @@ def bench_orchestrator_bank_dmr(slots: int = 1023, timed_chunks: int = 4,
         orch._activate(460e6 + off, IdentifierCollection())
     assert sum(s.active for s in orch.slots) == slots
     assert orch.bank_mode
-
-    orch.run(max_chunks=warmup)
-    t0 = time.perf_counter()
-    orch.run(max_chunks=timed_chunks)
-    elapsed = time.perf_counter() - t0
-    msps = chunk * timed_chunks / elapsed / 1e6
-    status = orch.channel_status()
-    frames = sum(s["frames"] for s in status)
-    return {
-        "msps": msps,
-        "realtime_factor": msps * 1e6 / fs,
-        "slots": slots,
-        "timeslots": 2 * slots,
-        "wideband_rate_msps": fs / 1e6,
-        "chunk_samples": chunk,
-        "chunks": timed_chunks,
-        "frames_decoded": int(frames),
-        "audio_segments": len(orch.audio_segments),
-        "ingest_format": _ingest_label(ingest),
-    }
+    return BankScene("dmr", orch, iq8_chunks, warmup, timed_chunks,
+                     _segment_slots(orch), ingest)
 
 
-def bench_orchestrator_bank_p25p2(slots: int = 1023,
+def scene_orchestrator_bank_p25p2(slots: int = 1023,
                                   timed_chunks: int = 4,
                                   chunk_blocks: int = 5120,
                                   host_process: bool = False,
-                                  ingest: str = "auto") -> dict:
-    """The P25 Phase 2 leg of the 1000-channel live target: 12.8 MHz int8
-    IQ, every usable bin carrying a scrambled HDQPSK voice stream (SACCH
-    PTT + VOICE_4 fragments at 6000 baud), decoded through the P25P2 bank
-    tier (the Gardner kernel at W = 16, device 20-dibit sync correlation,
-    the host P25P2BankFramer and per-slot MAC states)."""
+                                  ingest: str = "auto") -> BankScene:
+    """The scene of the P25 Phase 2 leg of the 1000-channel live target:
+    12.8 MHz int8 IQ (bench.py's bytes), every usable bin carrying a
+    scrambled HDQPSK voice stream (SACCH PTT + VOICE_4 fragments at 6000
+    baud), decoded through the P25P2 bank tier (the Gardner kernel at W =
+    16, device 20-dibit sync correlation, the host P25P2BankFramer and
+    per-slot MAC states)."""
     from sdrtrunk_tpu_torch import resolve_device
     from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
     from sdrtrunk_tpu_torch.protocol.bits import from_int
@@ -651,35 +662,17 @@ def bench_orchestrator_bank_p25p2(slots: int = 1023,
             if orch.bank_proc.states[s] is not None:
                 orch.bank_proc.states[s].scramble_key = (wacn, system,
                                                          nac)
-
-    orch.run(max_chunks=warmup)
-    t0 = time.perf_counter()
-    orch.run(max_chunks=timed_chunks)
-    elapsed = time.perf_counter() - t0
-    msps = chunk * timed_chunks / elapsed / 1e6
-    status = orch.channel_status()
-    frames_n = sum(s["frames"] for s in status)
-    return {
-        "msps": msps,
-        "realtime_factor": msps * 1e6 / fs,
-        "slots": slots,
-        "timeslots": 2 * slots,
-        "wideband_rate_msps": fs / 1e6,
-        "chunk_samples": chunk,
-        "chunks": timed_chunks,
-        "fragments_decoded": int(frames_n),
-        "audio_segments": len(orch.audio_segments),
-        "ingest_format": _ingest_label(ingest),
-    }
+    return BankScene("p25p2", orch, iq8_chunks, warmup, timed_chunks,
+                     _segment_slots(orch), ingest)
 
 
-def bench_orchestrator_bank_nbfm(slots: int = 1023, timed_chunks: int = 6
-                                 ) -> dict:
-    """The analog leg of the 1000-channel live target: 12.8 MHz int8 IQ,
-    every usable bin carrying NBFM voice, the orchestrator's analog bank
-    step (channelize -> 1023-wide FM demod/squelch/resample -> mu-law PCM
-    + packed gate transfer) and per-slot AudioSegment assembly on the
-    host."""
+def scene_orchestrator_bank_nbfm(slots: int = 1023, timed_chunks: int = 6
+                                 ) -> BankScene:
+    """The scene of the analog leg of the 1000-channel live target: 12.8
+    MHz int8 IQ (bench.py's bytes), every usable bin carrying NBFM voice,
+    the orchestrator's analog bank step (channelize -> 1023-wide FM
+    demod/squelch/resample -> mu-law PCM + packed gate transfer) and
+    per-slot AudioSegment assembly on the host."""
     from sdrtrunk_tpu_torch import resolve_device
     from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
     from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
@@ -714,24 +707,213 @@ def bench_orchestrator_bank_nbfm(slots: int = 1023, timed_chunks: int = 6
                         ppm_correction=False, bank_mode=True, device=dev)
     for off in offsets[1:]:
         orch._activate(460e6 + off, IdentifierCollection())
-    orch.run(max_chunks=warmup)
+    return BankScene("nbfm", orch, iq8_chunks, warmup, timed_chunks,
+                     _segment_slots(orch), "auto")
+
+
+def run_bank(scene: BankScene) -> dict:
+    """Run a scene as its bench leg does: the warm-up chunks, then the
+    timed ones; returns the leg's record."""
+    orch = scene.orch
+    chunk = orch.chunk_samples
+    fs = orch.sample_rate
+    orch.run(max_chunks=scene.warmup)          # kernel load + acquisition
     t0 = time.perf_counter()
-    orch.run(max_chunks=timed_chunks)
+    metrics = orch.run(max_chunks=scene.timed_chunks)
     elapsed = time.perf_counter() - t0
-    msps = chunk * timed_chunks / elapsed / 1e6
-    open_audio = sum(1 for mdl in orch.bank_proc.modules
-                     if mdl.segment is not None and mdl.segment.duration
-                     > 1.0)
-    return {
-        "msps": msps,
-        "realtime_factor": msps * 1e6 / fs,
-        "slots": slots,
-        "wideband_rate_msps": fs / 1e6,
-        "chunk_samples": chunk,
-        "chunks": timed_chunks,
-        "channels_with_audio": int(open_audio),
-        "ingest_format": _ingest_label("auto"),
+    msps = chunk * scene.timed_chunks / elapsed / 1e6
+    record = {"msps": msps, "realtime_factor": msps * 1e6 / fs,
+              "slots": len(orch.slots)}
+    if scene.kind == "c4fm":
+        record["active_channels"] = metrics.get("active_channels")
+    elif scene.kind != "nbfm":
+        record["timeslots"] = 2 * len(orch.slots)
+    record.update({"wideband_rate_msps": fs / 1e6, "chunk_samples": chunk,
+                   "chunks": scene.timed_chunks})
+    if scene.kind == "nbfm":
+        record["channels_with_audio"] = int(sum(
+            1 for mdl in orch.bank_proc.modules
+            if mdl.segment is not None and mdl.segment.duration > 1.0))
+    else:
+        decoded = sum(s["frames"] for s in orch.channel_status())
+        record["fragments_decoded" if scene.kind == "p25p2"
+               else "frames_decoded"] = int(decoded)
+        record["audio_segments"] = len(orch.audio_segments)
+    record["ingest_format"] = _ingest_label(scene.ingest)
+    return record
+
+
+def bench_orchestrator_bank(slots: int = 1023, timed_chunks: int = 4,
+                            chunk_blocks: int = 5120,
+                            ingest: str = "auto") -> dict:
+    """The C4FM bank leg (``scene_orchestrator_bank``) run and timed:
+    realtime_factor >= 1.0 means the product loop keeps up with 1023
+    channels."""
+    return run_bank(scene_orchestrator_bank(slots, timed_chunks,
+                                            chunk_blocks, ingest))
+
+
+def bench_orchestrator_bank_dmr(slots: int = 1023, timed_chunks: int = 4,
+                                chunk_blocks: int = 5120,
+                                host_process: bool = False,
+                                ingest: str = "auto") -> dict:
+    """The DMR bank leg (``scene_orchestrator_bank_dmr``) run and timed."""
+    return run_bank(scene_orchestrator_bank_dmr(
+        slots, timed_chunks, chunk_blocks, host_process, ingest))
+
+
+def bench_orchestrator_bank_p25p2(slots: int = 1023,
+                                  timed_chunks: int = 4,
+                                  chunk_blocks: int = 5120,
+                                  host_process: bool = False,
+                                  ingest: str = "auto") -> dict:
+    """The P25 Phase 2 bank leg (``scene_orchestrator_bank_p25p2``) run
+    and timed."""
+    return run_bank(scene_orchestrator_bank_p25p2(
+        slots, timed_chunks, chunk_blocks, host_process, ingest))
+
+
+def bench_orchestrator_bank_nbfm(slots: int = 1023, timed_chunks: int = 6
+                                 ) -> dict:
+    """The analog bank leg (``scene_orchestrator_bank_nbfm``) run and
+    timed."""
+    return run_bank(scene_orchestrator_bank_nbfm(slots, timed_chunks))
+
+
+# ------------------------------------------------------------- digests
+
+# hex digits kept of a slot's hashes, so that five 1023-slot digests stay
+# small (tests/torch_reference/banks_1023.json)
+SLOT_HASH_HEX = 8
+
+
+def _sha(obj) -> str:
+    """sha256 of obj's canonical JSON (sorted keys, no spaces)."""
+    return hashlib.sha256(json.dumps(obj, sort_keys=True,
+                                     separators=(",", ":")).encode()
+                          ).hexdigest()
+
+
+def _segment_row(frequency_hz: float, seg) -> list:
+    """One AudioSegment as the digest holds it: its slot's frequency,
+    timeslot, sample count, complete, and its identifiers as sorted
+    strings."""
+    ids = sorted(f"{i.identifier_class.value}/{i.form.value}/"
+                 f"{i.role.value}/{i.protocol}/{i.value}"
+                 for i in seg.identifiers.all())
+    return [float(frequency_hz), int(seg.timeslot), len(seg.samples),
+            bool(seg.complete), ids]
+
+
+def bank_digest(orch, chunks, segments) -> dict:
+    """What a bank decoded, slot by slot, in a form both packages give
+    (duck-typed over ``channel_status()``, ``audio_segments`` and, for an
+    analog bank, ``bank_proc.modules``; imports neither JAX nor torch).
+
+    chunks: the int8 chunks fed; segments: the scene's (slot,
+    AudioSegment) pairs (``_segment_slots``), which must be every segment
+    of ``orch.audio_segments`` in its order. Holds the sha256 of every
+    chunk; per slot the frames (fragments for P25 Phase 2), the sha256 of
+    its metrics dict, its audio segments' count and the sha256 of their
+    rows (``_segment_row``), the slot hashes cut to ``SLOT_HASH_HEX``
+    digits; for an analog bank also per slot the audio samples (its
+    segments', the open one's included), ``open`` (1 where a segment is
+    open at the end) and the audio's RMS; and the totals."""
+    status = orch.channel_status()
+    drained = [seg for _, seg in segments]
+    if len(drained) != len(orch.audio_segments) or any(
+            a is not b for a, b in zip(drained, orch.audio_segments)):
+        raise ValueError("bank_digest: the orchestrator's audio segments "
+                         "are not the ones drained beside their slots")
+    freq = [float(s["frequency_hz"]) for s in status]
+    by_slot = [[] for _ in status]
+    for slot, seg in segments:
+        by_slot[slot].append(seg)
+    rows = [[_segment_row(f, seg) for seg in segs]
+            for f, segs in zip(freq, by_slot)]
+    cut = SLOT_HASH_HEX
+    digest = {
+        "slots": len(status),
+        "chunks": [hashlib.sha256(np.ascontiguousarray(c).tobytes())
+                   .hexdigest() for c in chunks],
+        "frequencies": _sha(freq),
+        "frames": [int(s["frames"]) for s in status],
+        "metrics": [_sha(s["metrics"])[:cut] for s in status],
+        "segments": [len(r) for r in rows],
+        "segments_sha": [_sha(r)[:cut] for r in rows],
     }
+    totals = {"frames": sum(digest["frames"]), "segments": len(drained)}
+    if getattr(orch, "bank_analog", False):
+        audio = [[seg.samples for seg in segs] for segs in by_slot]
+        for s, mdl in enumerate(orch.bank_proc.modules):
+            if mdl.segment is not None:
+                audio[s].append(mdl.segment.samples)
+        flat = [np.concatenate(a) if a else np.zeros(0, np.float32)
+                for a in audio]
+        digest["audio_samples"] = [int(len(a)) for a in flat]
+        digest["open"] = [int(m.segment is not None)
+                          for m in orch.bank_proc.modules]
+        digest["rms"] = [float(np.sqrt(np.mean(np.square(
+            a, dtype=np.float64)))) if len(a) else 0.0 for a in flat]
+        totals.update(audio_samples=sum(digest["audio_samples"]),
+                      open=sum(digest["open"]))
+    digest["totals"] = totals
+    return digest
+
+
+# the per-slot fields ``compare_digests`` holds equal, RMS apart
+_SLOT_FIELDS = ("frames", "metrics", "segments", "segments_sha",
+                "audio_samples", "open")
+
+
+def compare_digests(got: dict, want: dict, tolerance: dict) -> dict:
+    """Hold a bank's digest (``bank_digest``) to the reference's, slot by
+    slot, within ``tolerance``:
+
+    * ``slots_differing``: the most slots on which a field differs
+      (default 0), ``may_differ`` the fields that may (default: any);
+    * ``frames_per_slot``: the most frames a slot may be off by (default
+      0; null: no bound);
+    * ``totals_share``: {"frames": x, "segments": y}, the most each total
+      may be off by as a share of the reference's (default: no bound);
+    * ``rms_rel``: the relative RMS difference allowed (default 0).
+
+    The chunk hashes, the slot count and the frequencies are always held
+    equal. Returns {"ok", "chunks_equal", "differing": [{slot, field:
+    [got, want], ...}], "totals": {field: [got, want]}}."""
+    rms_rel = tolerance.get("rms_rel", 0.0)
+    differing = []
+    same_shape = (got["slots"] == want["slots"]
+                  and got["frequencies"] == want["frequencies"])
+    if same_shape:
+        for s in range(want["slots"]):
+            row = {f: [got[f][s], want[f][s]] for f in _SLOT_FIELDS
+                   if f in want and got[f][s] != want[f][s]}
+            if "rms" in want and abs(got["rms"][s] - want["rms"][s]) > \
+                    rms_rel * abs(want["rms"][s]):
+                row["rms"] = [got["rms"][s], want["rms"][s]]
+            if row:
+                differing.append({"slot": s, **row})
+    fields = {f for d in differing for f in d if f != "slot"}
+    frames_off = max((abs(d["frames"][0] - d["frames"][1])
+                      for d in differing if "frames" in d), default=0)
+    per_slot = tolerance.get("frames_per_slot", 0)
+    totals = {k: [got["totals"][k], v] for k, v in want["totals"].items()}
+    shares_ok = all(abs(totals[k][0] - totals[k][1])
+                    <= share * abs(totals[k][1])
+                    for k, share in tolerance.get("totals_share", {}).items())
+    chunks_equal = got["chunks"] == want["chunks"]
+    extra = {}
+    if "rms" in want and same_shape:
+        extra["rms_rel_max"] = max(
+            abs(g - w) / abs(w) if w else abs(g)
+            for g, w in zip(got["rms"], want["rms"]))
+    ok = (chunks_equal and same_shape and shares_ok
+          and len(differing) <= tolerance.get("slots_differing", 0)
+          and fields <= set(tolerance.get("may_differ", fields))
+          and (per_slot is None or frames_off <= per_slot))
+    return {"ok": ok, "chunks_equal": chunks_equal,
+            "differing": differing, "totals": totals, **extra}
 
 
 # ------------------------------------------------------------- scaling

@@ -13,7 +13,8 @@ bit-timing and symbol-loop kernels, ``c4fm``, ``c4fm_25k``, ``p25p2``,
 ``multibank``, ``worker``: the live loops; ``cli``, ``monitor``,
 ``monitor_mixed``: the application; ``parity``, ``receiver``: the
 per-channel path and the static receiver; ``parallel``: the sharded
-channelizer pipeline; ``bench``: the port's bench) run those alone, after the environment and the
+channelizer pipeline; ``bench``: the port's bench; ``reference``: the
+five bench banks against the JAX package's digests) run those alone, after the environment and the
 build, in this order; an unknown name raises. Each phase raises on
 failure (the exit code is then not 0):
 
@@ -199,12 +200,30 @@ failure (the exit code is then not 0):
    C4FM at full width (1023 channels, 1024 x 5120 chunks, 24 timed
    iterations after the first call) in this process, their MS/s and
    ``roofline_nbfm``; 25 DQPSK launches, all from the C4FM leg.
+24. ``reference``: the port held against the JAX package at full width.
+   tests/torch_reference/banks_1023.json holds the JAX package's own
+   decode of bench.py's five bank legs (C4FM in int8 and in int4, DMR,
+   P25 Phase 2, NBFM; 1023 slots, 3 + 6 chunks of 1024 x 5120, NBFM 2 + 6
+   of 1024 x 6400) as digests (tools/reference_digests.py writes it on a
+   CPU with JAX). For each bank, bench_torch's scene builder rebuilds the
+   scene on the host (bench.py's NumPy synthesis, the same operations in
+   the same order) and every chunk's sha256 must equal the file's before
+   anything runs; then ``bench_torch.run_bank`` runs the port's
+   Orchestrator(device="cuda") on it as the bench leg does, and
+   ``bench_torch.compare_digests`` holds its digest slot by slot to the
+   reference's within the bank's tolerance in the file. Prints each
+   bank's record (its realtime factor), its totals beside the
+   reference's, and every slot that differs with both values; one DQPSK
+   launch a chunk for the C4FM banks (gain 0.3) and DMR (0.4), one
+   Gardner (W = 16) launch a chunk for P25 Phase 2, none for NBFM. A
+   missing file, a chunk hash that differs or a digest outside its
+   tolerance fails the run.
 
-During every live phase (5-23, 5a) a spy on the calls that reach the kernel
+During every live phase (5-24, 5a) a spy on the calls that reach the kernel
 wrappers records the (kernel, C, T) of each launch on the card; after the
 phase, each shape it recorded is held bit for bit against its plain loop
 as phase 4 holds the 1023-channel ones, unless this run held that shape
-already (phases 5, 6, 8, 11, 12, 16, 18 and 23 give phase 4's shapes).
+already (phases 5, 6, 8, 11, 12, 16, 18, 23 and 24 give phase 4's shapes).
 
 Phases 17-20 write their captures, playlists, what the CLI writes, the
 golden set and the checkpoint under the git-ignored
@@ -4186,12 +4205,101 @@ def run_bench(card: str) -> dict:
     return result
 
 
+# --- reference: the bench banks against the JAX package's digests --------
+
+REFERENCE_FILE = ROOT / "tests" / "torch_reference" / "banks_1023.json"
+# bank -> (bench_torch's scene builder, its arguments beyond slots and
+# timed_chunks, the kernels-line entries it launches once a chunk)
+REFERENCE_BANKS = {
+    "c4fm": ("scene_orchestrator_bank", {}, ("dqpsk",)),
+    "c4fm_int4": ("scene_orchestrator_bank", {"ingest": "int4"},
+                  ("dqpsk",)),
+    "dmr": ("scene_orchestrator_bank_dmr", {}, ("dqpsk_dmr",)),
+    "p25p2": ("scene_orchestrator_bank_p25p2", {}, ("gardner_p25p2",)),
+    "nbfm": ("scene_orchestrator_bank_nbfm", {}, ()),
+}
+
+
+def run_reference(card: str) -> dict:
+    """Each bench bank rebuilt on the host from bench.py's bytes (every
+    chunk's sha256 held to the reference file before it runs), run on the
+    card as its bench leg runs, and its digest held slot by slot to the
+    JAX package's within the file's tolerance."""
+    import hashlib
+
+    import torch
+
+    import bench_torch
+
+    banks = json.loads(REFERENCE_FILE.read_text())["banks"]
+    launches = {e: 0 for e in _ENTRY_KEYS}
+    result, failed = {"card": card, "banks": {}}, []
+    for bank, (builder, kw, entries) in REFERENCE_BANKS.items():
+        want = banks[bank]
+        t0 = time.perf_counter()
+        scene = getattr(bench_torch, builder)(
+            slots=want["slots"], timed_chunks=want["timed_chunks"], **kw)
+        scene_s = time.perf_counter() - t0
+        hashes = [hashlib.sha256(c.tobytes()).hexdigest()
+                  for c in scene.chunks]
+        if hashes != want["digest"]["chunks"]:
+            bad = [j for j, (a, b) in enumerate(
+                zip(hashes, want["digest"]["chunks"])) if a != b]
+            raise AssertionError(
+                f"reference {bank}: {len(hashes)} chunks built, "
+                f"{len(want['digest']['chunks'])} in the file, chunks "
+                f"{bad} hash differently: the scene's bytes are not the "
+                f"reference's")
+        print(f"[reference] {card}: {bank}: all {len(hashes)} chunk "
+              f"hashes match the file (scene built in {scene_s:.1f} s)",
+              flush=True)
+        _reset_launches()
+        record = bench_torch.run_bank(scene)
+        torch.cuda.synchronize()
+        got_launches = _read_launches()
+        chunks = scene.warmup + scene.timed_chunks
+        expect = {e: chunks * (e in entries) for e in _ENTRY_KEYS}
+        if got_launches != expect:
+            raise AssertionError(f"reference {bank}: kernel launches "
+                                 f"{got_launches}, expected {expect}")
+        for e, n in got_launches.items():
+            launches[e] += n
+        digest = bench_torch.bank_digest(scene.orch, scene.chunks,
+                                         scene.segments)
+        held = bench_torch.compare_digests(digest, want["digest"],
+                                           want["tolerance"])
+        row = {"record": record, "totals (port, reference)": held["totals"],
+               "differing_slots": len(held["differing"]),
+               **({"rms_rel_max": held["rms_rel_max"]}
+                  if "rms_rel_max" in held else {}),
+               "tolerance": {k: v for k, v in want["tolerance"].items()
+                             if k != "why"},
+               "within_tolerance": held["ok"]}
+        print(f"[reference] {card}: {bank}: " + json.dumps(row), flush=True)
+        status = scene.orch.channel_status()
+        for d in held["differing"]:
+            # the metrics are hashed in the file: the port's own beside
+            d["port_metrics"] = status[d["slot"]]["metrics"]
+            print(f"[reference] {bank} slot {d['slot']} (port, reference): "
+                  + json.dumps({k: v for k, v in d.items() if k != "slot"}),
+                  flush=True)
+        result["banks"][bank] = {**row, "differing": held["differing"]}
+        if not held["ok"]:
+            failed.append(bank)
+        del scene
+    if failed:
+        raise AssertionError(f"reference: {failed} outside their tolerance "
+                             f"against {REFERENCE_FILE}")
+    result["kernel_launches"] = launches
+    return result
+
+
 # phases a run can name, in the order a run takes them; the environment
 # and the build always run
 PHASES = ("edges", "bits", "psk", "c4fm", "c4fm_25k", "p25p2", "lsm", "dmr",
           "nbfm", "am", "ltr", "mpt1327", "slots", "slots_p25p2",
           "multibank", "worker", "cli", "monitor", "monitor_mixed", "parity",
-          "receiver", "parallel", "bench")
+          "receiver", "parallel", "bench", "reference")
 _LIVE = {"c4fm": run_c4fm, "c4fm_25k": run_c4fm_25k, "p25p2": run_p25p2,
          "lsm": run_lsm, "dmr": run_dmr, "nbfm": run_nbfm, "am": run_am,
          "ltr": run_ltr,
@@ -4200,7 +4308,7 @@ _LIVE = {"c4fm": run_c4fm, "c4fm_25k": run_c4fm_25k, "p25p2": run_p25p2,
          "worker": run_worker, "cli": run_cli, "monitor": run_monitor,
          "monitor_mixed": run_monitor_mixed, "parity": run_parity,
          "receiver": run_receiver, "parallel": run_parallel,
-         "bench": run_bench}
+         "bench": run_bench, "reference": run_reference}
 
 
 def check_shape(card: str, entry: str, c: int, t: int) -> dict:

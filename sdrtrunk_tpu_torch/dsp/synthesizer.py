@@ -13,19 +13,22 @@ analysis prototype's perfect-reconstruction band edge makes the joint
 response flat (tests/test_misc_dsp.py measures it). ``ROT4`` is that
 e^{-i pi k/2} cycle. ``synthesize_bank`` is the full M-channel polyphase
 synthesis bank, the exact dual of the channelizer's analysis bank; it
-builds wideband captures from per-bin streams on the device (the
-reference does this in NumPy on the host).
+builds wideband captures from per-bin streams on the device.
+``synthesize_bank_host`` is the reference's NumPy synthesis bank itself,
+the same float operations in the same order, so that a scene built with
+it holds the reference's bytes.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 
 __all__ = ["ROT4", "rot4", "synthesize_two", "TwoChannelSynthesizer",
-           "synthesize_bank"]
+           "synthesize_bank", "synthesize_bank_host"]
 
 # e^{-i pi k / 2} cycle
 ROT4 = (1 + 0j, -1j, -1 + 0j, 1j)
@@ -98,3 +101,32 @@ def synthesize_bank(u: torch.Tensor, hmat: torch.Tensor) -> torch.Tensor:
     for b in range(2 * t_taps):
         acc[b:b + k] += w3[:, b, :]
     return acc.reshape(-1)
+
+
+def synthesize_bank_host(u: np.ndarray, hmat: np.ndarray) -> np.ndarray:
+    """``synthesize_bank`` in NumPy on the host, as the reference computes
+    it (sdrtrunk_tpu/dsp/synthesizer.py ``synthesize_bank``): the inverse
+    FFT in u's precision (complex64 for a complex64 u), the two scalings
+    one after the other, each window product in complex64 and the
+    overlap-add accumulated in complex128, block by block in the same
+    order. The reference tiles v (rolled on odd blocks) T times and
+    multiplies the (K, T*M) whole by the prototype; its column block b is
+    v's half b % 2, so each block's product is taken from v as it is
+    added, the same values without the (K, T*M) arrays. Returns x
+    complex64 (K*M/2 + (2*T-1)*M/2,) equal to the reference's byte for
+    byte.
+    """
+    u = np.asarray(u)
+    hmat = np.asarray(hmat)
+    t_taps, m = hmat.shape
+    k = u.shape[0]
+    half = m // 2
+    v = np.fft.ifft(u, axis=1) * m * (m / 2.0)             # (K, M)
+    g = hmat.reshape(-1)                                   # (T*M,)
+    par = (np.arange(k) & 1)[:, None]
+    v = np.where(par == 1, np.roll(v, -half, axis=1), v)
+    acc = np.zeros((k + 2 * t_taps, half), np.complex128)
+    for b in range(2 * t_taps):
+        lo = (b % 2) * half
+        acc[b:b + k] += v[:, lo:lo + half] * g[None, b * half:(b + 1) * half]
+    return acc.reshape(-1).astype(np.complex64)

@@ -219,10 +219,18 @@ def pack_audio(audio: torch.Tensor, gate: torch.Tensor,
     return torch.cat([pcm_bytes, _gate_bytes(gate)])
 
 
+# The reference writes the level as log1p(255|a|) * (1 / log 256) * 127;
+# XLA folds the two constants into this one float32 factor, so the product
+# is rounded once. Two roundings give the level below on samples whose
+# level + 0.5 falls within an ulp of an integer (a 700 Hz tone hits one
+# every 80 samples on some channels).
+_MULAW_SCALE = float(np.float32(np.float32(1.0 / np.log(256.0)) * 127.0))
+
+
 def _mulaw8(a: torch.Tensor) -> torch.Tensor:
     """(C, Ka) audio in [-1, 1] -> flat mu-law bytes (``pack_audio``)."""
-    comp = torch.log1p(255.0 * torch.abs(a)) * (1.0 / np.log(256.0))
-    level = torch.clamp((comp * 127.0 + 0.5).to(torch.int32), 0, 127)
+    comp = torch.log1p(255.0 * torch.abs(a)) * _MULAW_SCALE
+    level = torch.clamp((comp + 0.5).to(torch.int32), 0, 127)
     return (torch.where(a < 0, 128, 0) + level).to(torch.uint8).reshape(-1)
 
 

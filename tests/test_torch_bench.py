@@ -1,14 +1,15 @@
 """The port's bench (bench_torch.py) against the JAX package's (bench.py) on
 the CPU, inputs from the same seeds:
 
-* ``_synth_iq8_chunks``: the int8 chunks within 1 LSB on every sample and
-  equal on at least 99.9% of them (the port synthesizes in complex64, the
-  reference accumulates in complex128);
+* ``_synth_iq8_chunks``: the int8 chunks equal byte for byte (the port
+  synthesizes on the host with the reference's NumPy operations,
+  ``synthesize_bank_host``);
 * ``roofline_nbfm``: the same flops and bytes a sample and arithmetic
   intensity for the same (M, channels), to the reference's rounding;
 * the NBFM bank bench (``bench_orchestrator_bank_nbfm``, its chunk fixed
   at 1024 x 6400) at 32 slots, the fewest that keep bank mode's width, and
-  one timed chunk: the same record but for the timing;
+  one timed chunk: the same record but for the timing, and the same
+  digest (``bench_torch.bank_digest``);
 * ``python -m sdrtrunk_tpu_torch.cli bench --small`` exits 0 on the CPU;
   its last line has bench.py's headline keys (read from bench.py's
   source) but for the two renamed links, and no leg holds an error;
@@ -18,6 +19,7 @@ the CPU, inputs from the same seeds:
 tests/test_torch_bench_banks.py holds the digital bank benches.
 """
 import ast
+import importlib.util
 import json
 import subprocess
 import sys
@@ -38,6 +40,10 @@ from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
+_spec = importlib.util.spec_from_file_location(
+    "reference_digests", ROOT / "tools" / "reference_digests.py")
+reference_digests = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(reference_digests)
 RENAMED = {"live_c4fm_tunnel": "live_c4fm_h2d_mbps",
            "ici_predicted_efficiency": "nvlink_predicted_efficiency"}
 
@@ -62,9 +68,7 @@ def test_synth_iq8_chunks_match_the_reference(m, slots, blocks):
     assert len(got) == total_chunks
     for g, w in zip(got, want):
         assert g.dtype == np.int8 and g.shape == w.shape == (chunk, 2)
-        diff = np.abs(g.astype(np.int16) - w.astype(np.int16))
-        assert diff.max() <= 1
-        assert np.mean(diff == 0) >= 0.999
+        assert g.tobytes() == w.tobytes()
     # the peak over every chunk scaled to 118
     assert max(int(np.abs(w.astype(np.int16)).max()) for w in want) >= 117
 
@@ -86,14 +90,24 @@ def test_roofline_counts_match_the_reference(m):
 
 
 def test_nbfm_bank_bench_matches_the_reference():
-    want = bench.bench_orchestrator_bank_nbfm(slots=32, timed_chunks=1)
+    want, want_digest = reference_digests.run_reference(
+        "nbfm", slots=32, timed_chunks=1)
     with use_device("cpu"):
-        got = bench_torch.bench_orchestrator_bank_nbfm(slots=32,
-                                                       timed_chunks=1)
+        scene = bench_torch.scene_orchestrator_bank_nbfm(slots=32,
+                                                         timed_chunks=1)
+        got = bench_torch.run_bank(scene)
     timing = {"msps", "realtime_factor"}
     assert {k: v for k, v in got.items() if k not in timing} == \
         {k: v for k, v in want.items() if k not in timing}
     assert got["channels_with_audio"] == 32
+    # the digest: chunk hashes, per-slot audio samples, open segments and
+    # RMS (within the reference file's 1e-3 relative; equal here)
+    digest = bench_torch.bank_digest(scene.orch, scene.chunks,
+                                     scene.segments)
+    held = bench_torch.compare_digests(
+        digest, want_digest, reference_digests.TOLERANCES["nbfm"])
+    assert held["ok"] and held["differing"] == [], held
+    assert digest["totals"]["open"] == 32
 
 
 def _reference_headline_keys() -> list:

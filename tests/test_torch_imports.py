@@ -71,7 +71,8 @@ def _jax_modules() -> set[str]:
 
 def _port_files() -> list[Path]:
     # test_torch_cuda.py and the tools run on the card's machine, which has
-    # no JAX
+    # no JAX; tools/reference_digests.py is left out: it runs the JAX
+    # package on the CPU by design, to write the digests the card is held to
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "bench_torch.py",
                                          ROOT / "tests" / "test_torch_cuda.py",

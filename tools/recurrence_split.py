@@ -2,7 +2,7 @@
 """Where the biquad and CMA kernels (sdrtrunk_tpu_torch/csrc/biquad.cu,
 csrc/cma.cu) spend their time, on one NVIDIA card: their phase split.
 
-    python3 tools/recurrence_split.py [--csrc DIR ...]
+    python3 tools/recurrence_split.py [--csrc DIR ...] [--latency]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 The script builds, into sdrtrunk_tpu_torch/_build/recurrence_split/
@@ -38,7 +38,14 @@ result (a load, a shuffle) counts the wait as its own.
 
 First it prints the card's latencies the chains are made of (cycles a
 step of a dependent float32 add, multiply, butterfly shuffle into an add,
-and add into an untaken branch; ``_LATENCY``).
+and add into an untaken branch; and the symbol and bit-timing kernels'
+links: fma_f64's round trip through double, the mix's double cos and
+sin, a double reciprocal square root, an add with wrap's compare-selects,
+a shared-memory load, a popcount into an add; ``_LATENCY``). With
+--latency it prints that line and the symbol and bit-timing kernels'
+chain floors (``chain_floors``: the dependent links a symbol takes, read
+from the code, at those latencies and the card's top SM clock), and
+stops.
 
 --csrc DIR also times and splits the biquad.cu and cma.cu of another
 kernel generation (e.g. an older commit's csrc/ unpacked with git archive
@@ -194,9 +201,15 @@ _VARIANTS = {
 _LATENCY = r"""
 #include <cuda_runtime.h>
 constexpr int kIters = 4096;
+constexpr float kTwoPi = 6.28318530717958647692f;
 template <int kKind>
 __global__ void chain(float* out, long long* cyc, float a, float b, float c) {
+  __shared__ int next[32];
+  next[threadIdx.x] = (threadIdx.x + 1) & 31;
+  __syncwarp();
   float x = a + 1e-7f * threadIdx.x;        // not uniform across the warp
+  int j = threadIdx.x;
+  unsigned u = threadIdx.x;
   const long long t0 = clock64();
 #pragma unroll 16
   for (int i = 0; i < kIters; ++i) {
@@ -207,9 +220,29 @@ __global__ void chain(float* out, long long* cyc, float a, float b, float c) {
       x = x + b;
       if (x > c) x = x / sqrtf(x);
     }
+    // the symbol kernels' fma_f64 (psk_common.cuh): floats to double, one
+    // fused multiply-add, rounded back
+    if (kKind == 4)
+      x = static_cast<float>(static_cast<double>(x) * static_cast<double>(b)
+                             + static_cast<double>(c));
+    // their mix's cos and sin of a float phase in double, rounded, added
+    if (kKind == 5)
+      x = static_cast<float>(cos(static_cast<double>(x))) +
+          static_cast<float>(sin(static_cast<double>(x)));
+    // diff_norm's reciprocal square root in double
+    if (kKind == 6)
+      x = static_cast<float>(1.0 / sqrt(static_cast<double>(x)));
+    // the run's phase step: an add, then wrap's two compare-selects
+    if (kKind == 7) {
+      x = x + b;
+      x = x > kTwoPi ? x - kTwoPi : x;
+      x = x < -kTwoPi ? x + kTwoPi : x;
+    }
+    if (kKind == 8) j = next[j];                 // a shared-memory load
+    if (kKind == 9) u = __popc(u ^ 0x5a5a5a5au) + u;  // popcount, add
   }
   const long long t1 = clock64();
-  out[threadIdx.x] = x;
+  out[threadIdx.x] = x + static_cast<float>(j) + static_cast<float>(u);
   if (threadIdx.x == 0) *cyc = t1 - t0;
 }
 extern "C" int latency(void* out, void* cyc, int kind) {
@@ -220,12 +253,91 @@ extern "C" int latency(void* out, void* cyc, int kind) {
   if (kind == 1) chain<1><<<1, 32>>>(o, c, a, b, big);
   if (kind == 2) chain<2><<<1, 32>>>(o, c, a, b, big);
   if (kind == 3) chain<3><<<1, 32>>>(o, c, a, 1e-30f, big);
+  if (kind == 4) chain<4><<<1, 32>>>(o, c, a, b, 1e-7f);
+  if (kind == 5) chain<5><<<1, 32>>>(o, c, 0.5f, b, big);
+  if (kind == 6) chain<6><<<1, 32>>>(o, c, 2.f, b, big);
+  if (kind == 7) chain<7><<<1, 32>>>(o, c, a, 0.7f, big);
+  if (kind == 8) chain<8><<<1, 32>>>(o, c, a, b, big);
+  if (kind == 9) chain<9><<<1, 32>>>(o, c, a, b, big);
   return static_cast<int>(cudaDeviceSynchronize());
 }
 """
 LATENCY_ITERS = 4096
 LATENCY_KINDS = ("fadd", "fmul", "shfl_xor_then_fadd",
-                 "fadd_then_untaken_branch")
+                 "fadd_then_untaken_branch", "fma_f64", "cos_sin_f64",
+                 "rsqrt_f64", "fadd_then_wrap", "shared_load",
+                 "popc_then_add")
+
+
+# The loop-carried chain of a symbol (the symbol kernels) or of a bit
+# symbol (the bit timing), in the links ``_LATENCY`` measures, read from
+# the code. "fadd" stands for any float32 or integer add, multiply,
+# compare or select; branches are left out (the code's, not the chain's),
+# so the floor is below what any form of the loop can take.
+#
+# The symbol loops (psk_common.cuh symbol_loop, dqpsk.cu / gardner.cu
+# step), per symbol: the run, one phase step (add, wrap) a sample from the
+# last update to the symbol's sample (the counter steps beside it); then
+# the step, whose longest path reaches the interpolated point either
+# through the counter (clip, arm, the tap load, the 8-tap sum: a product
+# and 7 fma_f64) or through the mix of the run sample under the last tap
+# (its phase steps, cos and sin, the mix's product and fma_f64, the ring
+# store read back, the last fma_f64); then diff_norm (3 products, 2
+# fma_f64, the square root), the decision or the Gardner detector, and
+# the timing and PLL update back to the next run.
+_SYMBOL_TAILS = {
+    # decide (7) and update (5 adds or selects, 2 fma_f64)
+    "dqpsk": {"fadd": 3 + 7 + 5, "fma_f64": 2 + 2, "rsqrt_f64": 1},
+    # the detector (5 and an fma_f64), the update's counter path (3, 2)
+    "gardner": {"fadd": 3 + 5 + 3, "fma_f64": 2 + 1 + 2, "rsqrt_f64": 1},
+}
+# (case, kernel, samples a symbol, window W, the last tap's window index
+# through the run's mixes, T) at chip_smoke.KERNELS' live shapes
+SYMBOL_CHAINS = (("dqpsk", "dqpsk", 25000.0 / 4800.0, 10, 7, 10240),
+                 ("dqpsk_p25p2", "dqpsk", 50000.0 / 6000.0, 16, 7, 20480),
+                 ("dqpsk_w20", "dqpsk", 50000.0 / 4800.0, 20, 7, 10240),
+                 ("gardner_p25p2", "gardner", 50000.0 / 6000.0, 16, 11,
+                  20480),
+                 ("gardner_lsm", "gardner", 25000.0 / 4800.0, 11, 9,
+                  10240))
+# The bit timing's walk (bit_timing.cu), per bit symbol: the counter to
+# its symbol (a conversion, a compare, the sample index), the line's
+# words from shared memory (one load), their funnel shift, bit reversal
+# and masks, the crossings' xor, shift and mask, the crossing's bit
+# (clz), its distance, conversion and error (about 16 adds, compares or
+# selects in all, 3 bit-count links), the counter's fma_f64.
+BIT_CHAIN = {"fadd": 16, "shared_load": 1, "popc_then_add": 3, "fma_f64": 1}
+# (case, samples a symbol, T) at chip_smoke's LTR and AFSK shapes
+BIT_CHAINS = (("bit_timing_ltr", 8000.0 / 300.0, 4000),
+              ("bit_timing_afsk", 7200.0 / 1200.0, 3600))
+
+
+def chain_floors(lat: dict, sm_mhz: float) -> dict:
+    """Each chain's cycles a symbol at the latencies ``lat`` (cycles a
+    link) and its floor in ms at ``sm_mhz``: symbols a channel (T over the
+    samples a symbol) times the cycles, whatever the channel count."""
+    def cycles(links):
+        return sum(n * lat[k] for k, n in links.items())
+
+    out = {}
+    for case, kernel, sps, w, tap, t in SYMBOL_CHAINS:
+        through_counter = sps * lat["fadd_then_wrap"] + cycles(
+            {"fadd": 6, "shared_load": 1, "fma_f64": 8})
+        steps = tap + 1 - (w - sps)       # the run's phase steps to it
+        through_mix = 0.0 if steps <= 0 else steps * lat[
+            "fadd_then_wrap"] + cycles({"cos_sin_f64": 1, "fadd": 1,
+                                        "fma_f64": 2, "shared_load": 1})
+        per = max(through_counter, through_mix) + cycles(
+            _SYMBOL_TAILS[kernel])
+        out[case] = {"symbols": t / sps, "cycles_per_symbol": per,
+                     "through_counter": through_counter,
+                     "through_mix": through_mix,
+                     "ms": t / sps * per / (sm_mhz * 1e3)}
+    for case, sps, t in BIT_CHAINS:
+        per = cycles(BIT_CHAIN)
+        out[case] = {"symbols": t / sps, "cycles_per_symbol": per,
+                     "ms": t / sps * per / (sm_mhz * 1e3)}
+    return out
 
 
 def _latency() -> dict:
@@ -364,6 +476,8 @@ def _copies(args) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", type=Path, action="append", default=[])
+    ap.add_argument("--latency", action="store_true",
+                    help="print the latency chains' line alone")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -375,6 +489,13 @@ def main() -> int:
         print("recurrence_split.py: no CUDA card", file=sys.stderr)
         return 1
     print(cs._card(), flush=True)
+    if args.latency:
+        lat, clocks = _latency(), _sm_clock_mhz()
+        print(json.dumps({"latency_cycles_per_step": lat,
+                          "sm_clock_mhz_now_max": clocks}), flush=True)
+        print(json.dumps({"chain_floors": chain_floors(
+            lat, float(clocks[-1].split()[0]))}), flush=True)
+        return 0
     copies = _copies(args)
     with ThreadPoolExecutor(len(copies)) as pool:
         futures = {key: pool.submit(_build, OUT / f"copy{i}", key[1], src,
