@@ -18,9 +18,14 @@ after the loop.
 The 1023-slot bank legs are a scene builder each (``scene_*``: bench.py's
 bytes, synthesized on the host as bench.py synthesizes them, and a ready
 Orchestrator) and ``run_bank``, which runs and times it.
+Five more of chip_smoke.py's live cells (LTR, MPT1327, LSM, AM, C4FM on
+25 kHz channels) are ``cell_bytes`` (their bytes, built on the host, and
+the recipe either package's Orchestrator is built from,
+``orchestrator_from_recipe``) and ``scene_bank_<cell>`` on the port.
 ``bank_digest`` digests what a bank decoded in a form both packages give,
 and ``compare_digests`` holds it to the JAX package's
-(tests/torch_reference/banks_1023.json; ``chip_smoke.py reference``).
+(tests/torch_reference/banks_1023.json and cells_full_width.json;
+``chip_smoke.py reference``).
 
 Prints the full JSON line, then the headline (bench.py's keys, with
 ``live_c4fm_h2d_mbps`` for its ``live_c4fm_tunnel`` and
@@ -45,6 +50,7 @@ or directly from the repository root. It imports torch, numpy and
 sdrtrunk_tpu_torch only.
 """
 import contextlib
+import enum
 import hashlib
 import json
 import os
@@ -140,6 +146,21 @@ def _synth_iq8_chunks(base, starts, bins, k, m, total_chunks, chunk,
     drops the warm-up, which equals one-shot synthesis. Independent chunks
     would lose the overlap-add tail at every seam, an artifact a real
     capture never has. hmat may be a tensor on any device."""
+    xs = _synthesize_host(
+        lambda j: base[starts[:, None] + j * k + np.arange(k)[None, :]],
+        bins, k, m, total_chunks, chunk, hmat, amp)
+    scale = 118.0 / _peak(xs)
+    return [np.clip(np.stack([x.real, x.imag], -1) * scale, -127, 127
+                    ).astype(np.int8) for x in xs]
+
+
+def _synthesize_host(rows_of, bins, k, m, total_chunks, chunk, hmat,
+                     amp=0.5) -> list:
+    """complex64 wideband chunks of `chunk` samples through the synthesis
+    bank on the host: chunk j carries rows_of(j), (len(bins), k)
+    complex64, times amp on the bins; the filter state is carried across
+    chunk seams as ``_synth_iq8_chunks`` says. rows_of is called once a
+    chunk, in order."""
     from sdrtrunk_tpu_torch.dsp.synthesizer import synthesize_bank_host
 
     if hasattr(hmat, "cpu"):
@@ -152,19 +173,19 @@ def _synth_iq8_chunks(base, starts, bins, k, m, total_chunks, chunk,
     for j in range(total_chunks):
         u = np.zeros((pad + k, m), np.complex64)
         u[:pad] = tail
-        idx = starts[:, None] + j * k + np.arange(k)[None, :]
-        u[pad:, bins] = base[idx].T * amp
+        u[pad:, bins] = rows_of(j).T * amp
         tail = u[-pad:].copy()
         us.append(u)
     # the chunks are independent once their inputs are: NumPy releases
     # the GIL in the FFT and the array arithmetic
     with ThreadPoolExecutor(min(4, len(us), os.cpu_count() or 1)) as pool:
-        xs = list(pool.map(lambda u: synthesize_bank_host(u, hmat)[
+        return list(pool.map(lambda u: synthesize_bank_host(u, hmat)[
             pad * half: pad * half + chunk], us))
-    scale = 118.0 / max(max(np.abs(x.real).max(), np.abs(x.imag).max())
-                        for x in xs)
-    return [np.clip(np.stack([x.real, x.imag], -1) * scale, -127, 127
-                    ).astype(np.int8) for x in xs]
+
+
+def _peak(xs) -> float:
+    """The largest |I| or |Q| over complex chunks xs."""
+    return max(max(np.abs(x.real).max(), np.abs(x.imag).max()) for x in xs)
 
 
 def _sync(dev) -> None:
@@ -394,13 +415,15 @@ class BankScene:
     parameters set); ``warmup`` untimed chunks then ``timed_chunks``;
     ``segments`` the (slot, AudioSegment) pairs the bank drains, in the
     order ``orch.audio_segments`` takes them (``_segment_slots``)."""
-    kind: str                   # "c4fm", "dmr", "p25p2" or "nbfm"
+    kind: str                   # "c4fm", "dmr", "p25p2", "nbfm", "lsm",
+                                # "am", "ltr" or "mpt1327"
     orch: object
     chunks: list
     warmup: int
     timed_chunks: int
     segments: list
     ingest: str = "auto"
+    recipe: dict | None = None  # a cell's (``cell_bytes``)
 
 
 def _segment_slots(orch) -> list:
@@ -711,6 +734,473 @@ def scene_orchestrator_bank_nbfm(slots: int = 1023, timed_chunks: int = 6
                      _segment_slots(orch), "auto")
 
 
+# ------------------------------------------------------------- cells
+
+# chip_smoke.py's live cells beside the bench banks, rebuilt on the host
+# (``cell_bytes``): each mirrors its live phase's geometry and streams in
+# NumPy, so that both packages decode the same bytes on every machine
+CENTER_HZ = 460e6
+GROUP, SOURCE = 0x457, 0xABCDE
+VOICE_TONE_HZ = 800.0
+
+
+def p25_streams(total_dibits: int, base_hz: float, traffic_index: int,
+                band_id: int = 1, spacing_hz: float = 12500.0,
+                traffic_start_s: float = 1.3, group: int = GROUP,
+                source: int = SOURCE):
+    """(control, traffic, voice superframe) P25P1 dibit streams; the
+    control channel grants channel traffic_index of the band at base_hz,
+    which its IDEN_UP announces as band band_id of spacing_hz channels;
+    the call on the traffic channel starts at traffic_start_s, after the
+    grant's latency."""
+    from sdrtrunk_tpu_torch.protocol.bits import from_int
+    from sdrtrunk_tpu_torch.protocol.p25p1.duid import DUID
+    from sdrtrunk_tpu_torch.protocol.p25p1.framer import P25P1FrameAssembler
+    from sdrtrunk_tpu_torch.protocol.p25p1.hdu import hdu_encode, tdulc_encode
+    from sdrtrunk_tpu_torch.protocol.p25p1.lc import lc_build_group_voice
+    from sdrtrunk_tpu_torch.protocol.p25p1.ldu import ldu1_encode, ldu2_encode
+    from sdrtrunk_tpu_torch.protocol.p25p1.tsbk import tsbk_encode
+
+    rng = np.random.default_rng(11)
+    asm = P25P1FrameAssembler(nac=0x293)
+    iden = np.zeros(64, np.uint8)              # IDEN_UP, tsbk.py:348-355
+    iden[0:4] = from_int(band_id, 4)
+    units = int(spacing_hz / 125.0)            # 100: 12.5 kHz
+    iden[4:13] = from_int(units, 9)            # bandwidth
+    iden[22:32] = from_int(units, 10)          # spacing
+    iden[32:64] = from_int(int(base_hz / 5), 32)
+    grant = np.zeros(64, np.uint8)             # GROUP_VOICE_CHANNEL_GRANT
+    grant[8:12] = from_int(band_id, 4)
+    grant[12:24] = from_int(traffic_index, 12)
+    grant[24:40] = from_int(group, 16)
+    grant[40:64] = from_int(source, 24)
+    t_iden = asm.assemble(DUID.TSBK, tsbk_encode(0x3D, iden))
+    t_grant = asm.assemble(DUID.TSBK, tsbk_encode(0x00, grant))
+    t_rfss = asm.assemble(DUID.TSBK, tsbk_encode(
+        0x3A, rng.integers(0, 2, 64).astype(np.uint8)))
+    parts = [rng.integers(0, 4, 120).astype(np.uint8), t_iden, t_iden,
+             t_grant, t_grant]
+    # IDEN_UP is rebroadcast through the stream, as a control channel
+    # does, so a receiver that missed the first one still maps the grant
+    while sum(len(p) for p in parts) < total_dibits - 2 * len(t_grant):
+        parts += [t_rfss, t_iden, t_grant]
+    control = np.concatenate(parts)
+
+    lc = lc_build_group_voice(group=group, source=source)
+    call = [asm.assemble(DUID.HDU, hdu_encode(np.zeros(72, np.uint8), 0,
+                                              0x80, 0, talkgroup=group))]
+    call += [asm.assemble(DUID.LDU1, ldu1_encode(
+        lc, rng.integers(0, 2, (9, 144)).astype(np.uint8))) for _ in range(4)]
+    call.append(asm.assemble(DUID.TDULC, tdulc_encode(lc)))
+    start = int(traffic_start_s * 4800)
+    traffic = np.concatenate(
+        [rng.integers(0, 4, start).astype(np.uint8)] + call)
+
+    vasm = P25P1FrameAssembler()
+    p1 = ldu1_encode(lc, rng.integers(0, 2, (9, 144)).astype(np.uint8))
+    p2 = ldu2_encode(rng.integers(0, 2, 72).astype(np.uint8), 0x80, 1,
+                     rng.integers(0, 2, (9, 144)).astype(np.uint8))
+    superframe = np.concatenate([vasm.assemble(DUID.LDU1, p1),
+                                 vasm.assemble(DUID.LDU2, p2),
+                                 vasm.assemble(DUID.LDU1, p1),
+                                 vasm.assemble(DUID.LDU2, p2),
+                                 vasm.assemble(DUID.TDULC, tdulc_encode(lc))])
+
+    def pad(d):
+        return np.concatenate(
+            [d, rng.integers(0, 4, max(total_dibits - len(d), 0))
+             .astype(np.uint8)])[:total_dibits]
+    return pad(control), pad(traffic), superframe
+
+
+def lsm_tsbks():
+    """A P25P1 control stream of TSBKs (tests/test_orchestrator_bank.py's
+    LSM scene)."""
+    from sdrtrunk_tpu_torch.protocol.p25p1.duid import DUID
+    from sdrtrunk_tpu_torch.protocol.p25p1.framer import P25P1FrameAssembler
+    from sdrtrunk_tpu_torch.protocol.p25p1.tsbk import tsbk_encode
+
+    rng = np.random.default_rng(5)
+    asm = P25P1FrameAssembler(nac=0x293)
+    tsbk = asm.assemble(DUID.TSBK, tsbk_encode(
+        0x3A, rng.integers(0, 2, 64).astype(np.uint8)))
+    return np.concatenate([rng.integers(0, 4, 150).astype(np.uint8)]
+                          + [tsbk] * 6)
+
+
+def mpt_control(n: int, rate: float, rng, channel: int):
+    """n samples at rate of an NBFM control channel of MPT1327 AFSK
+    codewords: ALH, then GTC for traffic channel `channel`, repeated, each
+    after 24 random bits and the control sync (1 -> 1200 Hz, 0 -> 1800 Hz
+    at 8 kHz, phase-continuous, at 0.35)."""
+    from sdrtrunk_tpu_torch.protocol.bits import from_int
+    from sdrtrunk_tpu_torch.protocol.mpt1327 import (SYNC_CONTROL,
+                                                     mpt_encode_codeword)
+    from sdrtrunk_tpu_torch.signal.generators import nbfm_modulate
+
+    def address_word(prefix, ident1):
+        d = np.zeros(48, np.uint8)
+        d[0] = 1
+        d[1:8] = from_int(prefix, 7)
+        d[8:21] = from_int(ident1, 13)
+        return d
+    alh = address_word(3, 88)
+    alh[21:30] = from_int(256, 9)
+    alh[44:48] = from_int(5, 4)
+    gtc = address_word(10, 1000)
+    gtc[21:31] = from_int(channel, 10)
+    gtc[35:48] = from_int(2000, 13)
+    frame = np.concatenate([
+        part for word in (alh, gtc) for part in (
+            rng.integers(0, 2, 24).astype(np.uint8), SYNC_CONTROL,
+            mpt_encode_codeword(word))])
+    need = int(n / rate * 8000.0) + 100
+    bits = np.tile(frame, int(need * 1200 / 8000) // len(frame) + 2)
+    sym = np.minimum((np.arange(need) * 1200 / 8000).astype(np.int64),
+                     len(bits) - 1)
+    tone = 2 * np.pi * np.cumsum(np.where(bits[sym] == 1, 1200.0, 1800.0))
+    return nbfm_modulate(0.35 * np.sin(tone / 8000.0), 8000.0, rate)[:n]
+
+
+def _grid(slots: int, full: int, traffic: int | None = None) -> np.ndarray:
+    """The grid channels a cell of `slots` slots carries: the first
+    `slots` of its `full`, the granted traffic channel kept (in place of
+    the last) where it lies beyond them. Per-slot draws are made for the
+    full grid, so a channel's stream is the full scene's at any width."""
+    if not 2 <= slots <= full:
+        raise ValueError(f"slots must be 2 to {full}, not {slots}")
+    if traffic is None or traffic < slots:
+        return np.arange(slots)
+    return np.append(np.arange(slots - 1), traffic)
+
+
+def _position(grid, channel: int) -> int:
+    """Where grid channel `channel` sits in the grid."""
+    return int(np.flatnonzero(grid == channel)[0])
+
+
+def _square_fsk(bits, n0: int, n: int, sps: float, start) -> np.ndarray:
+    """(C, n) float64: samples n0 to n0 + n of +/-1 by the bits (C, B) at
+    sps samples a bit, read from sample offset start (C,) and wrapped
+    around."""
+    idx = ((np.arange(n0, n0 + n)[None, :] + start[:, None]) / sps
+           ).astype(np.int64) % bits.shape[1]
+    return np.take_along_axis(bits, idx, 1) * 2.0 - 1.0
+
+
+def _tone(n0: int, n: int, rate: float, hz: float, phase) -> np.ndarray:
+    """(C, n) float64: samples n0 to n0 + n of sin(2 pi hz t + phase) at
+    rate, a phase (C,) a row."""
+    t = np.arange(n0, n0 + n, dtype=np.float64)[None, :]
+    return np.sin(2 * np.pi * hz / rate * t + phase[:, None])
+
+
+class _FM:
+    """Rows of a real message frequency-modulated chunk by chunk at the
+    channel rate (deviation 3 kHz), the phase accumulated in float64
+    across chunks; each call returns (C, n) complex64."""
+
+    def __init__(self, rows: int, rate: float, deviation_hz: float = 3000.0):
+        self.acc = np.zeros((rows, 1))
+        self.k = 2 * np.pi * deviation_hz / rate
+
+    def __call__(self, message) -> np.ndarray:
+        s = np.cumsum(np.concatenate([self.acc, message], 1), 1)[:, 1:]
+        self.acc = s[:, -1:]
+        return np.exp(1j * (s * self.k)).astype(np.complex64)
+
+
+def _tiled(cycle, modulate, sps: float, full: int, n: int, seed: int):
+    """A dibit cycle tiled and modulated once (sps samples a symbol), and
+    a random start in it for each of the `full` grid channels: (base
+    complex64, starts); channel c's stream is base[starts[c]:][:n]."""
+    rng = np.random.default_rng(seed)
+    per = int(len(cycle) * sps)                # samples per cycle
+    starts = rng.integers(0, per, full)
+    base = modulate(np.tile(cycle, (int(starts.max()) + n) // per + 2))
+    return base.astype(np.complex64), starts
+
+
+def _cell_chunks(rows_of, fs: float, bandwidth: float, offsets, k: int,
+                 total_chunks: int, chunk: int) -> list:
+    """int8 (chunk, 2) chunks of the streams rows_of(j)
+    (``_synthesize_host``) on the channelizer's bins at offsets, quantized
+    as chip_smoke.py's ``synthesize_chunks`` quantizes: one peak over all
+    chunks, scaled to 118 and rounded."""
+    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
+
+    ch = Channelizer.design(fs, bandwidth, device="cpu")
+    bins = np.array([ch.channel_for_frequency(o) for o in offsets])
+    xs = _synthesize_host(rows_of, bins, k, ch.channels, total_chunks,
+                          chunk, ch.hmat)
+    scale = 118.0 / _peak(xs)
+    return [np.clip(np.round(np.stack([x.real, x.imag], -1) * scale),
+                    -127, 127).astype(np.int8) for x in xs]
+
+
+def _recipe(cell: str, kind: str, fs: float, offsets, slots: int,
+            chunk: int, warmup: int, timed_chunks: int,
+            free: int | None = None, channel_map=None, **kw) -> dict:
+    """What both packages' Orchestrator is built from
+    (``orchestrator_from_recipe``): the control channel at offsets[0],
+    every other offset activated but offsets[free] (the granted channel,
+    left for the grant), bank mode, no teardown, no PPM correction."""
+    return {"cell": cell, "kind": kind, "sample_rate": fs,
+            "center_hz": CENTER_HZ, "control_offset_hz": float(offsets[0]),
+            "activate_hz": [float(o) for i, o in enumerate(offsets)
+                            if i and i != free],
+            "free_slots": int(free is not None), "channel_map": channel_map,
+            "warmup": warmup, "timed_chunks": timed_chunks,
+            "kwargs": {"slots": slots, "decoder": kind,
+                       "chunk_samples": chunk, "idle_teardown_seconds": 1e9,
+                       "ppm_correction": False, "bank_mode": True, **kw}}
+
+
+def _offsets(grid, m: int, spacing: float) -> np.ndarray:
+    """The baseband offsets of grid channels of M bins at spacing."""
+    return (grid - m // 2 + 1) * spacing
+
+
+def _cell_ltr(slots: int, timed_chunks: int, chunk_blocks: int):
+    """chip_smoke.py's ``run_ltr``: 1023 slots of M = 1024, each an NBFM
+    carrier with the 800 Hz voice tone (0.5, a random phase) plus
+    sub-audible square FSK (+/-0.35, 300 baud) of LTR CALL words for the
+    slot's own talkgroup (home 1-5, group 1-253), from a random start; 2
+    warm-up chunks of 1024 x 6250."""
+    from sdrtrunk_tpu_torch.protocol.ltr.messages import ltr_encode_word
+
+    m, full, warmup, rate = 1024, 1023, 2, 25000.0
+    fs, chunk = m * 12500.0, m * chunk_blocks
+    k = 2 * chunk // m
+    grid = _grid(slots, full)
+    rng = np.random.default_rng(0)
+    words = np.stack([ltr_encode_word(0, s // 253 + 1, s // 253 + 1,
+                                      s % 253 + 1, s // 253 + 1)
+                      for s in grid])                      # (slots, 40)
+    start = rng.integers(0, 40 * 84, full)[grid]
+    phase = rng.uniform(0, 2 * np.pi, full)[grid]
+    fm = _FM(len(grid), rate)
+
+    def rows_of(j):
+        return fm(0.35 * _square_fsk(words, j * k, k, rate / 300.0, start)
+                  + 0.5 * _tone(j * k, k, rate, VOICE_TONE_HZ, phase))
+    offsets = _offsets(grid, m, 12500.0)
+    chunks = _cell_chunks(rows_of, fs, 12500.0, offsets, k,
+                          warmup + timed_chunks, chunk)
+    return chunks, _recipe("ltr", "ltr", fs, offsets, slots, chunk, warmup,
+                           timed_chunks)
+
+
+MPT_TRAFFIC_INDEX = 300          # the channel the MPT1327 control grants
+
+
+def _cell_mpt1327(slots: int, timed_chunks: int, chunk_blocks: int):
+    """chip_smoke.py's ``run_mpt1327``: 1023 slots of M = 1024 with a
+    channel map; slot 0 an NBFM control channel of AFSK codewords (ALH,
+    then GTC for channel 300, repeated), the granted channel left free
+    for the grant, FM voice (800 Hz at 0.6, a random phase) on it and on
+    the other 1021; 2 warm-up chunks of 1024 x 6250."""
+    m, full, warmup, rate = 1024, 1023, 2, 25000.0
+    fs, chunk = m * 12500.0, m * chunk_blocks
+    k = 2 * chunk // m
+    total = warmup + timed_chunks
+    grid = _grid(slots, full, MPT_TRAFFIC_INDEX)
+    rng = np.random.default_rng(13)
+    control = mpt_control((total + 1) * k, rate, rng, MPT_TRAFFIC_INDEX
+                          ).astype(np.complex64)
+    phase = rng.uniform(0, 2 * np.pi, full)[grid]
+    fm = _FM(len(grid), rate)
+
+    def rows_of(j):
+        rows = fm(0.6 * _tone(j * k, k, rate, VOICE_TONE_HZ, phase))
+        rows[0] = control[j * k:(j + 1) * k]
+        return rows
+    offsets = _offsets(grid, m, 12500.0)
+    chunks = _cell_chunks(rows_of, fs, 12500.0, offsets, k, total, chunk)
+    band = {"identifier": 0, "base_frequency_hz": CENTER_HZ + offsets[0],
+            "channel_spacing_hz": 12500.0}
+    return chunks, _recipe("mpt1327", "mpt1327", fs, offsets, slots, chunk,
+                           warmup, timed_chunks,
+                           free=_position(grid, MPT_TRAFFIC_INDEX),
+                           channel_map=band)
+
+
+def _cell_lsm(slots: int, timed_chunks: int, chunk_blocks: int):
+    """chip_smoke.py's ``run_lsm``: 64 slots 16 bins apart of M = 1024,
+    each a P25P1 control stream of TSBKs in LSM from a random start; 1
+    warm-up chunk of 1024 x 5120."""
+    from sdrtrunk_tpu_torch.signal.generators import lsm_modulate
+
+    m, full, warmup, rate = 1024, 64, 1, 25000.0
+    fs, chunk = m * 12500.0, m * chunk_blocks
+    k = 2 * chunk // m
+    total = warmup + timed_chunks
+    grid = _grid(slots, full)
+    base, starts = _tiled(lsm_tsbks(),
+                          lambda d: lsm_modulate(d, sample_rate=rate),
+                          rate / 4800.0, full, (total + 1) * k, seed=3)
+    starts = starts[grid]
+    offsets = (16 * grid - m // 2 + 8) * 12500.0
+    chunks = _cell_chunks(
+        lambda j: base[starts[:, None] + j * k + np.arange(k)[None, :]],
+        fs, 12500.0, offsets, k, total, chunk)
+    return chunks, _recipe("lsm", "lsm", fs, offsets, slots, chunk, warmup,
+                           timed_chunks)
+
+
+def _cell_am(slots: int, timed_chunks: int, chunk_blocks: int):
+    """chip_smoke.py's ``run_am``: 64 slots 16 bins apart of M = 1024,
+    each a carrier at a random phase with a 1 kHz tone at 50% AM depth
+    (the tone's phase random a slot); 1 warm-up chunk of 1024 x 6400."""
+    m, full, warmup, rate = 1024, 64, 1, 25000.0
+    fs, chunk = m * 12500.0, m * chunk_blocks
+    k = 2 * chunk // m
+    grid = _grid(slots, full)
+    rng = np.random.default_rng(4)
+    tone = rng.uniform(0, 2 * np.pi, full)[grid]
+    carrier = np.exp(1j * rng.uniform(0, 2 * np.pi, full))[grid, None]
+
+    def rows_of(j):
+        env = 1.0 + 0.5 * _tone(j * k, k, rate, 1000.0, tone)
+        return (env * carrier).astype(np.complex64)
+    offsets = (16 * grid - m // 2 + 8) * 12500.0
+    chunks = _cell_chunks(rows_of, fs, 12500.0, offsets, k,
+                          warmup + timed_chunks, chunk)
+    return chunks, _recipe("am", "am", fs, offsets, slots, chunk, warmup,
+                           timed_chunks)
+
+
+C4FM_25K_TRAFFIC_INDEX = 300     # the channel the 25 kHz control grants
+
+
+def _cell_c4fm_25k(slots: int, timed_chunks: int, chunk_blocks: int):
+    """chip_smoke.py's ``run_c4fm_25k``: a site on 25 kHz spacing, 511
+    slots of M = 512 (a 50 kHz channel rate: DQPSK at W = 20); slot 0 a
+    P25 control channel whose IDEN_UP announces 25 kHz spacing, granting
+    channel 300 (left free), whose call starts at 0.6 s; P25P1 voice
+    superframes on the other 509 from random starts; 2 warm-up chunks of
+    512 x 5120."""
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    m, full, warmup, rate = 512, 511, 2, 50000.0
+    fs, chunk = m * 25000.0, m * chunk_blocks
+    k = 2 * chunk // m
+    total = warmup + timed_chunks
+    n = (total + 1) * k
+    grid = _grid(slots, full, C4FM_25K_TRAFFIC_INDEX)
+    offsets = _offsets(grid, m, 25000.0)
+    control, traffic, superframe = p25_streams(
+        int(n / rate * 4800) + 64, CENTER_HZ + offsets[0],
+        C4FM_25K_TRAFFIC_INDEX, spacing_hz=25000.0, traffic_start_s=0.6)
+    base, starts = _tiled(superframe, lambda d: c4fm_modulate(d, rate),
+                          rate / 4800.0, full, n, seed=0)
+    starts = starts[grid]
+    free = _position(grid, C4FM_25K_TRAFFIC_INDEX)
+    own = {r: c4fm_modulate(d, rate)[:n].astype(np.complex64)
+           for r, d in ((0, control), (free, traffic))}
+
+    def rows_of(j):
+        rows = base[starts[:, None] + j * k + np.arange(k)[None, :]]
+        for r, stream in own.items():
+            rows[r] = stream[j * k:(j + 1) * k]
+        return rows
+    chunks = _cell_chunks(rows_of, fs, 25000.0, offsets, k, total, chunk)
+    return chunks, _recipe("c4fm_25k", "c4fm", fs, offsets, slots, chunk,
+                           warmup, timed_chunks, free=free,
+                           channel_bandwidth=25000.0)
+
+
+# cell -> (its builder, then its slots, timed chunks and chunk blocks at
+# full width)
+CELLS = {"ltr": (_cell_ltr, 1023, 4, 6250),
+         "mpt1327": (_cell_mpt1327, 1023, 3, 6250),
+         "lsm": (_cell_lsm, 64, 2, 5120),
+         "am": (_cell_am, 64, 2, 6400),
+         "c4fm_25k": (_cell_c4fm_25k, 511, 3, 5120)}
+
+
+def cell_bytes(cell: str, slots: int | None = None,
+               timed_chunks: int | None = None,
+               chunk_blocks: int | None = None):
+    """A cell's int8 chunks and its recipe (``orchestrator_from_recipe``),
+    at full width where an argument is None: NumPy on the host, the same
+    bytes on every machine. Imports the port's host modules only."""
+    build, *full = CELLS[cell]
+    given = (slots, timed_chunks, chunk_blocks)
+    return build(*(f if g is None else g for g, f in zip(given, full)))
+
+
+def orchestrator_from_recipe(recipe: dict, chunks, orchestrator,
+                             identifiers, band=None, **kw):
+    """A cell's Orchestrator from its recipe in either package: that
+    package's ``Orchestrator``, ``IdentifierCollection`` and
+    ``FrequencyBand`` classes are passed in, with its own keyword
+    arguments `kw` (the port's ``device``)."""
+    if recipe["channel_map"] is not None:
+        kw["channel_map"] = band(**recipe["channel_map"])
+    args = recipe["kwargs"]
+    orch = orchestrator(_chunk_source(chunks, args["chunk_samples"]),
+                        recipe["sample_rate"], recipe["center_hz"],
+                        [recipe["control_offset_hz"]], **args, **kw)
+    for off in recipe["activate_hz"]:
+        orch._activate(recipe["center_hz"] + off, identifiers())
+    if sum(s.active for s in orch.slots) != \
+            len(orch.slots) - recipe["free_slots"]:
+        raise AssertionError(f"{recipe['cell']}: slots did not all "
+                             f"activate")
+    return orch
+
+
+def _scene_cell(cell: str, slots: int, timed_chunks: int,
+                chunk_blocks: int) -> BankScene:
+    """A cell's bytes and the port's Orchestrator over them."""
+    from sdrtrunk_tpu_torch import resolve_device
+    from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+    from sdrtrunk_tpu_torch.runtime.traffic import FrequencyBand
+
+    chunks, recipe = cell_bytes(cell, slots, timed_chunks, chunk_blocks)
+    orch = orchestrator_from_recipe(recipe, chunks, Orchestrator,
+                                    IdentifierCollection, FrequencyBand,
+                                    device=resolve_device(None))
+    return BankScene(recipe["kind"], orch, chunks, recipe["warmup"],
+                     recipe["timed_chunks"], _segment_slots(orch),
+                     recipe=recipe)
+
+
+def scene_bank_ltr(slots: int = 1023, timed_chunks: int = 4,
+                   chunk_blocks: int = 6250) -> BankScene:
+    """The LTR cell (``_cell_ltr``) on the port: the mixed bank, its bit
+    timing at W = 53."""
+    return _scene_cell("ltr", slots, timed_chunks, chunk_blocks)
+
+
+def scene_bank_mpt1327(slots: int = 1023, timed_chunks: int = 3,
+                       chunk_blocks: int = 6250) -> BankScene:
+    """The MPT1327 cell (``_cell_mpt1327``) on the port: the AFSK bit
+    timing at W = 12 and a grant through the channel map."""
+    return _scene_cell("mpt1327", slots, timed_chunks, chunk_blocks)
+
+
+def scene_bank_lsm(slots: int = 64, timed_chunks: int = 2,
+                   chunk_blocks: int = 5120) -> BankScene:
+    """The LSM cell (``_cell_lsm``) on the port: Gardner at W = 11."""
+    return _scene_cell("lsm", slots, timed_chunks, chunk_blocks)
+
+
+def scene_bank_am(slots: int = 64, timed_chunks: int = 2,
+                  chunk_blocks: int = 6400) -> BankScene:
+    """The AM cell (``_cell_am``) on the port: no kernel."""
+    return _scene_cell("am", slots, timed_chunks, chunk_blocks)
+
+
+def scene_bank_c4fm_25k(slots: int = 511, timed_chunks: int = 3,
+                        chunk_blocks: int = 5120) -> BankScene:
+    """The C4FM cell on 25 kHz channels (``_cell_c4fm_25k``) on the port:
+    DQPSK at W = 20 and a grant at 25 kHz spacing."""
+    return _scene_cell("c4fm_25k", slots, timed_chunks, chunk_blocks)
+
+
 def run_bank(scene: BankScene) -> dict:
     """Run a scene as its bench leg does: the warm-up chunks, then the
     timed ones; returns the leg's record."""
@@ -726,11 +1216,11 @@ def run_bank(scene: BankScene) -> dict:
               "slots": len(orch.slots)}
     if scene.kind == "c4fm":
         record["active_channels"] = metrics.get("active_channels")
-    elif scene.kind != "nbfm":
+    elif scene.kind in ("dmr", "p25p2"):
         record["timeslots"] = 2 * len(orch.slots)
     record.update({"wideband_rate_msps": fs / 1e6, "chunk_samples": chunk,
                    "chunks": scene.timed_chunks})
-    if scene.kind == "nbfm":
+    if scene.kind in ("nbfm", "am"):
         record["channels_with_audio"] = int(sum(
             1 for mdl in orch.bank_proc.modules
             if mdl.segment is not None and mdl.segment.duration > 1.0))
@@ -794,21 +1284,56 @@ def _sha(obj) -> str:
                           ).hexdigest()
 
 
+def _ids(identifiers) -> list:
+    """An IdentifierCollection as sorted strings."""
+    return sorted(f"{i.identifier_class.value}/{i.form.value}/"
+                  f"{i.role.value}/{i.protocol}/{i.value}"
+                  for i in identifiers.all())
+
+
 def _segment_row(frequency_hz: float, seg) -> list:
     """One AudioSegment as the digest holds it: its slot's frequency,
     timeslot, sample count, complete, and its identifiers as sorted
     strings."""
-    ids = sorted(f"{i.identifier_class.value}/{i.form.value}/"
-                 f"{i.role.value}/{i.protocol}/{i.value}"
-                 for i in seg.identifiers.all())
     return [float(frequency_hz), int(seg.timeslot), len(seg.samples),
-            bool(seg.complete), ids]
+            bool(seg.complete), _ids(seg.identifiers)]
 
 
-def bank_digest(orch, chunks, segments) -> dict:
+def _event_row(event) -> list:
+    """A decode event as the digest holds it: what the signal decided
+    (kind, protocol, frequency, timeslot, details, identifiers) and its
+    start on the orchestrator's sample clock (samples consumed over the
+    sample rate)."""
+    return [event.event_type.name, event.protocol,
+            None if event.frequency_hz is None else float(event.frequency_hz),
+            int(event.timeslot), float(event.time_start), event.details,
+            _ids(event.identifiers)]
+
+
+def _plain(value):
+    """A decoded message as plain data both packages give: enums by name
+    (each package has its own copy of an enum), arrays as lists, objects
+    by their fields."""
+    if isinstance(value, enum.Enum):
+        return value.name
+    if isinstance(value, np.ndarray):
+        return value.tolist()
+    if isinstance(value, np.generic):
+        return value.item()
+    if isinstance(value, dict):
+        return {str(k): _plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_plain(v) for v in value]
+    if hasattr(value, "__dict__"):
+        return {k: _plain(v) for k, v in vars(value).items()}
+    return value
+
+
+def bank_digest(orch, chunks, segments, events: bool = False) -> dict:
     """What a bank decoded, slot by slot, in a form both packages give
-    (duck-typed over ``channel_status()``, ``audio_segments`` and, for an
-    analog bank, ``bank_proc.modules``; imports neither JAX nor torch).
+    (duck-typed over ``channel_status()``, ``audio_segments``, ``events``
+    and, for an analog bank, ``bank_proc.modules``, for a mixed one
+    ``bank_proc.procs``; imports neither JAX nor torch).
 
     chunks: the int8 chunks fed; segments: the scene's (slot,
     AudioSegment) pairs (``_segment_slots``), which must be every segment
@@ -816,9 +1341,13 @@ def bank_digest(orch, chunks, segments) -> dict:
     chunk; per slot the frames (fragments for P25 Phase 2), the sha256 of
     its metrics dict, its audio segments' count and the sha256 of their
     rows (``_segment_row``), the slot hashes cut to ``SLOT_HASH_HEX``
-    digits; for an analog bank also per slot the audio samples (its
-    segments', the open one's included), ``open`` (1 where a segment is
-    open at the end) and the audio's RMS; and the totals."""
+    digits; for an analog or a mixed bank also per slot the audio samples
+    (its segments', the open one's included), ``open`` (1 where a segment
+    is open at the end) and the audio's RMS; for a mixed bank per slot the
+    sha256 of its decoded messages in order (``_plain``); with `events`
+    the sha256 of ``orch.events`` (``_event_row``) and their count
+    (tests/torch_reference/banks_1023.json predates it); and the
+    totals."""
     status = orch.channel_status()
     drained = [seg for _, seg in segments]
     if len(drained) != len(orch.audio_segments) or any(
@@ -843,27 +1372,41 @@ def bank_digest(orch, chunks, segments) -> dict:
         "segments_sha": [_sha(r)[:cut] for r in rows],
     }
     totals = {"frames": sum(digest["frames"]), "segments": len(drained)}
+    modules = None
     if getattr(orch, "bank_analog", False):
+        modules = orch.bank_proc.modules
+    elif getattr(orch, "bank_mixed", False):
+        procs = orch.bank_proc.procs
+        modules = [None if p is None else p.audio for p in procs]
+        digest["messages"] = [
+            _sha([] if p is None else [_plain(m) for m in p.messages])[:cut]
+            for p in procs]
+        totals["messages"] = sum(len(p.messages) for p in procs
+                                 if p is not None)
+    if modules is not None:
+        opened = [m is not None and m.segment is not None for m in modules]
         audio = [[seg.samples for seg in segs] for segs in by_slot]
-        for s, mdl in enumerate(orch.bank_proc.modules):
-            if mdl.segment is not None:
+        for s, mdl in enumerate(modules):
+            if opened[s]:
                 audio[s].append(mdl.segment.samples)
         flat = [np.concatenate(a) if a else np.zeros(0, np.float32)
                 for a in audio]
         digest["audio_samples"] = [int(len(a)) for a in flat]
-        digest["open"] = [int(m.segment is not None)
-                          for m in orch.bank_proc.modules]
+        digest["open"] = [int(o) for o in opened]
         digest["rms"] = [float(np.sqrt(np.mean(np.square(
             a, dtype=np.float64)))) if len(a) else 0.0 for a in flat]
         totals.update(audio_samples=sum(digest["audio_samples"]),
                       open=sum(digest["open"]))
+    if events:
+        digest["events"] = _sha([_event_row(e) for e in orch.events])
+        totals["events"] = len(orch.events)
     digest["totals"] = totals
     return digest
 
 
 # the per-slot fields ``compare_digests`` holds equal, RMS apart
 _SLOT_FIELDS = ("frames", "metrics", "segments", "segments_sha",
-                "audio_samples", "open")
+                "audio_samples", "open", "messages")
 
 
 def compare_digests(got: dict, want: dict, tolerance: dict) -> dict:
@@ -879,8 +1422,10 @@ def compare_digests(got: dict, want: dict, tolerance: dict) -> dict:
     * ``rms_rel``: the relative RMS difference allowed (default 0).
 
     The chunk hashes, the slot count and the frequencies are always held
-    equal. Returns {"ok", "chunks_equal", "differing": [{slot, field:
-    [got, want], ...}], "totals": {field: [got, want]}}."""
+    equal, and so are the events where the reference's digest has them
+    (unless ``may_differ`` names "events"). Returns {"ok", "chunks_equal",
+    "events_equal", "differing": [{slot, field: [got, want], ...}],
+    "totals": {field: [got, want]}}."""
     rms_rel = tolerance.get("rms_rel", 0.0)
     differing = []
     same_shape = (got["slots"] == want["slots"]
@@ -903,6 +1448,10 @@ def compare_digests(got: dict, want: dict, tolerance: dict) -> dict:
                     <= share * abs(totals[k][1])
                     for k, share in tolerance.get("totals_share", {}).items())
     chunks_equal = got["chunks"] == want["chunks"]
+    events_equal = ("events" not in want
+                    or got.get("events") == want["events"])
+    if not events_equal:
+        fields.add("events")
     extra = {}
     if "rms" in want and same_shape:
         extra["rms_rel_max"] = max(
@@ -910,10 +1459,11 @@ def compare_digests(got: dict, want: dict, tolerance: dict) -> dict:
             for g, w in zip(got["rms"], want["rms"]))
     ok = (chunks_equal and same_shape and shares_ok
           and len(differing) <= tolerance.get("slots_differing", 0)
-          and fields <= set(tolerance.get("may_differ", fields))
+          and fields <= set(tolerance.get("may_differ", fields - {"events"}))
           and (per_slot is None or frames_off <= per_slot))
     return {"ok": ok, "chunks_equal": chunks_equal,
-            "differing": differing, "totals": totals, **extra}
+            "events_equal": events_equal, "differing": differing,
+            "totals": totals, **extra}
 
 
 # ------------------------------------------------------------- scaling

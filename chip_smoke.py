@@ -1009,73 +1009,12 @@ def check_bit_timing_edges(card: str) -> None:
 # --- phases 5-7: the live loops -------------------------------------------
 
 def _p25_streams(total_dibits: int, base_hz: float,
-                 traffic_index: int = TRAFFIC_INDEX, band_id: int = 1,
-                 spacing_hz: float = 12500.0, traffic_start_s: float = 1.3):
-    """(control, traffic, voice superframe) P25P1 dibit streams; the
-    control channel grants channel traffic_index of the band at base_hz,
-    which its IDEN_UP announces as band band_id of spacing_hz channels;
-    the call on the traffic channel starts at traffic_start_s, after the
-    grant's latency."""
-    import numpy as np
-
-    from sdrtrunk_tpu_torch.protocol.bits import from_int
-    from sdrtrunk_tpu_torch.protocol.p25p1.duid import DUID
-    from sdrtrunk_tpu_torch.protocol.p25p1.framer import P25P1FrameAssembler
-    from sdrtrunk_tpu_torch.protocol.p25p1.hdu import hdu_encode, tdulc_encode
-    from sdrtrunk_tpu_torch.protocol.p25p1.lc import lc_build_group_voice
-    from sdrtrunk_tpu_torch.protocol.p25p1.ldu import ldu1_encode, ldu2_encode
-    from sdrtrunk_tpu_torch.protocol.p25p1.tsbk import tsbk_encode
-
-    rng = np.random.default_rng(11)
-    asm = P25P1FrameAssembler(nac=0x293)
-    iden = np.zeros(64, np.uint8)              # IDEN_UP, tsbk.py:348-355
-    iden[0:4] = from_int(band_id, 4)
-    units = int(spacing_hz / 125.0)            # 100: 12.5 kHz
-    iden[4:13] = from_int(units, 9)            # bandwidth
-    iden[22:32] = from_int(units, 10)          # spacing
-    iden[32:64] = from_int(int(base_hz / 5), 32)
-    grant = np.zeros(64, np.uint8)             # GROUP_VOICE_CHANNEL_GRANT
-    grant[8:12] = from_int(band_id, 4)
-    grant[12:24] = from_int(traffic_index, 12)
-    grant[24:40] = from_int(GROUP, 16)
-    grant[40:64] = from_int(SOURCE, 24)
-    t_iden = asm.assemble(DUID.TSBK, tsbk_encode(0x3D, iden))
-    t_grant = asm.assemble(DUID.TSBK, tsbk_encode(0x00, grant))
-    t_rfss = asm.assemble(DUID.TSBK, tsbk_encode(
-        0x3A, rng.integers(0, 2, 64).astype(np.uint8)))
-    parts = [rng.integers(0, 4, 120).astype(np.uint8), t_iden, t_iden,
-             t_grant, t_grant]
-    # IDEN_UP is rebroadcast through the stream, as a control channel
-    # does, so a receiver that missed the first one still maps the grant
-    while sum(len(p) for p in parts) < total_dibits - 2 * len(t_grant):
-        parts += [t_rfss, t_iden, t_grant]
-    control = np.concatenate(parts)
-
-    lc = lc_build_group_voice(group=GROUP, source=SOURCE)
-    call = [asm.assemble(DUID.HDU, hdu_encode(np.zeros(72, np.uint8), 0,
-                                              0x80, 0, talkgroup=GROUP))]
-    call += [asm.assemble(DUID.LDU1, ldu1_encode(
-        lc, rng.integers(0, 2, (9, 144)).astype(np.uint8))) for _ in range(4)]
-    call.append(asm.assemble(DUID.TDULC, tdulc_encode(lc)))
-    start = int(traffic_start_s * 4800)
-    traffic = np.concatenate(
-        [rng.integers(0, 4, start).astype(np.uint8)] + call)
-
-    vasm = P25P1FrameAssembler()
-    p1 = ldu1_encode(lc, rng.integers(0, 2, (9, 144)).astype(np.uint8))
-    p2 = ldu2_encode(rng.integers(0, 2, 72).astype(np.uint8), 0x80, 1,
-                     rng.integers(0, 2, (9, 144)).astype(np.uint8))
-    superframe = np.concatenate([vasm.assemble(DUID.LDU1, p1),
-                                 vasm.assemble(DUID.LDU2, p2),
-                                 vasm.assemble(DUID.LDU1, p1),
-                                 vasm.assemble(DUID.LDU2, p2),
-                                 vasm.assemble(DUID.TDULC, tdulc_encode(lc))])
-
-    def pad(d):
-        return np.concatenate(
-            [d, rng.integers(0, 4, max(total_dibits - len(d), 0))
-             .astype(np.uint8)])[:total_dibits]
-    return pad(control), pad(traffic), superframe
+                 traffic_index: int = TRAFFIC_INDEX, **kw):
+    """(control, traffic, voice superframe) P25P1 dibit streams
+    (``bench_torch.p25_streams``) of this run's talkgroup and radio."""
+    import bench_torch
+    return bench_torch.p25_streams(total_dibits, base_hz, traffic_index,
+                                   group=GROUP, source=SOURCE, **kw)
 
 
 def _p25p2_cycle():
@@ -1112,20 +1051,9 @@ def _p25p2_cycle():
 
 
 def _lsm_tsbks():
-    """A P25P1 control stream of TSBKs (tests/test_orchestrator_bank.py's
-    LSM scene)."""
-    import numpy as np
-
-    from sdrtrunk_tpu_torch.protocol.p25p1.duid import DUID
-    from sdrtrunk_tpu_torch.protocol.p25p1.framer import P25P1FrameAssembler
-    from sdrtrunk_tpu_torch.protocol.p25p1.tsbk import tsbk_encode
-
-    rng = np.random.default_rng(5)
-    asm = P25P1FrameAssembler(nac=0x293)
-    tsbk = asm.assemble(DUID.TSBK, tsbk_encode(
-        0x3A, rng.integers(0, 2, 64).astype(np.uint8)))
-    return np.concatenate([rng.integers(0, 4, 150).astype(np.uint8)]
-                          + [tsbk] * 6)
+    """A P25P1 control stream of TSBKs (``bench_torch.lsm_tsbks``)."""
+    import bench_torch
+    return bench_torch.lsm_tsbks()
 
 
 def _tiled_streams(cycle, modulate, sps: float, slots: int, n_ch: int,
@@ -2123,39 +2051,10 @@ def run_ltr(card: str) -> dict:
 
 
 def _mpt_control(n: int, rate: float, rng):
-    """n samples at rate of an NBFM control channel of MPT1327 AFSK
-    codewords: ALH, then GTC for channel MPT_TRAFFIC_INDEX, repeated, each
-    after 24 random bits and the control sync (1 -> 1200 Hz, 0 -> 1800 Hz
-    at 8 kHz, phase-continuous, at 0.35)."""
-    import numpy as np
-
-    from sdrtrunk_tpu_torch.protocol.bits import from_int
-    from sdrtrunk_tpu_torch.protocol.mpt1327 import (SYNC_CONTROL,
-                                                     mpt_encode_codeword)
-    from sdrtrunk_tpu_torch.signal.generators import nbfm_modulate
-
-    def address_word(prefix, ident1):
-        d = np.zeros(48, np.uint8)
-        d[0] = 1
-        d[1:8] = from_int(prefix, 7)
-        d[8:21] = from_int(ident1, 13)
-        return d
-    alh = address_word(3, 88)
-    alh[21:30] = from_int(256, 9)
-    alh[44:48] = from_int(5, 4)
-    gtc = address_word(10, 1000)
-    gtc[21:31] = from_int(MPT_TRAFFIC_INDEX, 10)
-    gtc[35:48] = from_int(2000, 13)
-    frame = np.concatenate([
-        part for word in (alh, gtc) for part in (
-            rng.integers(0, 2, 24).astype(np.uint8), SYNC_CONTROL,
-            mpt_encode_codeword(word))])
-    need = int(n / rate * 8000.0) + 100
-    bits = np.tile(frame, int(need * 1200 / 8000) // len(frame) + 2)
-    sym = np.minimum((np.arange(need) * 1200 / 8000).astype(np.int64),
-                     len(bits) - 1)
-    tone = 2 * np.pi * np.cumsum(np.where(bits[sym] == 1, 1200.0, 1800.0))
-    return nbfm_modulate(0.35 * np.sin(tone / 8000.0), 8000.0, rate)[:n]
+    """n samples at rate of an MPT1327 control channel granting channel
+    MPT_TRAFFIC_INDEX (``bench_torch.mpt_control``)."""
+    import bench_torch
+    return bench_torch.mpt_control(n, rate, rng, MPT_TRAFFIC_INDEX)
 
 
 def run_mpt1327(card: str) -> dict:
@@ -4205,37 +4104,49 @@ def run_bench(card: str) -> dict:
     return result
 
 
-# --- reference: the bench banks against the JAX package's digests --------
+# --- reference: the bench banks and the cells against the JAX package ---
 
 REFERENCE_FILE = ROOT / "tests" / "torch_reference" / "banks_1023.json"
-# bank -> (bench_torch's scene builder, its arguments beyond slots and
-# timed_chunks, the kernels-line entries it launches once a chunk)
+CELLS_FILE = ROOT / "tests" / "torch_reference" / "cells_full_width.json"
+# bank or cell -> (the file that holds its reference digest, bench_torch's
+# scene builder, its arguments beyond slots and timed_chunks, the
+# kernels-line entries it launches once a chunk)
 REFERENCE_BANKS = {
-    "c4fm": ("scene_orchestrator_bank", {}, ("dqpsk",)),
-    "c4fm_int4": ("scene_orchestrator_bank", {"ingest": "int4"},
-                  ("dqpsk",)),
-    "dmr": ("scene_orchestrator_bank_dmr", {}, ("dqpsk_dmr",)),
-    "p25p2": ("scene_orchestrator_bank_p25p2", {}, ("gardner_p25p2",)),
-    "nbfm": ("scene_orchestrator_bank_nbfm", {}, ()),
+    "c4fm": (REFERENCE_FILE, "scene_orchestrator_bank", {}, ("dqpsk",)),
+    "c4fm_int4": (REFERENCE_FILE, "scene_orchestrator_bank",
+                  {"ingest": "int4"}, ("dqpsk",)),
+    "dmr": (REFERENCE_FILE, "scene_orchestrator_bank_dmr", {},
+            ("dqpsk_dmr",)),
+    "p25p2": (REFERENCE_FILE, "scene_orchestrator_bank_p25p2", {},
+              ("gardner_p25p2",)),
+    "nbfm": (REFERENCE_FILE, "scene_orchestrator_bank_nbfm", {}, ()),
+    "ltr": (CELLS_FILE, "scene_bank_ltr", {}, ("bit_timing_ltr",)),
+    "mpt1327": (CELLS_FILE, "scene_bank_mpt1327", {}, ("bit_timing_afsk",)),
+    "lsm": (CELLS_FILE, "scene_bank_lsm", {}, ("gardner_lsm",)),
+    "am": (CELLS_FILE, "scene_bank_am", {}, ()),
+    "c4fm_25k": (CELLS_FILE, "scene_bank_c4fm_25k", {}, ("dqpsk_w20",)),
 }
 
 
 def run_reference(card: str) -> dict:
-    """Each bench bank rebuilt on the host from bench.py's bytes (every
+    """Each bench bank and each cell rebuilt on the host from its bytes
+    (bench.py's for a bank; ``bench_torch.cell_bytes`` for a cell; every
     chunk's sha256 held to the reference file before it runs), run on the
-    card as its bench leg runs, and its digest held slot by slot to the
-    JAX package's within the file's tolerance."""
+    card as its bench leg runs, and its digest (a cell's with its events)
+    held slot by slot to the JAX package's within the file's
+    tolerance."""
     import hashlib
 
     import torch
 
     import bench_torch
 
-    banks = json.loads(REFERENCE_FILE.read_text())["banks"]
+    files = {f: json.loads(f.read_text())["banks"]
+             for f in {f for f, *_ in REFERENCE_BANKS.values()}}
     launches = {e: 0 for e in _ENTRY_KEYS}
     result, failed = {"card": card, "banks": {}}, []
-    for bank, (builder, kw, entries) in REFERENCE_BANKS.items():
-        want = banks[bank]
+    for bank, (path, builder, kw, entries) in REFERENCE_BANKS.items():
+        want = files[path][bank]
         t0 = time.perf_counter()
         scene = getattr(bench_torch, builder)(
             slots=want["slots"], timed_chunks=want["timed_chunks"], **kw)
@@ -4264,12 +4175,14 @@ def run_reference(card: str) -> dict:
                                  f"{got_launches}, expected {expect}")
         for e, n in got_launches.items():
             launches[e] += n
-        digest = bench_torch.bank_digest(scene.orch, scene.chunks,
-                                         scene.segments)
+        digest = bench_torch.bank_digest(
+            scene.orch, scene.chunks, scene.segments,
+            events="events" in want["digest"])
         held = bench_torch.compare_digests(digest, want["digest"],
                                            want["tolerance"])
         row = {"record": record, "totals (port, reference)": held["totals"],
                "differing_slots": len(held["differing"]),
+               "events_equal": held["events_equal"],
                **({"rms_rel_max": held["rms_rel_max"]}
                   if "rms_rel_max" in held else {}),
                "tolerance": {k: v for k, v in want["tolerance"].items()
@@ -4289,7 +4202,7 @@ def run_reference(card: str) -> dict:
         del scene
     if failed:
         raise AssertionError(f"reference: {failed} outside their tolerance "
-                             f"against {REFERENCE_FILE}")
+                             f"against {sorted(str(f) for f in files)}")
     result["kernel_launches"] = launches
     return result
 

@@ -12,8 +12,12 @@ on every chunk, on each slot that was tuned:
   samples with no symbol and the port's scatter leaves zeros);
 * PCM within one mu-law level: the audio agrees within 1e-4
   (test_torch_analog), and both packages truncate float to int, so an ulp
-  at a .5 boundary moves the level by one. The number of samples off by
-  one is counted and must stay a small share.
+  at a .5 boundary moves the level by one. The samples off by one are
+  counted and held to what was measured (``OFF_BY_ONE``): none for LTR,
+  LTR-Net and Passport, one of 22400 for MPT1327, whose float audio there
+  sits some ulps from the reference's at a level boundary (the same
+  sample is equal through both packages' mu-law,
+  tests/test_torch_reference_cells.py).
 
 Scenes. LTR: tests/test_orchestrator_bank.py::test_ltr_mixed_bank_mode
 (400 kHz, 32 bins, 4 slots, one NBFM carrier with an 800 Hz voice tone
@@ -50,6 +54,9 @@ LTR_FS, LTR_M, LTR_OFF, LTR_SECONDS = 32 * 12500.0, 32, 2 * 12500.0, 1.4
 MPT_FS, MPT_M, MPT_SECONDS = 64 * 12500.0, 64, 1.5
 MPT_BASE_HZ, MPT_CHANNEL, MPT_CONTROL_OFF = 459_000_000.0, 77, 25_000.0
 MPT_GRANTED_OFF = MPT_BASE_HZ + MPT_CHANNEL * 12500.0 - CENTER_HZ
+
+# samples a level apart in the whole run, as measured on the CPU
+OFF_BY_ONE = {"ltr": 0, "ltrnet": 0, "passport": 0, "mpt1327": 1}
 
 _WORDS = {
     "ltr": lambda: ltr_encode_word(0, 5, 5, 77, 5),
@@ -279,7 +286,7 @@ def test_packed_mixed_matches_reference(runs):
             bits_read += n
             compared += 1
     assert compared >= len(j_packed)
-    assert off_by_one <= samples // 100, (kind, off_by_one, samples)
+    assert off_by_one <= OFF_BY_ONE[kind], (kind, off_by_one, samples)
     baud = 1200.0 if kind == "mpt1327" else 300.0
     seconds = len(j_packed) * orch.chunk_samples / orch.sample_rate
     assert bits_read >= 0.9 * baud * seconds

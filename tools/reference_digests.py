@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""The JAX package's own decode of bench.py's five bank legs at full width,
-kept as digests that the port is held to.
+"""The JAX package's own decode of bench.py's five bank legs and of five
+more live cells at full width, kept as digests that the port is held to.
 
-    JAX_PLATFORMS=cpu python tools/reference_digests.py
+    JAX_PLATFORMS=cpu python tools/reference_digests.py [banks_1023]
+        [cells_full_width]
+
+writes both files, or the ones named.
 
 Runs each bank leg of bench.py as bench.py's main runs it (1023 slots;
 C4FM in int8 and in int4, DMR and P25 Phase 2 with 3 warm-up and 6 timed
@@ -15,6 +18,16 @@ with its tolerance (``TOLERANCES``), the leg's record without its timing,
 the seconds the leg took, and the numpy and jax versions. A bank takes
 1-3 minutes on a CPU, the whole file about 6; the digests come out the
 same on every run.
+
+The cells (tests/torch_reference/cells_full_width.json, the same layout)
+are chip_smoke.py's live LTR and MPT1327 mixed banks (1023 slots), LSM
+and AM (64) and C4FM on 25 kHz channels (511), which bench.py does not
+run: ``bench_torch.cell_bytes`` builds each cell's bytes and recipe on
+the host with the port's NumPy host modules (on the CPU), the JAX
+``Orchestrator`` is built from the recipe (``orchestrator_from_recipe``
+with the JAX package's classes) and run as ``bench_torch.run_bank`` runs
+it, and its digest also holds the events (``bank_digest(...,
+events=True)``).
 
 ``python3 chip_smoke.py reference`` rebuilds the same scenes on the card's
 host (bench_torch's scene builders), checks every chunk's sha256 against
@@ -32,6 +45,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "tests" / "torch_reference" / "banks_1023.json"
+CELLS_OUT = ROOT / "tests" / "torch_reference" / "cells_full_width.json"
 
 SLOTS = 1023
 TIMED_CHUNKS = 6            # bench.py's main: timed_chunks=6 for each leg
@@ -76,6 +90,51 @@ TOLERANCES = {
              "why": "counts equal slot by slot; the audio RMS within 1e-3 "
                     "relative: the card's float audio may sit an ulp "
                     "from the CPU's at a mu-law level boundary"},
+}
+
+
+# each cell's tolerance (events always equal); one looser than equal slot
+# by slot names its CPU evidence (PERF.md's findings hold the runs)
+_AUDIO_ULPS = ("the audio RMS within 1e-4 relative: the port's float "
+               "audio may sit some ulps from the reference's at a mu-law "
+               "level boundary, one level apart")
+CELL_TOLERANCES = {
+    "ltr": {"rms_rel": 1e-4,
+            "why": "messages, frames and audio counts equal slot by slot; "
+                   + _AUDIO_ULPS + " (on the CPU at full width 13 of 1023 "
+                   "slots, 1.4e-5 at most; a port-only change of the inverse "
+                   "FFT's precision gives 12, 9 of them the same, 1.0e-5 "
+                   "at most; at 32 slots of the full scene slot 25, "
+                   "3.8e-6, which that change moves to 1.9e-6)"},
+    "mpt1327": {"rms_rel": 1e-4,
+                "why": "messages, frames and audio counts equal slot by "
+                       "slot, the grant followed; " + _AUDIO_ULPS + " (on "
+                       "the CPU at full width 76 of 1023 slots, 4.4e-6 at "
+                       "most; a port-only change of the inverse FFT's "
+                       "precision gives 76, 4.8e-6 at most; at 32 slots of "
+                       "the full scene slot 22, 1.2e-8, which that change "
+                       "keeps and joins slot 11, 6.7e-6)"},
+    "lsm": {"slots_differing": 1, "frames_per_slot": 6,
+            "why": "one slot may lose up to 6 frames: slot 27's Gardner "
+                   "loop sits where the channelizer's last bits decide it. "
+                   "On the CPU at full width the port equals the reference "
+                   "on all 64 slots, and a port-only change of the inverse "
+                   "FFT's precision moves slot 27 from 22 frames to 16 "
+                   "(5932 dibits to 5954), every other slot equal"},
+    "am": {"rms_rel": 1e-12,
+           "why": "audio counts and PCM equal slot by slot (on the CPU at "
+                  "full width, also with a port-only change of the inverse "
+                  "FFT's precision); the RMS is summed in float64 by each "
+                  "machine's NumPy, whose SIMD reduction order may differ "
+                  "by an ulp"},
+    "c4fm_25k": {"slots_differing": 1, "may_differ": ["metrics"],
+                 "why": "frames, audio segments and the grant equal slot "
+                        "by slot; one slot's metrics (its dibit count) may "
+                        "differ, as the 12.5 kHz C4FM bank's: on the CPU "
+                        "at full width slot 108 counts 4915 dibits to the "
+                        "reference's 4914, with the inverse FFT in either "
+                        "precision (the channelizer's last bits moving a "
+                        "timing loop by one symbol)"},
 }
 
 
@@ -126,6 +185,30 @@ def run_reference(bank: str, slots: int = SLOTS,
                                            seen["segments"])
 
 
+def run_cell(cell: str, slots=None, timed_chunks=None, chunk_blocks=None):
+    """Run a cell (``bench_torch.CELLS``; full width where an argument is
+    None) with the JAX package: the bytes and recipe from
+    ``bench_torch.cell_bytes``, the JAX Orchestrator built from the recipe
+    and run as ``bench_torch.run_bank`` runs a scene. Returns (the
+    record, the digest with its events, the recipe)."""
+    import bench_torch
+    from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
+    from sdrtrunk_tpu.runtime.traffic import FrequencyBand
+
+    chunks, recipe = bench_torch.cell_bytes(cell, slots, timed_chunks,
+                                            chunk_blocks)
+    orch = bench_torch.orchestrator_from_recipe(
+        recipe, chunks, Orchestrator, IdentifierCollection, FrequencyBand)
+    scene = bench_torch.BankScene(
+        recipe["kind"], orch, chunks, recipe["warmup"],
+        recipe["timed_chunks"], bench_torch._segment_slots(orch),
+        recipe=recipe)
+    record = bench_torch.run_bank(scene)
+    return (record, bench_torch.bank_digest(orch, chunks, scene.segments,
+                                            events=True), recipe)
+
+
 def write(banks: dict, meta: dict, path: Path = OUT) -> None:
     """The file: the run's facts, then one bank a line (compact JSON)."""
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -136,12 +219,7 @@ def write(banks: dict, meta: dict, path: Path = OUT) -> None:
     path.write_text(f'{head},\n "banks": {{\n{body}\n}}\n}}\n')
 
 
-def main() -> int:
-    import jax
-    import numpy as np
-    jax.config.update("jax_platforms", "cpu")
-    sys.path.insert(0, str(ROOT))
-
+def _bank_entries() -> dict:
     banks = {}
     for bank in BANKS:
         t0 = time.perf_counter()
@@ -156,14 +234,59 @@ def main() -> int:
             "tolerance": TOLERANCES[bank], "digest": digest}
         print(json.dumps({"bank": bank, "seconds": round(seconds, 1),
                           "totals": digest["totals"]}), flush=True)
+    return banks
+
+
+def _cell_entries() -> dict:
+    import bench_torch
+    cells = {}
+    for cell in bench_torch.CELLS:
+        t0 = time.perf_counter()
+        record, digest, recipe = run_cell(cell)
+        seconds = time.perf_counter() - t0
+        cells[cell] = {
+            "builder": f"bench_torch.py::scene_bank_{cell}",
+            "slots": digest["slots"], "warmup": recipe["warmup"],
+            "timed_chunks": recipe["timed_chunks"],
+            "orchestrator": {k: v for k, v in recipe["kwargs"].items()
+                             if k != "slots"},
+            "channel_map": recipe["channel_map"],
+            "free_slots": recipe["free_slots"],
+            "seconds": round(seconds, 1),
+            "record": {k: v for k, v in record.items()
+                       if k not in ("msps", "realtime_factor")},
+            "tolerance": CELL_TOLERANCES[cell], "digest": digest}
+        print(json.dumps({"cell": cell, "seconds": round(seconds, 1),
+                          "totals": digest["totals"]}), flush=True)
+    return cells
+
+
+FILES = {"banks_1023": (OUT, _bank_entries),
+         "cells_full_width": (CELLS_OUT, _cell_entries)}
+
+
+def main(argv: list[str]) -> int:
+    import jax
+    import numpy as np
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, str(ROOT))
+
+    names = argv or list(FILES)
+    unknown = sorted(set(names) - set(FILES))
+    if unknown:
+        raise SystemExit(f"unknown file(s) {unknown}; the files are "
+                         f"{list(FILES)}")
     meta = {"generated_by": "tools/reference_digests.py",
             "reference": "the JAX package (sdrtrunk_tpu) on the CPU",
             "numpy": np.__version__, "jax": jax.__version__,
             "python": platform.python_version()}
-    write(banks, meta)
-    print(f"wrote {OUT.relative_to(ROOT)} ({OUT.stat().st_size} bytes)")
+    for name in names:
+        path, entries = FILES[name]
+        write(entries(), meta, path)
+        print(f"wrote {path.relative_to(ROOT)} ({path.stat().st_size} "
+              f"bytes)")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
