@@ -59,7 +59,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
@@ -413,8 +413,10 @@ class BankScene:
     """A bank leg's scene: the int8 chunks it feeds and the Orchestrator
     that runs them, slots activated (and for P25 Phase 2 the scramble
     parameters set); ``warmup`` untimed chunks then ``timed_chunks``;
-    ``segments`` the (slot, AudioSegment) pairs the bank drains, in the
-    order ``orch.audio_segments`` takes them (``_segment_slots``)."""
+    ``segments`` the (slot, AudioSegment) pairs the bank (or each slot's
+    processor) drains, in the order ``orch.audio_segments`` takes them
+    (``_segment_slots``); ``steps`` what ``run_bank`` recorded of the
+    recipe's steps (``_run_steps``)."""
     kind: str                   # "c4fm", "dmr", "p25p2", "nbfm", "lsm",
                                 # "am", "ltr" or "mpt1327"
     orch: object
@@ -424,23 +426,50 @@ class BankScene:
     segments: list
     ingest: str = "auto"
     recipe: dict | None = None  # a cell's (``cell_bytes``)
+    steps: dict = field(default_factory=dict)
 
 
 def _segment_slots(orch) -> list:
-    """Record each AudioSegment the bank processor drains beside its slot:
-    wraps ``orch.bank_proc.drain_audio`` on this instance (both packages'
-    bank processors have it) and returns the list it fills."""
+    """Record each AudioSegment drained beside its slot, in the order
+    ``orch.audio_segments`` takes them, and return the list it fills. The
+    bank tier: wraps ``orch.bank_proc.drain_audio`` on this instance. The
+    per-slot tier and ``banks=``: wraps each slot processor's
+    ``drain_audio`` on the instance, also of a processor a grant makes
+    later (``orch.traffic.on_activate`` wrapped). Both packages have
+    these; with ``host_process`` the worker drains and nothing is
+    recorded."""
     pairs = []
     proc = orch.bank_proc
-    if proc is None:            # host_process=True: the worker drains
-        return pairs
-    drain = proc.drain_audio
+    if proc is not None:
+        drain = proc.drain_audio
 
-    def drain_audio(slot):
-        done = drain(slot)
-        pairs.extend((slot, seg) for seg in done)
-        return done
-    proc.drain_audio = drain_audio
+        def drain_audio(slot):
+            done = drain(slot)
+            pairs.extend((slot, seg) for seg in done)
+            return done
+        proc.drain_audio = drain_audio
+        return pairs
+    if orch.bank_mode:          # host_process=True: the worker drains
+        return pairs
+
+    def wrap_processors():
+        for s in orch.slots:
+            p = s.processor
+            if p is None or "drain_audio" in vars(p):
+                continue
+
+            def drain_audio(drain=p.drain_audio, index=s.index):
+                done = drain()
+                pairs.extend((index, seg) for seg in done)
+                return done
+            p.drain_audio = drain_audio
+    wrap_processors()
+    activate = orch.traffic.on_activate
+
+    def on_activate(*args, **kw):
+        activate(*args, **kw)
+        wrap_processors()
+    orch.traffic.on_activate = on_activate
     return pairs
 
 
@@ -862,6 +891,180 @@ def mpt_control(n: int, rate: float, rng, channel: int):
     return nbfm_modulate(0.35 * np.sin(tone / 8000.0), 8000.0, rate)[:n]
 
 
+P25P2_KEY = (0xA4BC3, 0x123, 0x29A)            # WACN, system, NAC
+TRAFFIC_INDEX = 600              # the channel phase 5's control grants
+SLOT_COUNT = 31                  # the most slots bank_mode=None runs per slot
+SLOTS_TRAFFIC_INDEX = 300        # the channel the per-slot control grants
+MULTIBANK = [("c4fm", 11), ("dmr", 10), ("ltr", 10)]
+
+
+def p25p2_cycle(key=P25P2_KEY, group: int = GROUP, source: int = SOURCE):
+    """One call cycle of P25P2 dibits: three fragments of scrambled PTT
+    (SACCH, TDMA channel 0) + VOICE_4 (channel 1), then a fragment of
+    scrambled END_PTT on both TDMA channels, so that each cycle's voice
+    ends as an AudioSegment."""
+    from sdrtrunk_tpu_torch.protocol.bits import from_int
+    from sdrtrunk_tpu_torch.protocol.p25p2 import P25P2FragmentAssembler
+    from sdrtrunk_tpu_torch.protocol.p25p2.timeslot import (MacPduType,
+                                                            sacch_encode,
+                                                            voice4_encode)
+
+    rng = np.random.default_rng(0)
+    asm = P25P2FragmentAssembler(*key)
+    ptt = np.zeros(180, np.uint8)
+    ptt[0:3] = from_int(MacPduType.PTT.value, 3)
+    ptt[80:88] = from_int(0x80, 8)
+    ptt[104:128] = from_int(source, 24)
+    ptt[128:144] = from_int(group, 16)
+    endptt = np.zeros(180, np.uint8)
+    endptt[0:3] = from_int(MacPduType.END_PTT.value, 3)
+    endptt[104:128] = from_int(source, 24)
+    endptt[128:144] = from_int(group, 16)
+    frames = rng.integers(0, 2, (4, 72)).astype(np.uint8)
+    frags = [asm.assemble(i, [sacch_encode(ptt, scrambled=True),
+                              voice4_encode(frames),
+                              sacch_encode(ptt, scrambled=True),
+                              voice4_encode(frames)]) for i in range(3)]
+    frags.append(asm.assemble(0, [sacch_encode(endptt, scrambled=True)] * 4))
+    return P25P2FragmentAssembler.to_dibits(frags)
+
+
+def p25p2_control(total_dibits: int, base_hz: float,
+                  traffic_index: int = SLOTS_TRAFFIC_INDEX, key=P25P2_KEY,
+                  group: int = GROUP, source: int = SOURCE):
+    """A P25P2 control channel (tests/test_orchestrator_protocols.py's):
+    an unscrambled network status MAC that teaches the scramble key and an
+    IDEN_UP of the band at base_hz, then MAC grants of channel
+    traffic_index to group, the network status and IDEN_UP again every
+    fourth fragment."""
+    from sdrtrunk_tpu_torch.protocol.bits import from_int
+    from sdrtrunk_tpu_torch.protocol.p25p2 import P25P2FragmentAssembler
+    from sdrtrunk_tpu_torch.protocol.p25p2.mac import (build_mac_pdu,
+                                                       mac_structure_encode)
+    from sdrtrunk_tpu_torch.protocol.p25p2.timeslot import (MacPduType,
+                                                            facch_encode)
+
+    wacn, system, nac = key
+    net = mac_structure_encode(123, {
+        "wacn": wacn, "system_id": system, "color_code": nac,
+        "frequency_band": 1, "channel_number": 2})
+    iden = np.zeros(72, np.uint8)
+    iden[0:8] = from_int(125, 8)
+    iden[8:12] = from_int(1, 4)                 # band id 1
+    iden[12:21] = from_int(100, 9)              # 12.5 kHz bandwidth
+    iden[30:40] = from_int(100, 10)             # 12.5 kHz spacing
+    iden[40:72] = from_int(int(base_hz / 5), 32)
+    grant = mac_structure_encode(64, {
+        "service_options": 0, "frequency_band": 1,
+        "channel_number": traffic_index, "group_address": group,
+        "source_address": source})
+
+    def facch(pdu_type, structures):
+        return facch_encode(build_mac_pdu(pdu_type, structures, 156),
+                            scrambled=False)
+    f_net, f_iden = (facch(MacPduType.ACTIVE, [net]),
+                     facch(MacPduType.ACTIVE, [iden]))
+    f_grant, idle = (facch(MacPduType.ACTIVE, [grant]),
+                     facch(MacPduType.IDLE, []))
+    asm = P25P2FragmentAssembler(wacn=wacn, system=system, nac=nac)
+    frags = [asm.assemble(0, [f_net, f_iden, f_net, f_iden])]
+    per = len(P25P2FragmentAssembler.to_dibits(frags[:1]))
+    i = 1
+    while len(frags) * per < total_dibits:
+        body = ([f_net, f_iden, f_net, f_iden] if i % 4 == 0
+                else [f_grant, idle, f_grant, idle])
+        frags.append(asm.assemble(i % 3, body))
+        i += 1
+    rng = np.random.default_rng(41)
+    return np.concatenate([rng.integers(0, 4, 200).astype(np.uint8),
+                           P25P2FragmentAssembler.to_dibits(frags)])
+
+
+def dmr_streams(total_dibits: int, traffic_index: int = TRAFFIC_INDEX,
+                group: int = GROUP, source: int = SOURCE):
+    """(control, traffic, call cycle) DMR dibit streams. The control
+    channel (tests/test_orchestrator_bank.py's TSCC) sends an aloha, then a
+    Tier III group-voice grant (CSBK 0x31) for channel traffic_index every
+    632 dibits; the traffic channel carries one call cycle after the
+    grant's latency; the cycle is bench.py's: voice header, 4 voice
+    superframes (burst A with sync, B-F with EMB, embedded LC on B-E),
+    terminator."""
+    from sdrtrunk_tpu_torch.protocol.bits import from_int
+    from sdrtrunk_tpu_torch.protocol.dmr.csbk import csbk_encode
+    from sdrtrunk_tpu_torch.protocol.dmr.framer import (DataType,
+                                                        DMRBurstAssembler,
+                                                        VOICE_FRAME_ORDER)
+    from sdrtrunk_tpu_torch.protocol.dmr.lc import (MASK_TERMINATOR,
+                                                    MASK_VOICE_HEADER,
+                                                    embedded_lc_encode,
+                                                    full_lc_encode,
+                                                    lc_build_group_voice)
+    from sdrtrunk_tpu_torch.protocol.dmr.sync import DMRSyncPattern
+    from sdrtrunk_tpu_torch.protocol.edac.bptc import bptc_196_96_encode
+
+    rng = np.random.default_rng(31)
+    asm = DMRBurstAssembler(color_code=1)
+    lc = lc_build_group_voice(group=group, source=source)
+    vh = bptc_196_96_encode(full_lc_encode(lc, MASK_VOICE_HEADER))
+    tlc = bptc_196_96_encode(full_lc_encode(lc, MASK_TERMINATOR))
+    frags = embedded_lc_encode(lc)
+    cycle = [asm.data_burst(DMRSyncPattern.BASE_STATION_DATA,
+                            DataType.VOICE_HEADER, vh)]
+    for _ in range(4):
+        ambe = rng.integers(0, 2, (3, 72)).astype(np.uint8)
+        cycle.append(asm.voice_burst(DMRSyncPattern.BASE_STATION_VOICE,
+                                     ambe))
+        for i, vf in enumerate(VOICE_FRAME_ORDER):
+            cycle.append(asm.voice_burst(
+                vf, ambe, emb_lcss=[1, 3, 3, 2, 0][i],
+                lc_fragment=frags[i] if i < 4 else None))
+    cycle.append(asm.data_burst(DMRSyncPattern.BASE_STATION_DATA,
+                                DataType.TLC, tlc))
+    call = DMRBurstAssembler.to_dibits(cycle)
+
+    grant_bits = np.zeros(64, np.uint8)
+    grant_bits[0:12] = from_int(traffic_index, 12)     # Tier III channel
+    grant_bits[16:40] = from_int(group, 24)
+    grant_bits[40:64] = from_int(source, 24)
+    grant = DMRBurstAssembler.to_dibits([asm.data_burst(
+        DMRSyncPattern.BASE_STATION_DATA, DataType.CSBK,
+        csbk_encode(0x31, grant_bits))])
+    aloha = DMRBurstAssembler.to_dibits([asm.data_burst(
+        DMRSyncPattern.BASE_STATION_DATA, DataType.CSBK,
+        csbk_encode(0x19, np.zeros(64, np.uint8)))])
+    parts = [rng.integers(0, 4, 140).astype(np.uint8), aloha]
+    while sum(len(p) for p in parts) < total_dibits:
+        parts += [grant, rng.integers(0, 4, 500).astype(np.uint8)]
+    control = np.concatenate(parts)[:total_dibits]
+    start = int(1.3 * 4800)                    # after the grant's latency
+    traffic = np.concatenate([rng.integers(0, 4, start).astype(np.uint8),
+                              call])
+    traffic = np.concatenate([traffic, rng.integers(
+        0, 4, max(total_dibits - len(traffic), 0)).astype(np.uint8)])
+    return control, traffic[:total_dibits], call
+
+
+def dibit_rows(rows, modulate, n: int) -> np.ndarray:
+    """(len(rows), n) complex64: each dibit stream of rows modulated and
+    cut to n samples."""
+    return np.stack([modulate(d)[:n] for d in rows]).astype(np.complex64)
+
+
+def voice(slots: int, n: int, rate: float, rng, amplitude: float):
+    """(slots, n) float64: the voice tone at rate, at a phase drawn from
+    rng for each slot."""
+    phase = rng.uniform(0, 2 * np.pi, slots)
+    return amplitude * _tone(0, n, rate, VOICE_TONE_HZ, phase)
+
+
+def fm_streams(message, rate: float, deviation_hz: float = 3000.0):
+    """(C, n) complex64: each row of the real message (C, n)
+    frequency-modulated at rate, the phase accumulated in float64 (as
+    ``_FM`` does chunk by chunk, to the same bits)."""
+    return _FM(len(message), rate, deviation_hz)(np.asarray(message,
+                                                            np.float64))
+
+
 def _grid(slots: int, full: int, traffic: int | None = None) -> np.ndarray:
     """The grid channels a cell of `slots` slots carries: the first
     `slots` of its `full`, the granted traffic channel kept (in place of
@@ -940,20 +1143,34 @@ def _cell_chunks(rows_of, fs: float, bandwidth: float, offsets, k: int,
 
 def _recipe(cell: str, kind: str, fs: float, offsets, slots: int,
             chunk: int, warmup: int, timed_chunks: int,
-            free: int | None = None, channel_map=None, **kw) -> dict:
+            free: int | None = None, channel_map=None, kinds=None,
+            prepare=None, steps=None, **kw) -> dict:
     """What both packages' Orchestrator is built from
     (``orchestrator_from_recipe``): the control channel at offsets[0],
     every other offset activated but offsets[free] (the granted channel,
-    left for the grant), bank mode, no teardown, no PPM correction."""
-    return {"cell": cell, "kind": kind, "sample_rate": fs,
-            "center_hz": CENTER_HZ, "control_offset_hz": float(offsets[0]),
-            "activate_hz": [float(o) for i, o in enumerate(offsets)
-                            if i and i != free],
-            "free_slots": int(free is not None), "channel_map": channel_map,
-            "warmup": warmup, "timed_chunks": timed_chunks,
-            "kwargs": {"slots": slots, "decoder": kind,
-                       "chunk_samples": chunk, "idle_teardown_seconds": 1e9,
-                       "ppm_correction": False, "bank_mode": True, **kw}}
+    left for the grant), bank mode, no teardown, no PPM correction; `kw`
+    overrides the keyword arguments, None dropping one (``bank_mode=None``:
+    the per-slot tier below 32 slots). With ``banks``, `kinds` names the
+    bank of each activated offset. `prepare` and `steps` are what
+    ``orchestrator_from_recipe`` and ``run_bank`` do beyond that, as data
+    (``_prepare_orchestrator``, ``_run_steps``)."""
+    recipe = {"cell": cell, "kind": kind, "sample_rate": fs,
+              "center_hz": CENTER_HZ,
+              "control_offset_hz": float(offsets[0]),
+              "activate_hz": [float(o) for i, o in enumerate(offsets)
+                              if i and i != free],
+              "free_slots": int(free is not None),
+              "channel_map": channel_map,
+              "warmup": warmup, "timed_chunks": timed_chunks}
+    kwargs = {"slots": slots, "decoder": kind, "chunk_samples": chunk,
+              "idle_teardown_seconds": 1e9, "ppm_correction": False,
+              "bank_mode": True, **kw}
+    recipe["kwargs"] = {k: v for k, v in kwargs.items() if v is not None}
+    for key, value in (("activate_kinds", kinds), ("prepare", prepare),
+                       ("steps", steps)):
+        if value is not None:
+            recipe[key] = value
+    return recipe
 
 
 def _offsets(grid, m: int, spacing: float) -> np.ndarray:
@@ -1096,18 +1313,203 @@ def _cell_c4fm_25k(slots: int, timed_chunks: int, chunk_blocks: int):
                           rate / 4800.0, full, n, seed=0)
     starts = starts[grid]
     free = _position(grid, C4FM_25K_TRAFFIC_INDEX)
-    own = {r: c4fm_modulate(d, rate)[:n].astype(np.complex64)
-           for r, d in ((0, control), (free, traffic))}
+    own = dict(zip((0, free), dibit_rows((control, traffic),
+                                         lambda d: c4fm_modulate(d, rate),
+                                         n)))
+    chunks = _cell_chunks(_own_rows(base, starts, own, k), fs, 25000.0,
+                          offsets, k, total, chunk)
+    return chunks, _recipe("c4fm_25k", "c4fm", fs, offsets, slots, chunk,
+                           warmup, timed_chunks, free=free,
+                           channel_bandwidth=25000.0)
 
+
+def _own_rows(base, starts, own: dict, k: int):
+    """rows_of for ``_cell_chunks``: chunk j of each tiled stream
+    (``_tiled``: base read from starts) with the rows in `own` ({row: its
+    stream}) in place of theirs."""
     def rows_of(j):
         rows = base[starts[:, None] + j * k + np.arange(k)[None, :]]
         for r, stream in own.items():
             rows[r] = stream[j * k:(j + 1) * k]
         return rows
-    chunks = _cell_chunks(rows_of, fs, 25000.0, offsets, k, total, chunk)
-    return chunks, _recipe("c4fm_25k", "c4fm", fs, offsets, slots, chunk,
-                           warmup, timed_chunks, free=free,
-                           channel_bandwidth=25000.0)
+    return rows_of
+
+
+def _cell_c4fm_grant(slots: int, timed_chunks: int, chunk_blocks: int):
+    """chip_smoke.py's phase 5, the main path (``_c4fm_scene``,
+    ``_c4fm_orchestrator``): 1023 slots of M = 1024 in bank mode; slot 0 a
+    P25 control channel granting channel 600 (left free), whose call
+    starts at 1.3 s; P25P1 voice superframes on the other 1021 from random
+    starts; 3 warm-up chunks of 1024 x 5120."""
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    m, full, warmup, rate = 1024, 1023, 3, 25000.0
+    fs, chunk = m * 12500.0, m * chunk_blocks
+    k = 2 * chunk // m
+    total = warmup + timed_chunks
+    n = (total + 1) * k
+    grid = _grid(slots, full, TRAFFIC_INDEX)
+    offsets = _offsets(grid, m, 12500.0)
+    control, traffic, superframe = p25_streams(
+        int(n / rate * 4800) + 64, CENTER_HZ + offsets[0], TRAFFIC_INDEX)
+    base, starts = _tiled(superframe, lambda d: c4fm_modulate(d, rate),
+                          rate / 4800.0, full, n, seed=0)
+    free = _position(grid, TRAFFIC_INDEX)
+    own = dict(zip((0, free), dibit_rows((control, traffic),
+                                         lambda d: c4fm_modulate(d, rate),
+                                         n)))
+    chunks = _cell_chunks(_own_rows(base, starts[grid], own, k), fs,
+                          12500.0, offsets, k, total, chunk)
+    return chunks, _recipe("c4fm_grant", "c4fm", fs, offsets, slots, chunk,
+                           warmup, timed_chunks, free=free)
+
+
+def _slot_channels() -> np.ndarray:
+    """The per-slot cells' SLOT_COUNT grid channels (chip_smoke.py's
+    ``_slot_channels``), within the middle half of the grid so that they
+    stay in coverage at half the sample rate: a control channel, the one
+    it grants SLOTS_TRAFFIC_INDEX channels above, and the voice channels
+    spread over the rest."""
+    m = 1024
+    lo, hi = m // 4, 3 * m // 4 - 2
+    traffic = lo + SLOTS_TRAFFIC_INDEX
+    rest = [c for c in range(lo + 1, hi + 1) if c != traffic]
+    voice_channels = rest[::len(rest) // (SLOT_COUNT - 2)][:SLOT_COUNT - 2]
+    return np.array([lo, traffic, *voice_channels])
+
+
+def _spread_channels() -> np.ndarray:
+    """The multibank's SLOT_COUNT grid channels (chip_smoke.py's
+    ``_spread_channels``): phase 5's control channel and the one it grants,
+    and the others spread over the grid."""
+    rest = [c for c in range(1, 1023) if c != TRAFFIC_INDEX]
+    others = rest[::len(rest) // (SLOT_COUNT - 2)][:SLOT_COUNT - 2]
+    return np.array([0, TRAFFIC_INDEX, *others])
+
+
+def _per_slot_cell(cell: str, kind: str, slots: int, timed_chunks: int,
+                   chunk_blocks: int, streams, modulate, baud: float, **kw):
+    """A per-slot cell on ``_slot_channels()`` (the first `slots` of its
+    31): streams(n, offsets) gives the (control, traffic, cycle) dibit
+    streams of n samples; the control and traffic streams on the first
+    two channels, the cycle tiled from random starts on the voice
+    channels; 3 warm-up chunks of 1024 x chunk_blocks at 12.8 MS/s,
+    ``bank_mode=None`` (per slot below 32 slots)."""
+    m, warmup, rate = 1024, 3, 25000.0
+    fs, chunk = m * 12500.0, m * chunk_blocks
+    k = 2 * chunk // m
+    total = warmup + timed_chunks
+    n = (total + 1) * k
+    grid = _grid(slots, SLOT_COUNT)
+    offsets = _offsets(_slot_channels()[grid], m, 12500.0)
+    control, traffic, cycle = streams(n, offsets)
+    base, starts = _tiled(cycle, modulate, rate / baud, SLOT_COUNT, n,
+                          seed=0)
+    own = dict(zip((0, 1), dibit_rows((control, traffic), modulate, n)))
+    chunks = _cell_chunks(_own_rows(base, starts[grid], own, k), fs,
+                          12500.0, offsets, k, total, chunk)
+    return chunks, _recipe(cell, kind, fs, offsets, slots, chunk, warmup,
+                           timed_chunks, free=1, bank_mode=None, **kw)
+
+
+def _cell_slots_c4fm(slots: int, timed_chunks: int, chunk_blocks: int):
+    """chip_smoke.py's ``run_slots`` over ``_slots_loop``: the per-slot
+    C4FM path at 31 slots, a control granting SLOTS_TRAFFIC_INDEX (left
+    free) and 29 voice slots of P25P1 superframes. An IQ tap and a bits tap
+    on the first voice slot run through the timed chunks; then a
+    SAMPLE_RATE_CHANGE to 6.4 MS/s and one chunk of seeded noise
+    (``_taps_and_rate_change``)."""
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    rate = 25000.0
+    chunks, recipe = _per_slot_cell(
+        "slots_c4fm", "c4fm", slots, timed_chunks, chunk_blocks,
+        lambda n, offsets: p25_streams(int(n / rate * 4800) + 64,
+                                       CENTER_HZ + offsets[0],
+                                       SLOTS_TRAFFIC_INDEX),
+        lambda d: c4fm_modulate(d, rate), 4800.0)
+    recipe["steps"] = {
+        "taps": {"slot_hz": CENTER_HZ + recipe["activate_hz"][0]},
+        "rate_change": {"sample_rate": recipe["sample_rate"] / 2,
+                        "noise_seed": 5}}
+    return chunks, recipe
+
+
+def _cell_slots_p25p2(slots: int, timed_chunks: int, chunk_blocks: int):
+    """chip_smoke.py's ``run_slots_p25p2``: the per-slot P25 Phase 2 path
+    at 31 slots; the control channel's network status MAC teaches the
+    scramble key, its MAC grant activates the free slot with the key
+    handed over; 29 voice slots of scrambled PTT + VOICE_4 cycles, their
+    key set on activation (``prepare``)."""
+    from sdrtrunk_tpu_torch.signal.generators import lsm_modulate
+
+    rate = 25000.0
+    cycle = p25p2_cycle()
+
+    def streams(n, offsets):
+        total = int(n / rate * 6000) + 64
+        rng = np.random.default_rng(43)
+        traffic = np.concatenate(
+            [rng.integers(0, 4, int(1.3 * 6000)).astype(np.uint8)]
+            + [cycle] * (total // len(cycle) + 1))
+        return (p25p2_control(total, CENTER_HZ + offsets[0]), traffic,
+                cycle)
+    return _per_slot_cell(
+        "slots_p25p2", "p25p2", slots, timed_chunks, chunk_blocks, streams,
+        lambda d: lsm_modulate(d, sample_rate=rate, symbol_rate=6000.0),
+        6000.0, prepare={"voice_keys": list(P25P2_KEY)})
+
+
+def _cell_multibank(slots: int, timed_chunks: int, chunk_blocks: int):
+    """chip_smoke.py's ``run_multibank``: ``banks=[("c4fm", 11), ("dmr",
+    10), ("ltr", 10)]`` behind one channelizer on ``_spread_channels()``:
+    a P25 control channel granting channel 600 (a c4fm slot left free) and
+    9 C4FM voice slots; 10 DMR voice slots of the call cycle; 10 LTR
+    carriers, each the voice tone plus CALL words of its own group; 2
+    warm-up chunks of 1024 x 6250."""
+    from sdrtrunk_tpu_torch.protocol.ltr.messages import ltr_encode_word
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    if slots != SLOT_COUNT:
+        raise ValueError(f"the multibank's banks hold {SLOT_COUNT} slots, "
+                         f"not {slots}")
+    m, warmup, rate = 1024, 2, 25000.0
+    fs, chunk = m * 12500.0, m * chunk_blocks
+    k = 2 * chunk // m
+    total = warmup + timed_chunks
+    n = (total + 1) * k
+    n_c4fm, n_dmr, n_ltr = (b for _, b in MULTIBANK)
+    offsets = _offsets(_spread_channels(), m, 12500.0)
+    mod = lambda d: c4fm_modulate(d, rate)  # noqa: E731
+    control, traffic, superframe = p25_streams(
+        int(n / rate * 4800) + 64, CENTER_HZ + offsets[0], TRAFFIC_INDEX)
+    call = dmr_streams(int(n / rate * 4800) + 64)[2]
+    own = dibit_rows((control, traffic), mod, n)
+    c4fm_base, c4fm_starts = _tiled(superframe, mod, rate / 4800.0,
+                                    n_c4fm - 2, n, 0)
+    dmr_base, dmr_starts = _tiled(call, mod, rate / 4800.0, n_dmr, n, 1)
+    rng = np.random.default_rng(17)
+    ident = [(b % 5 + 1, 10 * b + 3) for b in range(n_ltr)]
+    words = np.stack([ltr_encode_word(0, h, h, g, h) for h, g in ident])
+    start = rng.integers(0, 40 * 84, n_ltr)
+    phase = rng.uniform(0, 2 * np.pi, n_ltr)
+    fm = _FM(n_ltr, rate)
+    span = np.arange(k)[None, :]
+
+    def rows_of(j):
+        return np.concatenate([
+            own[:, j * k:(j + 1) * k],
+            c4fm_base[c4fm_starts[:, None] + j * k + span],
+            dmr_base[dmr_starts[:, None] + j * k + span],
+            fm(0.35 * _square_fsk(words, j * k, k, rate / 300.0, start)
+               + 0.5 * _tone(j * k, k, rate, VOICE_TONE_HZ, phase))])
+    chunks = _cell_chunks(rows_of, fs, 12500.0, offsets, k, total, chunk)
+    kinds = ["c4fm"] * (n_c4fm - 2) + ["dmr"] * n_dmr + ["ltr"] * n_ltr
+    recipe = _recipe("multibank", "c4fm", fs, offsets, slots, chunk, warmup,
+                     timed_chunks, free=1, kinds=kinds, decoder=None,
+                     bank_mode=None, banks=[list(b) for b in MULTIBANK])
+    del recipe["kwargs"]["slots"]              # the banks' sum
+    return chunks, recipe
 
 
 # cell -> (its builder, then its slots, timed chunks and chunk blocks at
@@ -1117,17 +1519,35 @@ CELLS = {"ltr": (_cell_ltr, 1023, 4, 6250),
          "lsm": (_cell_lsm, 64, 2, 5120),
          "am": (_cell_am, 64, 2, 6400),
          "c4fm_25k": (_cell_c4fm_25k, 511, 3, 5120)}
+# the main path's grant, the per-slot tier and banks= (PATHS_FILE's), the
+# same way
+PATHS = {"c4fm_grant": (_cell_c4fm_grant, 1023, 4, 5120),
+         "slots_c4fm": (_cell_slots_c4fm, SLOT_COUNT, 4, 5120),
+         "slots_p25p2": (_cell_slots_p25p2, SLOT_COUNT, 4, 5120),
+         "multibank": (_cell_multibank, SLOT_COUNT, 4, 6250)}
+
+# cell bytes kept by ``cell_bytes(..., keep=True)``: the main path's scene
+# is built once for its in-process, worker and monitor holds
+_KEPT: dict = {}
 
 
 def cell_bytes(cell: str, slots: int | None = None,
                timed_chunks: int | None = None,
-               chunk_blocks: int | None = None):
-    """A cell's int8 chunks and its recipe (``orchestrator_from_recipe``),
-    at full width where an argument is None: NumPy on the host, the same
-    bytes on every machine. Imports the port's host modules only."""
-    build, *full = CELLS[cell]
-    given = (slots, timed_chunks, chunk_blocks)
-    return build(*(f if g is None else g for g, f in zip(given, full)))
+               chunk_blocks: int | None = None, keep: bool = False):
+    """A cell's (``CELLS`` or ``PATHS``) int8 chunks and its recipe
+    (``orchestrator_from_recipe``), at full width where an argument is
+    None: NumPy on the host, the same bytes on every machine. Imports the
+    port's host modules only. With `keep` the bytes are kept for the next
+    call with `keep` and the same arguments (the recipe is a copy)."""
+    build, *full = {**CELLS, **PATHS}[cell]
+    given = tuple(f if g is None else g for g, f in
+                  zip((slots, timed_chunks, chunk_blocks), full))
+    if not keep:
+        return build(*given)
+    if (cell, given) not in _KEPT:
+        _KEPT[cell, given] = build(*given)
+    chunks, recipe = _KEPT[cell, given]
+    return chunks, json.loads(json.dumps(recipe))
 
 
 def orchestrator_from_recipe(recipe: dict, chunks, orchestrator,
@@ -1135,31 +1555,53 @@ def orchestrator_from_recipe(recipe: dict, chunks, orchestrator,
     """A cell's Orchestrator from its recipe in either package: that
     package's ``Orchestrator``, ``IdentifierCollection`` and
     ``FrequencyBand`` classes are passed in, with its own keyword
-    arguments `kw` (the port's ``device``)."""
+    arguments `kw` (the port's ``device``). The recipe's ``prepare``
+    (``_prepare_orchestrator``) runs last."""
     if recipe["channel_map"] is not None:
         kw["channel_map"] = band(**recipe["channel_map"])
     args = recipe["kwargs"]
     orch = orchestrator(_chunk_source(chunks, args["chunk_samples"]),
                         recipe["sample_rate"], recipe["center_hz"],
                         [recipe["control_offset_hz"]], **args, **kw)
-    for off in recipe["activate_hz"]:
-        orch._activate(recipe["center_hz"] + off, identifiers())
+    kinds = recipe.get("activate_kinds") or [None] * len(
+        recipe["activate_hz"])
+    for off, kind in zip(recipe["activate_hz"], kinds):
+        extra = {} if kind is None else {"kind": kind}
+        orch._activate(recipe["center_hz"] + off, identifiers(), **extra)
     if sum(s.active for s in orch.slots) != \
             len(orch.slots) - recipe["free_slots"]:
         raise AssertionError(f"{recipe['cell']}: slots did not all "
                              f"activate")
+    _prepare_orchestrator(orch, recipe.get("prepare") or {})
     return orch
 
 
+def _prepare_orchestrator(orch, prepare: dict) -> None:
+    """A recipe's ``prepare``: {"voice_keys": [WACN, system, NAC]} sets
+    that scramble key on every active per-slot voice slot, as a P25 Phase
+    2 control channel's preload does for a slot it grants (chip_smoke.py's
+    ``set_voice_keys``)."""
+    key = prepare.get("voice_keys")
+    if key is None:
+        return
+    for s in orch.slots:
+        if s.active and not s.is_control:
+            s.processor.framer.set_scramble_parameters(*key)
+            s.processor.state.scramble_key = tuple(key)
+
+
 def _scene_cell(cell: str, slots: int, timed_chunks: int,
-                chunk_blocks: int) -> BankScene:
-    """A cell's bytes and the port's Orchestrator over them."""
+                chunk_blocks: int, keep: bool = False, **kw) -> BankScene:
+    """A cell's bytes and the port's Orchestrator over them; `kw` goes
+    into the recipe's keyword arguments."""
     from sdrtrunk_tpu_torch import resolve_device
     from sdrtrunk_tpu_torch.runtime.identifiers import IdentifierCollection
     from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
     from sdrtrunk_tpu_torch.runtime.traffic import FrequencyBand
 
-    chunks, recipe = cell_bytes(cell, slots, timed_chunks, chunk_blocks)
+    chunks, recipe = cell_bytes(cell, slots, timed_chunks, chunk_blocks,
+                                keep=keep)
+    recipe["kwargs"].update(kw)
     orch = orchestrator_from_recipe(recipe, chunks, Orchestrator,
                                     IdentifierCollection, FrequencyBand,
                                     device=resolve_device(None))
@@ -1201,16 +1643,109 @@ def scene_bank_c4fm_25k(slots: int = 511, timed_chunks: int = 3,
     return _scene_cell("c4fm_25k", slots, timed_chunks, chunk_blocks)
 
 
+def scene_bank_c4fm_grant(slots: int = 1023, timed_chunks: int = 4,
+                          chunk_blocks: int = 5120) -> BankScene:
+    """The main path's scene (``_cell_c4fm_grant``) on the port: the C4FM
+    bank tier, DQPSK at W = 10, a grant of channel 600 at 12.5 kHz; its
+    bytes are kept for ``scene_bank_worker`` and ``monitor_wave``."""
+    return _scene_cell("c4fm_grant", slots, timed_chunks, chunk_blocks,
+                       keep=True)
+
+
+def scene_bank_worker(slots: int = 1023, timed_chunks: int = 4,
+                      chunk_blocks: int = 5120) -> BankScene:
+    """The main path's scene with ``host_process=True``: the bank's host
+    layer in a worker process, on ``scene_bank_c4fm_grant``'s bytes and
+    depth, so that what its parent sees (``worker_view``) is held to the
+    in-process run's. Close its Orchestrator after use."""
+    return _scene_cell("c4fm_grant", slots, timed_chunks, chunk_blocks,
+                       keep=True, host_process=True)
+
+
+def scene_bank_slots_c4fm(slots: int = SLOT_COUNT, timed_chunks: int = 4,
+                          chunk_blocks: int = 5120) -> BankScene:
+    """The per-slot C4FM cell (``_cell_slots_c4fm``) on the port: DQPSK at
+    W = 10 over 31 slots, the recording taps and a sample-rate change
+    (``run_bank`` runs the recipe's steps)."""
+    return _scene_cell("slots_c4fm", slots, timed_chunks, chunk_blocks)
+
+
+def scene_bank_slots_p25p2(slots: int = SLOT_COUNT, timed_chunks: int = 4,
+                           chunk_blocks: int = 5120) -> BankScene:
+    """The per-slot P25 Phase 2 cell (``_cell_slots_p25p2``) on the port:
+    Gardner at W = 16 over 31 slots and the key handed to a grant."""
+    return _scene_cell("slots_p25p2", slots, timed_chunks, chunk_blocks)
+
+
+def scene_bank_multibank(slots: int = SLOT_COUNT, timed_chunks: int = 4,
+                         chunk_blocks: int = 6250) -> BankScene:
+    """The multibank cell (``_cell_multibank``) on the port: DQPSK at gain
+    0.3 and 0.4 and the bit timing at W = 53, one launch a bank a chunk."""
+    return _scene_cell("multibank", slots, timed_chunks, chunk_blocks)
+
+
+def monitor_inputs(directory, slots: int | None = None,
+                   timed_chunks: int | None = None,
+                   chunk_blocks: int | None = None) -> dict:
+    """chip_smoke.py's ``run_monitor`` on the main path's bytes
+    (``cell_bytes("c4fm_grant", ...)``, kept): writes them to directory as
+    a 16-bit IQ wave (complex64 / 128, ``scene.wav``) and a playlist of the
+    control channel alone (``p.json``), and returns the ``monitor``
+    command a user runs on them (``--bank --traffic-slots`` all but the
+    control's slot, the chunk, as many chunks as the wave holds, every
+    other setting at its default; the audio under ``audio/``, the event
+    log ``events.jsonl``) with those paths: {"argv", "wave", "audio",
+    "events"}."""
+    from sdrtrunk_tpu_torch.config import (ChannelConfig, DecodeConfig,
+                                           Playlist, SourceConfig)
+    from sdrtrunk_tpu_torch.io.wave import write_complex_wave
+
+    chunks, recipe = cell_bytes("c4fm_grant", slots, timed_chunks,
+                                chunk_blocks, keep=True)
+    directory = Path(directory)
+    wave, playlist = directory / "scene.wav", directory / "p.json"
+    iq = np.concatenate([c[:, 0] + 1j * c[:, 1] for c in chunks]
+                        ).astype(np.complex64) / 128.0
+    write_complex_wave(wave, iq, int(recipe["sample_rate"]))
+    del iq
+    Playlist(channels=[ChannelConfig(
+        name="Control", system="Scene", site="Site1",
+        source=SourceConfig(frequency_hz=recipe["center_hz"]
+                            + recipe["control_offset_hz"]),
+        decode=DecodeConfig(decoder="p25p1"))]).save(playlist)
+    audio, events = directory / "audio", directory / "events.jsonl"
+    args = recipe["kwargs"]
+    argv = ["monitor", "--playlist", playlist, "--input", wave,
+            "--center-frequency", recipe["center_hz"], "--bank",
+            "--traffic-slots", args["slots"] - 1,
+            "--chunk-samples", args["chunk_samples"],
+            "--max-chunks", len(chunks), "--audio-dir", audio,
+            "--event-log", events]
+    return {"argv": [str(a) for a in argv], "wave": wave, "audio": audio,
+            "events": events}
+
+
 def run_bank(scene: BankScene) -> dict:
     """Run a scene as its bench leg does: the warm-up chunks, then the
-    timed ones; returns the leg's record."""
+    timed ones; returns the leg's record. A cell recipe's ``steps``
+    (``_run_steps``) run around the timed chunks and record into
+    ``scene.steps``."""
     orch = scene.orch
     chunk = orch.chunk_samples
     fs = orch.sample_rate
+    steps = (scene.recipe or {}).get("steps") or {}
     orch.run(max_chunks=scene.warmup)          # kernel load + acquisition
-    t0 = time.perf_counter()
-    metrics = orch.run(max_chunks=scene.timed_chunks)
-    elapsed = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        taps = (_start_taps(orch, Path(tmp), **steps["taps"])
+                if "taps" in steps else None)
+        t0 = time.perf_counter()
+        metrics = orch.run(max_chunks=scene.timed_chunks)
+        elapsed = time.perf_counter() - t0
+        if taps is not None:
+            scene.steps["taps"] = _stop_taps(orch, *taps)
+    if "rate_change" in steps:
+        scene.steps["rate_change"] = _rate_change(orch,
+                                                  **steps["rate_change"])
     msps = chunk * scene.timed_chunks / elapsed / 1e6
     record = {"msps": msps, "realtime_factor": msps * 1e6 / fs,
               "slots": len(orch.slots)}
@@ -1231,6 +1766,69 @@ def run_bank(scene: BankScene) -> dict:
         record["audio_segments"] = len(orch.audio_segments)
     record["ingest_format"] = _ingest_label(scene.ingest)
     return record
+
+
+# ``_run_steps``: a cell recipe's steps, run by ``run_bank`` in either
+# package. "taps": {"slot_hz": f} records the wideband IQ and the dibits of
+# the slot at f through the timed chunks (``_start_taps``, ``_stop_taps``);
+# "rate_change": {"sample_rate": r, "noise_seed": s} then sends a tuner's
+# SAMPLE_RATE_CHANGE to r and runs one chunk of seeded noise
+# (``_rate_change``).
+
+def _start_taps(orch, tmp: Path, slot_hz: float):
+    slot = next(s.index for s in orch.slots
+                if s.active and abs(s.frequency_hz - slot_hz) < 1.0)
+    orch.start_iq_recording(tmp / "wideband_iq.wav")
+    orch.start_bits_recording(slot, tmp / "slot.bits")
+    return tmp, slot
+
+
+def _stop_taps(orch, tmp: Path, slot: int) -> dict:
+    """The taps' files after they were stopped: the IQ wave's sha256,
+    samples and rate, the bits file's sha256 and bytes."""
+    import wave
+
+    orch.stop_iq_recording()
+    orch.stop_bits_recording(slot)
+    iq, bits = tmp / "wideband_iq.wav", tmp / "slot.bits"
+    with wave.open(str(iq), "rb") as wf:
+        frames, rate = wf.getnframes(), wf.getframerate()
+    return {"slot": slot, "iq_sha256": _file_sha(iq), "iq_samples": frames,
+            "iq_rate": rate, "bits_sha256": _file_sha(bits),
+            "bits_bytes": bits.stat().st_size}
+
+
+def _rate_change(orch, sample_rate: float, noise_seed: int) -> dict:
+    """A SAMPLE_RATE_CHANGE through ``orch.on_source_event`` (the event
+    class of the orchestrator's own package), then one chunk of noise
+    (int8 in [-20, 20], drawn from noise_seed); what the rebuild gave: the
+    rate, bins and chunk, each slot's (frequency, active), the device plan
+    (bins, steps), the noise chunk's metrics line (its sample-clock keys)
+    and the samples consumed."""
+    import importlib
+
+    tuner = importlib.import_module(
+        type(orch).__module__.split(".")[0] + ".sources.tuner")
+    orch.on_source_event(tuner.SourceEvent(
+        tuner.SourceEventType.SAMPLE_RATE_CHANGE, value=sample_rate))
+    rng = np.random.default_rng(noise_seed)
+    orch.source = lambda n: rng.integers(-20, 21, (n, 2)).astype(np.int8)
+    metrics = orch.run(max_chunks=1)
+    return {"sample_rate": float(orch.sample_rate),
+            "bins": int(orch.rx.channelizer.channels),
+            "chunk_samples": int(orch.chunk_samples),
+            "slots": [[float(s.frequency_hz), bool(s.active)]
+                      for s in orch.slots],
+            "plan_bins": np.asarray(orch.bins).tolist(),
+            "plan_steps": [float(v) for v in np.asarray(orch.steps)],
+            "metrics": _clock_metrics(metrics),
+            "samples": int(orch.samples_processed)}
+
+
+def _clock_metrics(metrics: dict) -> dict:
+    """A metrics line without its wall-clock keys (the upload's ms and
+    MB/s)."""
+    return {k: v for k, v in metrics.items() if not k.startswith("upload_")}
 
 
 def bench_orchestrator_bank(slots: int = 1023, timed_chunks: int = 4,
@@ -1329,11 +1927,32 @@ def _plain(value):
     return value
 
 
-def bank_digest(orch, chunks, segments, events: bool = False) -> dict:
+def _file_sha(path) -> str:
+    """sha256 of a file's bytes."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _chunk_hashes(chunks) -> list:
+    return [hashlib.sha256(np.ascontiguousarray(c).tobytes()).hexdigest()
+            for c in chunks]
+
+
+# the analog-trunking kinds: a slot of theirs has messages and an analog
+# audio module
+_TRUNKING_KINDS = ("ltr", "ltrnet", "passport", "mpt1327")
+
+
+def bank_digest(orch, chunks, segments, events: bool = False,
+                steps: dict | None = None) -> dict:
     """What a bank decoded, slot by slot, in a form both packages give
     (duck-typed over ``channel_status()``, ``audio_segments``, ``events``
     and, for an analog bank, ``bank_proc.modules``, for a mixed one
-    ``bank_proc.procs``; imports neither JAX nor torch).
+    ``bank_proc.procs``, on the per-slot tier and with ``banks=`` the
+    slots' processors; imports neither JAX nor torch).
 
     chunks: the int8 chunks fed; segments: the scene's (slot,
     AudioSegment) pairs (``_segment_slots``), which must be every segment
@@ -1341,13 +1960,15 @@ def bank_digest(orch, chunks, segments, events: bool = False) -> dict:
     chunk; per slot the frames (fragments for P25 Phase 2), the sha256 of
     its metrics dict, its audio segments' count and the sha256 of their
     rows (``_segment_row``), the slot hashes cut to ``SLOT_HASH_HEX``
-    digits; for an analog or a mixed bank also per slot the audio samples
-    (its segments', the open one's included), ``open`` (1 where a segment
-    is open at the end) and the audio's RMS; for a mixed bank per slot the
-    sha256 of its decoded messages in order (``_plain``); with `events`
-    the sha256 of ``orch.events`` (``_event_row``) and their count
-    (tests/torch_reference/banks_1023.json predates it); and the
-    totals."""
+    digits; for an analog, a mixed or a ``banks=`` bank also per slot the
+    audio samples (its segments', the open one's included), ``open`` (1
+    where an analog segment is open at the end) and the audio's RMS; for a
+    mixed bank, and for an analog-trunking slot of ``banks=``, per slot the
+    sha256 of its decoded messages in order (``_plain``); on the per-slot
+    P25 Phase 2 tier each slot's scramble key; with `events` the sha256 of
+    ``orch.events`` (``_event_row``) and their count
+    (tests/torch_reference/banks_1023.json predates it); `steps` (a
+    scene's, ``run_bank``) as they are; and the totals."""
     status = orch.channel_status()
     drained = [seg for _, seg in segments]
     if len(drained) != len(orch.audio_segments) or any(
@@ -1363,8 +1984,7 @@ def bank_digest(orch, chunks, segments, events: bool = False) -> dict:
     cut = SLOT_HASH_HEX
     digest = {
         "slots": len(status),
-        "chunks": [hashlib.sha256(np.ascontiguousarray(c).tobytes())
-                   .hexdigest() for c in chunks],
+        "chunks": _chunk_hashes(chunks),
         "frequencies": _sha(freq),
         "frames": [int(s["frames"]) for s in status],
         "metrics": [_sha(s["metrics"])[:cut] for s in status],
@@ -1372,11 +1992,15 @@ def bank_digest(orch, chunks, segments, events: bool = False) -> dict:
         "segments_sha": [_sha(r)[:cut] for r in rows],
     }
     totals = {"frames": sum(digest["frames"]), "segments": len(drained)}
-    modules = None
+    modules = procs = None
     if getattr(orch, "bank_analog", False):
         modules = orch.bank_proc.modules
     elif getattr(orch, "bank_mixed", False):
         procs = orch.bank_proc.procs
+    elif getattr(orch, "banks", None) is not None:
+        procs = [s.processor if s.kind in _TRUNKING_KINDS else None
+                 for s in orch.slots]
+    if procs is not None:
         modules = [None if p is None else p.audio for p in procs]
         digest["messages"] = [
             _sha([] if p is None else [_plain(m) for m in p.messages])[:cut]
@@ -1397,24 +2021,52 @@ def bank_digest(orch, chunks, segments, events: bool = False) -> dict:
             a, dtype=np.float64)))) if len(a) else 0.0 for a in flat]
         totals.update(audio_samples=sum(digest["audio_samples"]),
                       open=sum(digest["open"]))
+    if not orch.bank_mode and getattr(orch, "banks", None) is None \
+            and orch.decoder_name == "p25p2":
+        digest["keys"] = [None if s.processor is None
+                          else _plain(s.processor.state.scramble_key)
+                          for s in orch.slots]
     if events:
         digest["events"] = _sha([_event_row(e) for e in orch.events])
         totals["events"] = len(orch.events)
+    digest.update(steps or {})
     digest["totals"] = totals
     return digest
 
 
-# the per-slot fields ``compare_digests`` holds equal, RMS apart
+def worker_view(orch, chunks) -> dict:
+    """What the parent of a ``host_process=True`` bank sees, in the form
+    an in-process run of the same bank gives too: the chunk hashes, the
+    frames of each slot (``channel_status()``; the worker sends no
+    per-slot metrics), the sha256 of the events (``_event_row``) and of
+    the AudioSegment rows in ``orch.audio_segments``' order (the worker's
+    arrive without their slot, so a row has no frequency), and the
+    totals. ``compare_digests`` holds two views."""
+    status = orch.channel_status()
+    rows = [_segment_row(0.0, seg)[1:] for seg in orch.audio_segments]
+    frames = [int(s["frames"]) for s in status]
+    return {"slots": len(status), "chunks": _chunk_hashes(chunks),
+            "frequencies": _sha([float(s["frequency_hz"]) for s in status]),
+            "frames": frames, "segment_rows": _sha(rows),
+            "events": _sha([_event_row(e) for e in orch.events]),
+            "totals": {"frames": sum(frames), "segments": len(rows),
+                       "events": len(orch.events)}}
+
+
+# the per-slot fields ``compare_digests`` holds equal, RMS apart, and the
+# fields it holds equal whole
 _SLOT_FIELDS = ("frames", "metrics", "segments", "segments_sha",
-                "audio_samples", "open", "messages")
+                "audio_samples", "open", "messages", "keys")
+_WHOLE_FIELDS = ("events", "segment_rows", "taps", "rate_change")
 
 
 def compare_digests(got: dict, want: dict, tolerance: dict) -> dict:
-    """Hold a bank's digest (``bank_digest``) to the reference's, slot by
-    slot, within ``tolerance``:
+    """Hold a bank's digest (``bank_digest``, or a ``worker_view``) to the
+    reference's, slot by slot, within ``tolerance``:
 
     * ``slots_differing``: the most slots on which a field differs
-      (default 0), ``may_differ`` the fields that may (default: any);
+      (default 0), ``may_differ`` the fields that may (default: any
+      per-slot field);
     * ``frames_per_slot``: the most frames a slot may be off by (default
       0; null: no bound);
     * ``totals_share``: {"frames": x, "segments": y}, the most each total
@@ -1422,10 +2074,12 @@ def compare_digests(got: dict, want: dict, tolerance: dict) -> dict:
     * ``rms_rel``: the relative RMS difference allowed (default 0).
 
     The chunk hashes, the slot count and the frequencies are always held
-    equal, and so are the events where the reference's digest has them
-    (unless ``may_differ`` names "events"). Returns {"ok", "chunks_equal",
+    equal, and so are the whole fields (``_WHOLE_FIELDS``: the events, a
+    view's segment rows, a scene's steps) where the reference's digest has
+    them, unless ``may_differ`` names them. Returns {"ok", "chunks_equal",
     "events_equal", "differing": [{slot, field: [got, want], ...}],
-    "totals": {field: [got, want]}}."""
+    "whole_differing": {field: [got, want]}, "totals": {field: [got,
+    want]}}."""
     rms_rel = tolerance.get("rms_rel", 0.0)
     differing = []
     same_shape = (got["slots"] == want["slots"]
@@ -1448,22 +2102,86 @@ def compare_digests(got: dict, want: dict, tolerance: dict) -> dict:
                     <= share * abs(totals[k][1])
                     for k, share in tolerance.get("totals_share", {}).items())
     chunks_equal = got["chunks"] == want["chunks"]
-    events_equal = ("events" not in want
-                    or got.get("events") == want["events"])
-    if not events_equal:
-        fields.add("events")
+    whole = {f: [got.get(f), want[f]] for f in _WHOLE_FIELDS
+             if f in want and got.get(f) != want[f]}
+    fields |= set(whole)
     extra = {}
     if "rms" in want and same_shape:
         extra["rms_rel_max"] = max(
             abs(g - w) / abs(w) if w else abs(g)
             for g, w in zip(got["rms"], want["rms"]))
+    may_differ = tolerance.get("may_differ", fields - set(_WHOLE_FIELDS))
     ok = (chunks_equal and same_shape and shares_ok
           and len(differing) <= tolerance.get("slots_differing", 0)
-          and fields <= set(tolerance.get("may_differ", fields - {"events"}))
+          and fields <= set(may_differ)
           and (per_slot is None or frames_off <= per_slot))
     return {"ok": ok, "chunks_equal": chunks_equal,
-            "events_equal": events_equal, "differing": differing,
+            "events_equal": "events" not in whole, "differing": differing,
+            "whole_differing": {f: v for f, v in whole.items()
+                                if f != "events"},
             "totals": totals, **extra}
+
+
+# the monitor's metrics-line keys held exactly (the rest: the PLL error
+# within a bound, the upload's wall-clock ms and MB/s not at all)
+MONITOR_METRICS = ("t", "samples", "active_channels", "frames", "events",
+                   "audio_segments", "correction_ppm")
+
+
+def monitor_digest(lines, audio_dir, event_log, wave_path) -> dict:
+    """What ``monitor`` wrote, in a form both CLIs give: the sha256 of the
+    IQ wave it read; its header and summary lines; each metrics line's
+    ``MONITOR_METRICS`` and, apart, its ``pll_error_hz``; the event log's
+    rows (every field is on the capture's sample clock); and each call
+    file in audio_dir by name: its sidecar (JSON), samples, rate, the
+    sha256 of its PCM and the PCM's RMS (of the int16 values over 32767,
+    summed in float64). lines: its stdout lines (the JSON ones are
+    read)."""
+    import wave
+
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
+    metrics = [r for r in rows if "t" in r and "samples" in r]
+    calls = []
+    for path in sorted(Path(audio_dir).glob("call_*.wav")):
+        with wave.open(str(path), "rb") as wf:
+            rate = wf.getframerate()
+            pcm = wf.readframes(wf.getnframes())
+        x = np.frombuffer(pcm, "<i2").astype(np.float64) / 32767.0
+        calls.append({
+            "name": path.name,
+            "sidecar": json.loads(Path(f"{path}.json").read_text()),
+            "samples": len(x), "rate": rate,
+            "pcm_sha256": hashlib.sha256(pcm).hexdigest(),
+            "rms": float(np.sqrt(np.mean(np.square(x)))) if len(x) else 0.0})
+    return {"wave_sha256": _file_sha(wave_path),
+            "header": next(r for r in rows if r.get("monitor")),
+            "summary": rows[-1],
+            "metrics": [{k: r.get(k) for k in MONITOR_METRICS}
+                        for r in metrics],
+            "pll_error_hz": [r.get("pll_error_hz") for r in metrics],
+            "events": [json.loads(line) for line in
+                       Path(event_log).read_text().splitlines()
+                       if line.strip()],
+            "calls": calls}
+
+
+def compare_monitor(got: dict, want: dict, tolerance: dict) -> dict:
+    """Hold a monitor run's digest (``monitor_digest``) to the
+    reference's: every field equal but ``pll_error_hz``, each line's
+    within ``tolerance["pll_error_hz"]`` Hz (present on the same lines).
+    Returns {"ok", "differing": {field: [got, want]}, "pll_error_hz_max"}."""
+    differing = {k: [got.get(k), v] for k, v in want.items()
+                 if k != "pll_error_hz" and got.get(k) != v}
+    pll = list(zip(got["pll_error_hz"], want["pll_error_hz"]))
+    if len(got["pll_error_hz"]) != len(want["pll_error_hz"]) or any(
+            (g is None) != (w is None) for g, w in pll):
+        differing["pll_error_hz"] = [got["pll_error_hz"],
+                                     want["pll_error_hz"]]
+    # the lines carry 0.1 Hz steps: a difference is taken to the micro-Hz
+    off = round(max((abs(g - w) for g, w in pll if g is not None),
+                    default=0.0), 6)
+    ok = not differing and off <= tolerance.get("pll_error_hz", 0.0)
+    return {"ok": ok, "differing": differing, "pll_error_hz_max": off}
 
 
 # ------------------------------------------------------------- scaling

@@ -14,7 +14,8 @@ bit-timing and symbol-loop kernels, ``c4fm``, ``c4fm_25k``, ``p25p2``,
 ``monitor_mixed``: the application; ``parity``, ``receiver``: the
 per-channel path and the static receiver; ``parallel``: the sharded
 channelizer pipeline; ``bench``: the port's bench; ``reference``: the
-five bench banks against the JAX package's digests) run those alone, after the environment and the
+five bench banks, five cells, five paths and the monitor against the JAX
+package's digests) run those alone, after the environment and the
 build, in this order; an unknown name raises. Each phase raises on
 failure (the exit code is then not 0):
 
@@ -215,9 +216,27 @@ failure (the exit code is then not 0):
    bank's record (its realtime factor), its totals beside the
    reference's, and every slot that differs with both values; one DQPSK
    launch a chunk for the C4FM banks (gain 0.3) and DMR (0.4), one
-   Gardner (W = 16) launch a chunk for P25 Phase 2, none for NBFM. A
-   missing file, a chunk hash that differs or a digest outside its
-   tolerance fails the run.
+   Gardner (W = 16) launch a chunk for P25 Phase 2, none for NBFM. The
+   same holds the live cells (tests/torch_reference/cells_full_width.json:
+   LTR, MPT1327, LSM, AM, C4FM on 25 kHz channels) and the paths
+   (paths_full_width.json): the main path's own scene (phase 5's 1023-slot
+   C4FM bank, its grant of channel 600; ``c4fm_grant``), the same bytes
+   with ``host_process=True`` (``worker``: what its parent sees held to
+   the reference's own worker's and, field for field, to the port's
+   in-process view but where the reference's worker parts from its
+   in-process bank), the per-slot C4FM path at 31 slots with its IQ and
+   bits taps and a sample-rate change to 6.4 MS/s (one more DQPSK launch
+   at 31 x 32), the per-slot P25 Phase 2 path (its key learned and handed
+   to the grant) and the 31-slot multibank (one launch a chunk of DQPSK at
+   gain 0.3 and 0.4 and of the bit timing at W = 53), each cell's and
+   path's bytes rebuilt on the host by ``bench_torch.cell_bytes``, its
+   events held too. Last, ``monitor``: the CLI (``monitor --bank
+   --traffic-slots 1022``, every other setting at its default) on the
+   main path's bytes as a 16-bit IQ wave whose sha256 must equal the
+   file's, what it wrote (event log, call files and sidecars, metrics and
+   summary lines) held to the JAX CLI's, the PLL error within the file's
+   bound. A missing file, a chunk hash that differs or a digest outside
+   its tolerance fails the run.
 
 During every live phase (5-24, 5a) a spy on the calls that reach the kernel
 wrappers records the (kernel, C, T) of each launch on the card; after the
@@ -744,11 +763,14 @@ def _bit_demod(which: str):
 
 def _square_fsk(bits, n: int, sps: float, start):
     """(C, n) float32 on the card: +/-1 by the bits (C, B) at sps samples a
-    bit, read from sample offset start (C,) and wrapped around."""
+    bit, read from sample offset start (C,) and wrapped around
+    (``bench_torch._square_fsk``)."""
     import torch
-    idx = ((torch.arange(n, device="cuda")[None, :] + start[:, None])
-           .double() / sps).long() % bits.shape[1]
-    return torch.gather(bits, 1, idx).float() * 2.0 - 1.0
+
+    import bench_torch
+    return torch.as_tensor(bench_torch._square_fsk(
+        bits.cpu().numpy(), 0, n, sps, start.cpu().numpy()),
+        dtype=torch.float32, device="cuda")
 
 
 def _bit_audio(which: str, c: int, t_out: int):
@@ -1018,36 +1040,11 @@ def _p25_streams(total_dibits: int, base_hz: float,
 
 
 def _p25p2_cycle():
-    """One call cycle of P25P2 dibits: three fragments of scrambled PTT
-    (SACCH, TDMA channel 0) + VOICE_4 (channel 1), then a fragment of
-    scrambled END_PTT on both TDMA channels, so that each cycle's voice
-    ends as an AudioSegment."""
-    import numpy as np
-
-    from sdrtrunk_tpu_torch.protocol.bits import from_int
-    from sdrtrunk_tpu_torch.protocol.p25p2 import P25P2FragmentAssembler
-    from sdrtrunk_tpu_torch.protocol.p25p2.timeslot import (MacPduType,
-                                                      sacch_encode,
-                                                      voice4_encode)
-
-    rng = np.random.default_rng(0)
-    asm = P25P2FragmentAssembler(*P25P2_KEY)
-    ptt = np.zeros(180, np.uint8)
-    ptt[0:3] = from_int(MacPduType.PTT.value, 3)
-    ptt[80:88] = from_int(0x80, 8)
-    ptt[104:128] = from_int(SOURCE, 24)
-    ptt[128:144] = from_int(GROUP, 16)
-    endptt = np.zeros(180, np.uint8)
-    endptt[0:3] = from_int(MacPduType.END_PTT.value, 3)
-    endptt[104:128] = from_int(SOURCE, 24)
-    endptt[128:144] = from_int(GROUP, 16)
-    frames = rng.integers(0, 2, (4, 72)).astype(np.uint8)
-    frags = [asm.assemble(i, [sacch_encode(ptt, scrambled=True),
-                              voice4_encode(frames),
-                              sacch_encode(ptt, scrambled=True),
-                              voice4_encode(frames)]) for i in range(3)]
-    frags.append(asm.assemble(0, [sacch_encode(endptt, scrambled=True)] * 4))
-    return P25P2FragmentAssembler.to_dibits(frags)
+    """One call cycle of P25P2 dibits of this run's key, talkgroup and
+    radio (``bench_torch.p25p2_cycle``): scrambled PTT + VOICE_4, then
+    END_PTT, so that each cycle's voice ends as an AudioSegment."""
+    import bench_torch
+    return bench_torch.p25p2_cycle(P25P2_KEY, GROUP, SOURCE)
 
 
 def _lsm_tsbks():
@@ -1060,15 +1057,13 @@ def _tiled_streams(cycle, modulate, sps: float, slots: int, n_ch: int,
                    seed: int):
     """(slots, n_ch) complex64 on the card: a dibit cycle, tiled and
     modulated once (sps samples a symbol), read from a random phase per
-    slot."""
-    import numpy as np
+    slot (``bench_torch._tiled``'s base and starts)."""
     import torch
 
-    rng = np.random.default_rng(seed)
-    per = int(len(cycle) * sps)                # samples per cycle
-    starts = rng.integers(0, per, slots)
-    base = modulate(np.tile(cycle, (int(starts.max()) + n_ch) // per + 2))
-    base = torch.as_tensor(base.astype(np.complex64), device="cuda")
+    import bench_torch
+    base, starts = bench_torch._tiled(cycle, modulate, sps, slots, n_ch,
+                                      seed)
+    base = torch.as_tensor(base, device="cuda")
     return base[torch.as_tensor(starts, device="cuda")[:, None]
                 + torch.arange(n_ch, device="cuda")[None, :]]
 
@@ -1658,68 +1653,12 @@ def run_lsm(card: str) -> dict:
 
 
 def _dmr_streams(total_dibits: int):
-    """(control, traffic, call cycle) DMR dibit streams. The control
-    channel (tests/test_orchestrator_bank.py's TSCC) sends an aloha, then a
-    Tier III group-voice grant (CSBK 0x31) for channel TRAFFIC_INDEX every
-    632 dibits; the traffic channel carries one call cycle after the
-    grant's latency; the cycle is bench.py's: voice header, 4 voice
-    superframes (burst A with sync, B-F with EMB, embedded LC on B-E),
-    terminator."""
-    import numpy as np
-
-    from sdrtrunk_tpu_torch.protocol.bits import from_int
-    from sdrtrunk_tpu_torch.protocol.dmr.csbk import csbk_encode
-    from sdrtrunk_tpu_torch.protocol.dmr.framer import (DataType,
-                                                        DMRBurstAssembler,
-                                                        VOICE_FRAME_ORDER)
-    from sdrtrunk_tpu_torch.protocol.dmr.lc import (MASK_TERMINATOR,
-                                                    MASK_VOICE_HEADER,
-                                                    embedded_lc_encode,
-                                                    full_lc_encode,
-                                                    lc_build_group_voice)
-    from sdrtrunk_tpu_torch.protocol.dmr.sync import DMRSyncPattern
-    from sdrtrunk_tpu_torch.protocol.edac.bptc import bptc_196_96_encode
-
-    rng = np.random.default_rng(31)
-    asm = DMRBurstAssembler(color_code=1)
-    lc = lc_build_group_voice(group=GROUP, source=SOURCE)
-    vh = bptc_196_96_encode(full_lc_encode(lc, MASK_VOICE_HEADER))
-    tlc = bptc_196_96_encode(full_lc_encode(lc, MASK_TERMINATOR))
-    frags = embedded_lc_encode(lc)
-    cycle = [asm.data_burst(DMRSyncPattern.BASE_STATION_DATA,
-                            DataType.VOICE_HEADER, vh)]
-    for _ in range(4):
-        ambe = rng.integers(0, 2, (3, 72)).astype(np.uint8)
-        cycle.append(asm.voice_burst(DMRSyncPattern.BASE_STATION_VOICE,
-                                     ambe))
-        for i, vf in enumerate(VOICE_FRAME_ORDER):
-            cycle.append(asm.voice_burst(
-                vf, ambe, emb_lcss=[1, 3, 3, 2, 0][i],
-                lc_fragment=frags[i] if i < 4 else None))
-    cycle.append(asm.data_burst(DMRSyncPattern.BASE_STATION_DATA,
-                                DataType.TLC, tlc))
-    call = DMRBurstAssembler.to_dibits(cycle)
-
-    grant_bits = np.zeros(64, np.uint8)
-    grant_bits[0:12] = from_int(TRAFFIC_INDEX, 12)     # Tier III channel
-    grant_bits[16:40] = from_int(GROUP, 24)
-    grant_bits[40:64] = from_int(SOURCE, 24)
-    grant = DMRBurstAssembler.to_dibits([asm.data_burst(
-        DMRSyncPattern.BASE_STATION_DATA, DataType.CSBK,
-        csbk_encode(0x31, grant_bits))])
-    aloha = DMRBurstAssembler.to_dibits([asm.data_burst(
-        DMRSyncPattern.BASE_STATION_DATA, DataType.CSBK,
-        csbk_encode(0x19, np.zeros(64, np.uint8)))])
-    parts = [rng.integers(0, 4, 140).astype(np.uint8), aloha]
-    while sum(len(p) for p in parts) < total_dibits:
-        parts += [grant, rng.integers(0, 4, 500).astype(np.uint8)]
-    control = np.concatenate(parts)[:total_dibits]
-    start = int(1.3 * 4800)                    # after the grant's latency
-    traffic = np.concatenate([rng.integers(0, 4, start).astype(np.uint8),
-                              call])
-    traffic = np.concatenate([traffic, rng.integers(
-        0, 4, max(total_dibits - len(traffic), 0)).astype(np.uint8)])
-    return control, traffic[:total_dibits], call
+    """(control, traffic, call cycle) DMR dibit streams of this run's
+    talkgroup and radio, the control granting channel TRAFFIC_INDEX
+    (``bench_torch.dmr_streams``)."""
+    import bench_torch
+    return bench_torch.dmr_streams(total_dibits, TRAFFIC_INDEX, GROUP,
+                                   SOURCE)
 
 
 def run_dmr(card: str) -> dict:
@@ -1925,24 +1864,23 @@ def run_am(card: str) -> dict:
 
 def _fm_streams(message, rate: float, deviation_hz: float = 3000.0):
     """(slots, n) complex64 on the card: each row of the real message
-    (slots, n) frequency-modulated at the channel rate, the phase
-    accumulated in float64."""
-    import numpy as np
+    (slots, n) frequency-modulated at the channel rate
+    (``bench_torch.fm_streams``)."""
     import torch
-    phase = torch.cumsum(message.double(), 1) \
-        * (2 * np.pi * deviation_hz / rate)
-    return torch.polar(torch.ones_like(phase), phase).to(torch.complex64)
+
+    import bench_torch
+    return torch.as_tensor(bench_torch.fm_streams(
+        message.double().cpu().numpy(), rate, deviation_hz), device="cuda")
 
 
 def _voice(slots: int, n_ch: int, rate: float, rng, amplitude: float):
     """(slots, n_ch) float64 on the card: the voice tone at a random phase
-    per slot."""
-    import numpy as np
+    per slot (``bench_torch.voice``)."""
     import torch
-    n = torch.arange(n_ch, device="cuda", dtype=torch.float64)[None, :]
-    phase = torch.as_tensor(rng.uniform(0, 2 * np.pi, slots),
-                            device="cuda")[:, None]
-    return amplitude * torch.sin(2 * np.pi * VOICE_TONE_HZ / rate * n + phase)
+
+    import bench_torch
+    return torch.as_tensor(bench_torch.voice(slots, n_ch, rate, rng,
+                                             amplitude), device="cuda")
 
 
 def _mixed_loop(card: str, decoder: str, streams, offsets, free: set,
@@ -2143,32 +2081,31 @@ def _offset(channel: int) -> float:
 
 
 def _slot_channels():
-    """The per-slot phases' SLOT_COUNT channels, within the middle half of
-    the grid so that they stay in coverage at half the sample rate: a
-    control channel, the one it grants SLOTS_TRAFFIC_INDEX channels above
-    (its slot left free), and the voice channels spread over the rest."""
-    lo, hi = M // 4, 3 * M // 4 - 2
-    traffic = lo + SLOTS_TRAFFIC_INDEX
-    rest = [c for c in range(lo + 1, hi + 1) if c != traffic]
-    voice = rest[::len(rest) // (SLOT_COUNT - 2)][:SLOT_COUNT - 2]
-    return [_offset(i) for i in (lo, traffic, *voice)]
+    """The per-slot phases' SLOT_COUNT channel offsets
+    (``bench_torch._slot_channels``): a control channel, the one it grants
+    SLOTS_TRAFFIC_INDEX channels above (its slot left free), and the voice
+    channels spread over the middle half of the grid, so that they stay in
+    coverage at half the sample rate."""
+    import bench_torch
+    return [_offset(int(i)) for i in bench_torch._slot_channels()]
 
 
 def _spread_channels():
-    """The multibank's SLOT_COUNT channels: phase 5's control channel and
-    the one it grants, and the others spread over the grid."""
-    rest = [c for c in range(1, SLOTS) if c != TRAFFIC_INDEX]
-    others = rest[::len(rest) // (SLOT_COUNT - 2)][:SLOT_COUNT - 2]
-    return [_offset(i) for i in (0, TRAFFIC_INDEX, *others)]
+    """The multibank's SLOT_COUNT channel offsets
+    (``bench_torch._spread_channels``): phase 5's control channel and the
+    one it grants, and the others spread over the grid."""
+    import bench_torch
+    return [_offset(int(i)) for i in bench_torch._spread_channels()]
 
 
 def _dibit_rows(rows, modulate, n_ch: int):
     """(len(rows), n_ch) complex64 on the card: each dibit stream of rows
-    modulated and cut to n_ch samples."""
-    import numpy as np
+    modulated and cut to n_ch samples (``bench_torch.dibit_rows``)."""
     import torch
-    return torch.as_tensor(np.stack([modulate(d)[:n_ch] for d in rows])
-                           .astype(np.complex64), device="cuda")
+
+    import bench_torch
+    return torch.as_tensor(bench_torch.dibit_rows(rows, modulate, n_ch),
+                           device="cuda")
 
 
 def _count_valid(orch, slot: int, counted: dict):
@@ -2357,54 +2294,13 @@ def run_slots(card: str) -> dict:
 
 
 def _p25p2_control(total_dibits: int, base_hz: float):
-    """A P25P2 control channel (tests/test_orchestrator_protocols.py's):
-    an unscrambled network status MAC that teaches the scramble key and an
-    IDEN_UP of the band at base_hz, then MAC grants of channel
-    SLOTS_TRAFFIC_INDEX to GROUP, the network status and IDEN_UP again
-    every fourth fragment."""
-    import numpy as np
-
-    from sdrtrunk_tpu_torch.protocol.bits import from_int
-    from sdrtrunk_tpu_torch.protocol.p25p2 import P25P2FragmentAssembler
-    from sdrtrunk_tpu_torch.protocol.p25p2.mac import (build_mac_pdu,
-                                                       mac_structure_encode)
-    from sdrtrunk_tpu_torch.protocol.p25p2.timeslot import (MacPduType,
-                                                            facch_encode)
-
-    wacn, system, nac = P25P2_KEY
-    net = mac_structure_encode(123, {
-        "wacn": wacn, "system_id": system, "color_code": nac,
-        "frequency_band": 1, "channel_number": 2})
-    iden = np.zeros(72, np.uint8)
-    iden[0:8] = from_int(125, 8)
-    iden[8:12] = from_int(1, 4)                 # band id 1
-    iden[12:21] = from_int(100, 9)              # 12.5 kHz bandwidth
-    iden[30:40] = from_int(100, 10)             # 12.5 kHz spacing
-    iden[40:72] = from_int(int(base_hz / 5), 32)
-    grant = mac_structure_encode(64, {
-        "service_options": 0, "frequency_band": 1,
-        "channel_number": SLOTS_TRAFFIC_INDEX, "group_address": GROUP,
-        "source_address": SOURCE})
-
-    def facch(pdu_type, structures):
-        return facch_encode(build_mac_pdu(pdu_type, structures, 156),
-                            scrambled=False)
-    f_net, f_iden = (facch(MacPduType.ACTIVE, [net]),
-                     facch(MacPduType.ACTIVE, [iden]))
-    f_grant, idle = (facch(MacPduType.ACTIVE, [grant]),
-                     facch(MacPduType.IDLE, []))
-    asm = P25P2FragmentAssembler(wacn=wacn, system=system, nac=nac)
-    frags = [asm.assemble(0, [f_net, f_iden, f_net, f_iden])]
-    per = len(P25P2FragmentAssembler.to_dibits(frags[:1]))
-    i = 1
-    while len(frags) * per < total_dibits:
-        body = ([f_net, f_iden, f_net, f_iden] if i % 4 == 0
-                else [f_grant, idle, f_grant, idle])
-        frags.append(asm.assemble(i % 3, body))
-        i += 1
-    rng = np.random.default_rng(41)
-    return np.concatenate([rng.integers(0, 4, 200).astype(np.uint8),
-                           P25P2FragmentAssembler.to_dibits(frags)])
+    """A P25P2 control channel teaching this run's key and granting
+    channel SLOTS_TRAFFIC_INDEX of the band at base_hz to GROUP
+    (``bench_torch.p25p2_control``)."""
+    import bench_torch
+    return bench_torch.p25p2_control(total_dibits, base_hz,
+                                     SLOTS_TRAFFIC_INDEX, P25P2_KEY, GROUP,
+                                     SOURCE)
 
 
 def run_slots_p25p2(card: str) -> dict:
@@ -4104,13 +4000,16 @@ def run_bench(card: str) -> dict:
     return result
 
 
-# --- reference: the bench banks and the cells against the JAX package ---
+# --- reference: the bench banks, the cells and the paths against the JAX
+# package ---
 
 REFERENCE_FILE = ROOT / "tests" / "torch_reference" / "banks_1023.json"
 CELLS_FILE = ROOT / "tests" / "torch_reference" / "cells_full_width.json"
+PATHS_FILE = ROOT / "tests" / "torch_reference" / "paths_full_width.json"
 # bank or cell -> (the file that holds its reference digest, bench_torch's
 # scene builder, its arguments beyond slots and timed_chunks, the
-# kernels-line entries it launches once a chunk)
+# kernels-line entries it launches once a chunk); the worker is held to
+# c4fm_grant's entry's worker view
 REFERENCE_BANKS = {
     "c4fm": (REFERENCE_FILE, "scene_orchestrator_bank", {}, ("dqpsk",)),
     "c4fm_int4": (REFERENCE_FILE, "scene_orchestrator_bank",
@@ -4125,16 +4024,47 @@ REFERENCE_BANKS = {
     "lsm": (CELLS_FILE, "scene_bank_lsm", {}, ("gardner_lsm",)),
     "am": (CELLS_FILE, "scene_bank_am", {}, ()),
     "c4fm_25k": (CELLS_FILE, "scene_bank_c4fm_25k", {}, ("dqpsk_w20",)),
+    "c4fm_grant": (PATHS_FILE, "scene_bank_c4fm_grant", {}, ("dqpsk",)),
+    "worker": (PATHS_FILE, "scene_bank_worker", {}, ("dqpsk",)),
+    "slots_c4fm": (PATHS_FILE, "scene_bank_slots_c4fm", {}, ("dqpsk",)),
+    "slots_p25p2": (PATHS_FILE, "scene_bank_slots_p25p2", {},
+                    ("gardner_p25p2",)),
+    "multibank": (PATHS_FILE, "scene_bank_multibank", {},
+                  ("dqpsk", "dqpsk_dmr", "bit_timing_ltr")),
 }
 
 
+def _reference_entry(files: dict, path, bank: str) -> dict:
+    """A bank's entry in its reference file; the worker's is c4fm_grant's
+    with its worker view as the digest and its worker tolerance."""
+    if bank != "worker":
+        return files[path][bank]
+    entry = files[path]["c4fm_grant"]
+    return {**entry, "digest": entry["worker_view"],
+            "tolerance": entry["worker_tolerance"]}
+
+
+def _check_hashes(name: str, hashes: list, want: list, what: str) -> None:
+    if hashes != want:
+        bad = [j for j, (a, b) in enumerate(zip(hashes, want)) if a != b]
+        raise AssertionError(
+            f"reference {name}: {len(hashes)} {what} built, {len(want)} in "
+            f"the file, {what} {bad} hash differently: the scene's bytes "
+            f"are not the reference's")
+
+
 def run_reference(card: str) -> dict:
-    """Each bench bank and each cell rebuilt on the host from its bytes
-    (bench.py's for a bank; ``bench_torch.cell_bytes`` for a cell; every
-    chunk's sha256 held to the reference file before it runs), run on the
-    card as its bench leg runs, and its digest (a cell's with its events)
-    held slot by slot to the JAX package's within the file's
-    tolerance."""
+    """Each bench bank, cell and path rebuilt on the host from its bytes
+    (bench.py's for a bank; ``bench_torch.cell_bytes`` for a cell and a
+    path; every chunk's sha256 held to the reference file before it runs),
+    run on the card as its bench leg runs (a path's recipe steps
+    included), and its digest (a cell's and a path's with its events)
+    held slot by slot to the JAX package's within the file's tolerance.
+    The worker (``host_process=True``) is held to the reference's own
+    worker's view and, field for field, to the port's in-process view but
+    where the reference's worker parts from its in-process bank; last, the
+    monitor (``monitor --bank`` through the CLI on the main path's bytes
+    as a 16-bit IQ wave) is held to the JAX CLI's files and lines."""
     import hashlib
 
     import torch
@@ -4145,66 +4075,154 @@ def run_reference(card: str) -> dict:
              for f in {f for f, *_ in REFERENCE_BANKS.values()}}
     launches = {e: 0 for e in _ENTRY_KEYS}
     result, failed = {"card": card, "banks": {}}, []
+    own_view = None
     for bank, (path, builder, kw, entries) in REFERENCE_BANKS.items():
-        want = files[path][bank]
+        want = _reference_entry(files, path, bank)
         t0 = time.perf_counter()
         scene = getattr(bench_torch, builder)(
             slots=want["slots"], timed_chunks=want["timed_chunks"], **kw)
         scene_s = time.perf_counter() - t0
         hashes = [hashlib.sha256(c.tobytes()).hexdigest()
                   for c in scene.chunks]
-        if hashes != want["digest"]["chunks"]:
-            bad = [j for j, (a, b) in enumerate(
-                zip(hashes, want["digest"]["chunks"])) if a != b]
-            raise AssertionError(
-                f"reference {bank}: {len(hashes)} chunks built, "
-                f"{len(want['digest']['chunks'])} in the file, chunks "
-                f"{bad} hash differently: the scene's bytes are not the "
-                f"reference's")
+        _check_hashes(bank, hashes, want["digest"]["chunks"], "chunks")
         print(f"[reference] {card}: {bank}: all {len(hashes)} chunk "
               f"hashes match the file (scene built in {scene_s:.1f} s)",
               flush=True)
-        _reset_launches()
-        record = bench_torch.run_bank(scene)
-        torch.cuda.synchronize()
-        got_launches = _read_launches()
-        chunks = scene.warmup + scene.timed_chunks
-        expect = {e: chunks * (e in entries) for e in _ENTRY_KEYS}
-        if got_launches != expect:
-            raise AssertionError(f"reference {bank}: kernel launches "
-                                 f"{got_launches}, expected {expect}")
-        for e, n in got_launches.items():
-            launches[e] += n
-        digest = bench_torch.bank_digest(
-            scene.orch, scene.chunks, scene.segments,
-            events="events" in want["digest"])
+        try:
+            _reset_launches()
+            record = bench_torch.run_bank(scene)
+            torch.cuda.synchronize()
+            got_launches = _read_launches()
+            chunks = (scene.warmup + scene.timed_chunks
+                      + ("rate_change" in scene.steps))
+            expect = {e: chunks * (e in entries) for e in _ENTRY_KEYS}
+            if got_launches != expect:
+                raise AssertionError(f"reference {bank}: kernel launches "
+                                     f"{got_launches}, expected {expect}")
+            for e, n in got_launches.items():
+                launches[e] += n
+            if bank == "worker":
+                digest = bench_torch.worker_view(scene.orch, scene.chunks)
+            else:
+                digest = bench_torch.bank_digest(
+                    scene.orch, scene.chunks, scene.segments,
+                    events="events" in want["digest"], steps=scene.steps)
+            status = scene.orch.channel_status()
+        finally:
+            scene.orch.close()
         held = bench_torch.compare_digests(digest, want["digest"],
                                            want["tolerance"])
         row = {"record": record, "totals (port, reference)": held["totals"],
                "differing_slots": len(held["differing"]),
                "events_equal": held["events_equal"],
+               "whole_differing": sorted(held["whole_differing"]),
                **({"rms_rel_max": held["rms_rel_max"]}
                   if "rms_rel_max" in held else {}),
                "tolerance": {k: v for k, v in want["tolerance"].items()
                              if k != "why"},
                "within_tolerance": held["ok"]}
+        if bank == "c4fm_grant":
+            own_view = bench_torch.worker_view(scene.orch, scene.chunks)
+        if bank == "worker":
+            # the port's worker against its own in-process bank: equal but
+            # where the reference's worker departs from its in-process
+            # bank, and there as the reference does
+            in_process = files[path]["c4fm_grant"]["in_process_view"]
+            got_apart = bench_torch.compare_digests(digest, own_view or {},
+                                                    {}) if own_view else {}
+            want_apart = bench_torch.compare_digests(want["digest"],
+                                                     in_process, {})
+            apart = {k: got_apart.get(k) for k in ("differing",
+                                                   "whole_differing")}
+            row["apart_from_in_process (port)"] = apart
+            if own_view != in_process or apart != {
+                    k: want_apart[k] for k in apart}:
+                failed.append("worker (against the in-process port)")
+            else:
+                print(f"[reference] {card}: worker: equal to the in-process "
+                      f"port's c4fm_grant view field for field but where "
+                      f"the reference's worker parts from its in-process "
+                      f"bank, and there alike: " + json.dumps(apart),
+                      flush=True)
         print(f"[reference] {card}: {bank}: " + json.dumps(row), flush=True)
-        status = scene.orch.channel_status()
         for d in held["differing"]:
             # the metrics are hashed in the file: the port's own beside
             d["port_metrics"] = status[d["slot"]]["metrics"]
             print(f"[reference] {bank} slot {d['slot']} (port, reference): "
                   + json.dumps({k: v for k, v in d.items() if k != "slot"}),
                   flush=True)
+        for field, (a, b) in held["whole_differing"].items():
+            print(f"[reference] {bank} {field} (port, reference): "
+                  + json.dumps([a, b]), flush=True)
         result["banks"][bank] = {**row, "differing": held["differing"]}
         if not held["ok"]:
             failed.append(bank)
         del scene
+    monitor = _reference_monitor(card, files[PATHS_FILE]["monitor"])
+    for e, n in monitor.pop("launches").items():
+        launches[e] += n
+    result["banks"]["monitor"] = monitor
+    if not monitor["within_tolerance"]:
+        failed.append("monitor")
     if failed:
         raise AssertionError(f"reference: {failed} outside their tolerance "
                              f"against {sorted(str(f) for f in files)}")
     result["kernel_launches"] = launches
     return result
+
+
+def _reference_monitor(card: str, want: dict) -> dict:
+    """``python -m sdrtrunk_tpu_torch.cli monitor`` as the reference file
+    ran the JAX CLI (``bench_torch.monitor_inputs``: the main path's bytes
+    as a 16-bit IQ wave, its sha256 held to the file's before the run, a
+    playlist of the control channel, ``--bank --traffic-slots 1022``, the
+    other settings at their defaults), in this process on the card; what
+    it wrote (``monitor_digest``) held to the file's (``compare_monitor``:
+    the PLL error within the tolerance's bound)."""
+    import shutil
+
+    import bench_torch
+
+    directory = APP_DIR / "reference_monitor"
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        inputs = bench_torch.monitor_inputs(directory, slots=want["slots"])
+        wave_s = time.perf_counter() - t0
+        _check_hashes("monitor", [bench_torch._file_sha(inputs["wave"])],
+                      [want["digest"]["wave_sha256"]], "waves")
+        print(f"[reference] {card}: monitor: the wave's hash matches the "
+              f"file (written in {wave_s:.1f} s)", flush=True)
+        run = _run_cli(inputs["argv"])
+        digest = bench_torch.monitor_digest(run["lines"], inputs["audio"],
+                                            inputs["events"], inputs["wave"])
+    finally:
+        shutil.rmtree(APP_DIR, ignore_errors=True)
+    expect = {e: want["chunks"] * (e == "dqpsk") for e in _ENTRY_KEYS}
+    if run["launches"] != expect:
+        raise AssertionError(f"reference monitor: kernel launches "
+                             f"{run['launches']}, expected {expect}")
+    held = bench_torch.compare_monitor(digest, want["digest"],
+                                       want["tolerance"])
+    row = {"chunks": len(digest["metrics"]), "wall_s": run["wall_s"],
+           "summary (port)": digest["summary"],
+           "calls (port, reference)": [len(digest["calls"]),
+                                       len(want["digest"]["calls"])],
+           "events (port, reference)": [len(digest["events"]),
+                                        len(want["digest"]["events"])],
+           "pll_error_hz (port, reference)": [
+               digest["pll_error_hz"], want["digest"]["pll_error_hz"]],
+           "pll_error_hz_max": held["pll_error_hz_max"],
+           "tolerance": {k: v for k, v in want["tolerance"].items()
+                         if k != "why"},
+           "differing": sorted(held["differing"]),
+           "within_tolerance": held["ok"]}
+    print(f"[reference] {card}: monitor: " + json.dumps(row), flush=True)
+    for field, (a, b) in held["differing"].items():
+        print(f"[reference] monitor {field} (port, reference): "
+              + json.dumps([a, b])[:4000], flush=True)
+    return {**row, "launches": run["launches"]}
 
 
 # phases a run can name, in the order a run takes them; the environment

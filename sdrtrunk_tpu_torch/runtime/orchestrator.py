@@ -737,7 +737,16 @@ class Orchestrator:
     def set_sample_rate(self, new_sample_rate: float) -> None:
         """Tuner sample rate changed: rebuild the receiver and the live
         step on ``self.device`` for the new bin grid with the default chunk
-        and a fresh state, then remap the active slots."""
+        and a fresh state, then remap the active slots. An analog or
+        analog-trunking bank raises ``ValueError`` first, nothing changed:
+        the reference sizes a rebuilt bank from its decoder's demodulator,
+        which these decoders lack, so it cannot run this either."""
+        if self.bank_analog or self.bank_mixed:
+            raise ValueError(
+                f"a sample-rate change cannot rebuild a {self.decoder_name!r} "
+                f"bank: an analog or analog-trunking bank_mode=True bank is "
+                f"sized from the rate it was built at; the per-slot path and "
+                f"banks= rebuild")
         slots = len(self.slots)
         self.sample_rate = float(new_sample_rate)
         self.rx = self._make_receiver(slots)

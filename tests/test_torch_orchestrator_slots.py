@@ -21,6 +21,11 @@ Scenes:
 * a single-kind analog-trunking decoder under 32 slots without banks=,
   which the reference cannot run (its per-slot leg sends the audio alone
   to a processor that only takes process_mixed): the port refuses it.
+* a sample-rate change of an analog or analog-trunking bank (40 slots),
+  which the reference cannot rebuild (its set_sample_rate reads the
+  decoder's demodulator, which these decoders lack): the port refuses it
+  before changing anything; a C4FM bank and the per-slot path rebuild in
+  both.
 
 Both orchestrators start from one state, carried across with convert.py,
 and must give the same events, per-slot frame counts, AudioSegments and
@@ -369,3 +374,51 @@ def test_single_kind_analog_trunking_per_slot_raises(kind):
                             decoder=kind, ppm_correction=False, device="cpu",
                             **kw)
         assert orch.bank_mixed == ("bank_mode" in kw)
+
+
+_ANALOG_BANK_KINDS = ["nbfm", "am", "ltr", "ltrnet", "passport", "mpt1327"]
+
+
+@pytest.mark.parametrize("kind", _ANALOG_BANK_KINDS)
+def test_rate_change_of_an_analog_bank_raises(kind):
+    """A sample-rate change cannot rebuild an analog or analog-trunking
+    bank (40 slots: bank_mode on): the reference's set_sample_rate reads
+    its decoder's demodulator, which these decoders lack, and raises
+    AttributeError; the port raises a named ValueError before it changes
+    anything."""
+    new_rate = 128 * 12500.0
+    ref = JOrchestrator(lambda n: None, FS, CENTER, [25_000.0], slots=40,
+                        decoder=kind, ppm_correction=False)
+    assert ref.bank_mode
+    with pytest.raises(AttributeError, match="demod"):
+        ref.set_sample_rate(new_rate)
+    port = Orchestrator(lambda n: None, FS, CENTER, [25_000.0], slots=40,
+                        decoder=kind, ppm_correction=False, device="cpu")
+    rx, chunk = port.rx, port.chunk_samples
+    with pytest.raises(ValueError, match=f"cannot rebuild a '{kind}' bank"):
+        port.set_sample_rate(new_rate)
+    with pytest.raises(ValueError, match="cannot rebuild"):
+        port.on_source_event(_event(port, "SAMPLE_RATE_CHANGE", new_rate))
+    assert port.sample_rate == FS and port.rx is rx
+    assert port.chunk_samples == chunk
+
+
+@pytest.mark.parametrize("slots", [40, 4])
+def test_rate_change_rebuilds_a_c4fm_bank_and_the_per_slot_path(slots):
+    """The digital bank (40 slots) and the per-slot path (4) rebuild in
+    both packages: the same bins, chunk and bank transfer size."""
+    new_rate = 128 * 12500.0
+    orchs = [cls(lambda n: None, FS, CENTER, [25_000.0], slots=slots,
+                 decoder="c4fm", ppm_correction=False, **kw)
+             for cls, kw in ((JOrchestrator, {}),
+                             (Orchestrator, {"device": "cpu"}))]
+    for orch in orchs:
+        assert orch.bank_mode == (slots >= 32)
+        orch.set_sample_rate(new_rate)
+    ref, port = orchs
+    assert port.sample_rate == ref.sample_rate == new_rate
+    assert port.rx.channelizer.channels == ref.rx.channelizer.channels == 128
+    assert port.chunk_samples == ref.chunk_samples
+    assert port._bank_cap == ref._bank_cap
+    assert np.array_equal(port.bins, ref.bins)
+    assert np.array_equal(port.steps, ref.steps)

@@ -3,9 +3,9 @@
 more live cells at full width, kept as digests that the port is held to.
 
     JAX_PLATFORMS=cpu python tools/reference_digests.py [banks_1023]
-        [cells_full_width]
+        [cells_full_width] [paths_full_width]
 
-writes both files, or the ones named.
+writes the three files, or the ones named.
 
 Runs each bank leg of bench.py as bench.py's main runs it (1023 slots;
 C4FM in int8 and in int4, DMR and P25 Phase 2 with 3 warm-up and 6 timed
@@ -29,6 +29,24 @@ with the JAX package's classes) and run as ``bench_torch.run_bank`` runs
 it, and its digest also holds the events (``bank_digest(...,
 events=True)``).
 
+The paths (tests/torch_reference/paths_full_width.json, the same layout)
+are the main path's own scene and the tiers beside the bank:
+``c4fm_grant`` (phase 5: 1023 slots, a control channel granting channel
+600), with the ``worker_view`` of the JAX package's own
+``host_process=True`` worker on the same bytes, which the port's worker
+is held to, and the same view of the in-process run; ``slots_c4fm`` and
+``slots_p25p2`` (the per-slot tier at 31 slots, the recording taps and a
+sample-rate change, the P25 Phase 2 key handed to a grant) and
+``multibank`` (``banks=``, 31 slots), built by ``bench_torch.cell_bytes``
+and run as the cells are; and ``monitor``: the JAX package's CLI,
+``monitor --bank --traffic-slots 1022`` with every other setting at its
+default, on ``c4fm_grant``'s bytes written as a 16-bit IQ wave
+(``bench_torch.monitor_inputs``), held by ``bench_torch.monitor_digest``.
+
+    JAX_PLATFORMS=cpu python tools/reference_digests.py paths_full_width
+
+takes about 2 minutes.
+
 ``python3 chip_smoke.py reference`` rebuilds the same scenes on the card's
 host (bench_torch's scene builders), checks every chunk's sha256 against
 this file, runs the port's Orchestrator(device="cuda") on them and holds
@@ -46,6 +64,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "tests" / "torch_reference" / "banks_1023.json"
 CELLS_OUT = ROOT / "tests" / "torch_reference" / "cells_full_width.json"
+PATHS_OUT = ROOT / "tests" / "torch_reference" / "paths_full_width.json"
 
 SLOTS = 1023
 TIMED_CHUNKS = 6            # bench.py's main: timed_chunks=6 for each leg
@@ -138,6 +157,70 @@ CELL_TOLERANCES = {
 }
 
 
+# each path's tolerance, as the cells' (events, taps and the rate change
+# always equal); one looser than equal slot by slot names its CPU evidence
+# (PERF.md's findings hold the runs)
+_DC_BIN = ("the granted slot's metrics (its dibit count) may differ: for "
+           "its first two chunks, before its tune takes effect (two chunks "
+           "of grant latency), it reads the untuned DC bin, which carries "
+           "no channel here, and its timing loop on the int8 noise there "
+           "follows the channelizer's last bits")
+PATH_TOLERANCES = {
+    "c4fm_grant": {"slots_differing": 1, "may_differ": ["metrics"],
+                   "why": "frames, audio segments, events and the grant "
+                          "equal slot by slot; one slot's metrics (its "
+                          "dibit count) may differ, as the bench C4FM "
+                          "bank's: on the CPU at full width slot 454 "
+                          "counts 13763 dibits to the reference's 13762, "
+                          "and with a port-only change of the inverse "
+                          "FFT's precision (complex128) 13762, every slot "
+                          "equal (the channelizer's last bits moving a "
+                          "timing loop by one symbol)"},
+    "slots_c4fm": {"slots_differing": 1, "may_differ": ["metrics"],
+                   "why": "frames, audio segments, events, the taps and "
+                          "the rate change equal slot by slot; " + _DC_BIN
+                          + " (on the CPU at full width slot 30 counts "
+                          "13849 dibits to the reference's 13851, one "
+                          "fewer in each of those chunks, and 13854 with a "
+                          "port-only change of the inverse FFT's "
+                          "precision)"},
+    "slots_p25p2": {"why": "equal slot by slot"},
+    "multibank": {"slots_differing": 1, "may_differ": ["metrics"],
+                  "rms_rel": 1e-6,
+                  "why": "frames, segments, messages, audio counts and "
+                         "events equal slot by slot; " + _DC_BIN + " (on "
+                         "the CPU at full width slot 10 counts 14499 "
+                         "dibits to the reference's 14497, and 14502 with "
+                         "a port-only change of the inverse FFT's "
+                         "precision); the LTR slots' audio RMS within 1e-6 "
+                         "relative: banks= carries float audio, no mu-law, "
+                         "and the port's sits some ulps from the "
+                         "reference's (on the CPU at full width all 10 LTR "
+                         "slots, 3.4e-8 at most, about half their samples "
+                         "a few ulps apart; 3.3e-8 with the inverse FFT in "
+                         "complex128)"},
+    "monitor": {"pll_error_hz": 0.1,
+                "why": "the event log, call files, sidecars, PCM, summary "
+                       "and every metrics line equal but the control PLL's "
+                       "error, which a line rounds to 0.1 Hz: it may round "
+                       "one step apart where the raw error sits at a "
+                       "rounding boundary, as the raw error follows the "
+                       "channelizer's last bits (on the CPU at full width "
+                       "within 2.7e-3 Hz of the reference's, 6.4e-3 Hz "
+                       "with a port-only change of the inverse FFT's "
+                       "precision; every rounded line equal)"},
+}
+WORKER_TOLERANCE = {"why": "equal field by field to the reference's own "
+                           "worker (on the CPU at full width the port's "
+                           "worker view equals it). Both packages' workers "
+                           "part from their in-process bank on the granted "
+                           "slot (frames 7 to 10, so the segment rows): the "
+                           "in-process bank routes the chunk in flight at "
+                           "the grant, framed from the slot's untuned bin, "
+                           "to the granted call; the worker does not "
+                           "(ROADMAP Queue 3, Waiting)"}
+
+
 class _Synthesized(Exception):
     """Raised by the synthesis spy to stop a leg once its chunks exist."""
 
@@ -187,26 +270,84 @@ def run_reference(bank: str, slots: int = SLOTS,
 
 def run_cell(cell: str, slots=None, timed_chunks=None, chunk_blocks=None):
     """Run a cell (``bench_torch.CELLS``; full width where an argument is
-    None) with the JAX package: the bytes and recipe from
-    ``bench_torch.cell_bytes``, the JAX Orchestrator built from the recipe
-    and run as ``bench_torch.run_bank`` runs a scene. Returns (the
-    record, the digest with its events, the recipe)."""
+    None) with the JAX package (``run_path``). Returns (the record, the
+    digest with its events, the recipe)."""
+    return run_path(cell, slots, timed_chunks, chunk_blocks)[:3]
+
+
+def _jax_orchestrator(recipe: dict, chunks):
+    """The JAX package's Orchestrator built from a recipe."""
     import bench_torch
     from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
     from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
     from sdrtrunk_tpu.runtime.traffic import FrequencyBand
+    return bench_torch.orchestrator_from_recipe(
+        recipe, chunks, Orchestrator, IdentifierCollection, FrequencyBand)
+
+
+def run_path(cell: str, slots=None, timed_chunks=None, chunk_blocks=None):
+    """Run a cell or a path (``bench_torch.CELLS``, ``PATHS``; full width
+    where an argument is None) with the JAX package: the bytes and recipe
+    from ``bench_torch.cell_bytes``, the JAX Orchestrator built from the
+    recipe (its prepare included) and run as ``bench_torch.run_bank`` runs
+    a scene (its steps included). Returns (the record, the digest with its
+    events and steps, the recipe, the ``worker_view`` of the run)."""
+    import bench_torch
 
     chunks, recipe = bench_torch.cell_bytes(cell, slots, timed_chunks,
-                                            chunk_blocks)
-    orch = bench_torch.orchestrator_from_recipe(
-        recipe, chunks, Orchestrator, IdentifierCollection, FrequencyBand)
+                                            chunk_blocks, keep=True)
+    orch = _jax_orchestrator(recipe, chunks)
     scene = bench_torch.BankScene(
         recipe["kind"], orch, chunks, recipe["warmup"],
         recipe["timed_chunks"], bench_torch._segment_slots(orch),
         recipe=recipe)
     record = bench_torch.run_bank(scene)
-    return (record, bench_torch.bank_digest(orch, chunks, scene.segments,
-                                            events=True), recipe)
+    digest = bench_torch.bank_digest(orch, chunks, scene.segments,
+                                     events=True, steps=scene.steps)
+    return record, digest, recipe, bench_torch.worker_view(orch, chunks)
+
+
+def run_worker(slots=None, timed_chunks=None, chunk_blocks=None) -> dict:
+    """The JAX package's ``host_process=True`` bank on c4fm_grant's bytes
+    and recipe, run as ``run_path`` runs it. Returns what its parent sees
+    (``bench_torch.worker_view``)."""
+    import bench_torch
+
+    chunks, recipe = bench_torch.cell_bytes("c4fm_grant", slots,
+                                            timed_chunks, chunk_blocks,
+                                            keep=True)
+    recipe["kwargs"]["host_process"] = True
+    orch = _jax_orchestrator(recipe, chunks)
+    try:
+        bench_torch.run_bank(bench_torch.BankScene(
+            recipe["kind"], orch, chunks, recipe["warmup"],
+            recipe["timed_chunks"], [], recipe=recipe))
+        return bench_torch.worker_view(orch, chunks)
+    finally:
+        orch.close()
+
+
+def run_monitor(directory: Path, slots=None, timed_chunks=None,
+                chunk_blocks=None):
+    """The JAX package's CLI, ``monitor`` on the main path's bytes
+    (``bench_torch.monitor_inputs`` in directory), on the CPU in this
+    process. Returns (its digest, ``monitor_digest``; the inputs)."""
+    import contextlib
+    import io
+
+    import bench_torch
+    from sdrtrunk_tpu import cli
+
+    inputs = bench_torch.monitor_inputs(directory, slots, timed_chunks,
+                                        chunk_blocks)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--platform", "cpu", *inputs["argv"]])
+    if rc != 0:
+        raise AssertionError(f"the reference's monitor exited {rc}")
+    return bench_torch.monitor_digest(
+        out.getvalue().splitlines(), inputs["audio"], inputs["events"],
+        inputs["wave"]), inputs
 
 
 def write(banks: dict, meta: dict, path: Path = OUT) -> None:
@@ -261,8 +402,54 @@ def _cell_entries() -> dict:
     return cells
 
 
+def _path_entries() -> dict:
+    import tempfile
+
+    import bench_torch
+    paths = {}
+    for cell in bench_torch.PATHS:
+        t0 = time.perf_counter()
+        record, digest, recipe, view = run_path(cell)
+        seconds = time.perf_counter() - t0
+        paths[cell] = {
+            "builder": f"bench_torch.py::scene_bank_{cell}",
+            "slots": digest["slots"], "warmup": recipe["warmup"],
+            "timed_chunks": recipe["timed_chunks"],
+            "orchestrator": {k: v for k, v in recipe["kwargs"].items()
+                             if k != "slots"},
+            **{k: recipe[k] for k in ("activate_kinds", "prepare", "steps")
+               if k in recipe},
+            "free_slots": recipe["free_slots"],
+            "seconds": round(seconds, 1),
+            "record": {k: v for k, v in record.items()
+                       if k not in ("msps", "realtime_factor")},
+            "tolerance": PATH_TOLERANCES[cell], "digest": digest}
+        if cell == "c4fm_grant":
+            paths[cell].update(worker_builder="bench_torch.py::"
+                               "scene_bank_worker",
+                               worker_view=run_worker(),
+                               in_process_view=view,
+                               worker_tolerance=WORKER_TOLERANCE)
+        print(json.dumps({"path": cell, "seconds": round(seconds, 1),
+                          "totals": digest["totals"]}), flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        digest, inputs = run_monitor(Path(tmp))
+        argv = [a.replace(tmp, "<dir>") for a in inputs["argv"]]
+    seconds = time.perf_counter() - t0
+    paths["monitor"] = {
+        "builder": "bench_torch.py::monitor_inputs", "argv": argv,
+        "slots": digest["header"]["slots"],
+        "chunks": len(digest["metrics"]), "seconds": round(seconds, 1),
+        "tolerance": PATH_TOLERANCES["monitor"], "digest": digest}
+    print(json.dumps({"path": "monitor", "seconds": round(seconds, 1),
+                      "summary": digest["summary"]}), flush=True)
+    return paths
+
+
 FILES = {"banks_1023": (OUT, _bank_entries),
-         "cells_full_width": (CELLS_OUT, _cell_entries)}
+         "cells_full_width": (CELLS_OUT, _cell_entries),
+         "paths_full_width": (PATHS_OUT, _path_entries)}
 
 
 def main(argv: list[str]) -> int:
