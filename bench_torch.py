@@ -776,12 +776,13 @@ VOICE_TONE_HZ = 800.0
 def p25_streams(total_dibits: int, base_hz: float, traffic_index: int,
                 band_id: int = 1, spacing_hz: float = 12500.0,
                 traffic_start_s: float = 1.3, group: int = GROUP,
-                source: int = SOURCE):
+                source: int = SOURCE, grant_from_s: float = 0.0):
     """(control, traffic, voice superframe) P25P1 dibit streams; the
     control channel grants channel traffic_index of the band at base_hz,
-    which its IDEN_UP announces as band band_id of spacing_hz channels;
-    the call on the traffic channel starts at traffic_start_s, after the
-    grant's latency."""
+    which its IDEN_UP announces as band band_id of spacing_hz channels,
+    sending an RFSS status in each grant's place that starts before
+    grant_from_s; the call on the traffic channel starts at
+    traffic_start_s, after the grant's latency."""
     from sdrtrunk_tpu_torch.protocol.bits import from_int
     from sdrtrunk_tpu_torch.protocol.p25p1.duid import DUID
     from sdrtrunk_tpu_torch.protocol.p25p1.framer import P25P1FrameAssembler
@@ -813,7 +814,10 @@ def p25_streams(total_dibits: int, base_hz: float, traffic_index: int,
     # does, so a receiver that missed the first one still maps the grant
     while sum(len(p) for p in parts) < total_dibits - 2 * len(t_grant):
         parts += [t_rfss, t_iden, t_grant]
-    control = np.concatenate(parts)
+    starts = np.cumsum([0] + [len(p) for p in parts[:-1]])
+    control = np.concatenate([
+        t_rfss if p is t_grant and at < grant_from_s * 4800 else p
+        for p, at in zip(parts, starts)])
 
     lc = lc_build_group_voice(group=group, source=source)
     call = [asm.assemble(DUID.HDU, hdu_encode(np.zeros(72, np.uint8), 0,
@@ -1335,12 +1339,31 @@ def _own_rows(base, starts, own: dict, k: int):
     return rows_of
 
 
-def _cell_c4fm_grant(slots: int, timed_chunks: int, chunk_blocks: int):
+def _drifted(rows_of, rf_hz, ppm: float, rate: float, k: int):
+    """rows_of for ``_cell_chunks`` as a tuner reading `ppm` high captures
+    it: row i, at RF frequency rf_hz[i], moved up by rf_hz[i] * ppm / 1e6,
+    its phase taken at the absolute sample index (continuous across
+    chunks)."""
+    cycles = np.asarray(rf_hz, np.float64) * ppm * 1e-6 / rate
+
+    def rows(j):
+        n = np.arange(j * k, (j + 1) * k, dtype=np.float64)
+        turn = np.exp(2j * np.pi * (np.outer(cycles, n) % 1.0))
+        return (rows_of(j) * turn).astype(np.complex64)
+    return rows
+
+
+def _cell_c4fm_grant(slots: int, timed_chunks: int, chunk_blocks: int,
+                     cell: str = "c4fm_grant", ppm: float = 0.0,
+                     grant_from_s: float = 0.0, **kw):
     """chip_smoke.py's phase 5, the main path (``_c4fm_scene``,
     ``_c4fm_orchestrator``): 1023 slots of M = 1024 in bank mode; slot 0 a
     P25 control channel granting channel 600 (left free), whose call
     starts at 1.3 s; P25P1 voice superframes on the other 1021 from random
-    starts; 3 warm-up chunks of 1024 x 5120."""
+    starts; 3 warm-up chunks of 1024 x 5120. A nonzero `ppm` captures it
+    through a tuner reading that high (``_drifted``); the control channel
+    sends no grant before `grant_from_s` (``p25_streams``); `kw` goes into
+    the recipe."""
     from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
 
     m, full, warmup, rate = 1024, 1023, 3, 25000.0
@@ -1351,17 +1374,44 @@ def _cell_c4fm_grant(slots: int, timed_chunks: int, chunk_blocks: int):
     grid = _grid(slots, full, TRAFFIC_INDEX)
     offsets = _offsets(grid, m, 12500.0)
     control, traffic, superframe = p25_streams(
-        int(n / rate * 4800) + 64, CENTER_HZ + offsets[0], TRAFFIC_INDEX)
+        int(n / rate * 4800) + 64, CENTER_HZ + offsets[0], TRAFFIC_INDEX,
+        grant_from_s=grant_from_s)
     base, starts = _tiled(superframe, lambda d: c4fm_modulate(d, rate),
                           rate / 4800.0, full, n, seed=0)
     free = _position(grid, TRAFFIC_INDEX)
     own = dict(zip((0, free), dibit_rows((control, traffic),
                                          lambda d: c4fm_modulate(d, rate),
                                          n)))
-    chunks = _cell_chunks(_own_rows(base, starts[grid], own, k), fs,
-                          12500.0, offsets, k, total, chunk)
-    return chunks, _recipe("c4fm_grant", "c4fm", fs, offsets, slots, chunk,
-                           warmup, timed_chunks, free=free)
+    rows_of = _own_rows(base, starts[grid], own, k)
+    if ppm:
+        rows_of = _drifted(rows_of, CENTER_HZ + offsets, ppm, rate, k)
+    chunks = _cell_chunks(rows_of, fs, 12500.0, offsets, k, total, chunk)
+    return chunks, _recipe(cell, "c4fm", fs, offsets, slots, chunk,
+                           warmup, timed_chunks, free=free, **kw)
+
+
+PPM_ERROR = 0.7                  # c4fm_ppm's tuner error: about +322 Hz
+PPM_WINDOW_S = 0.4               # its observation window: about a chunk
+
+
+def _cell_c4fm_ppm(slots: int, timed_chunks: int, chunk_blocks: int,
+                   ppm: float = PPM_ERROR, window_s: float = PPM_WINDOW_S,
+                   grant_from_s: float = 0.0):
+    """The main path's scene (``_cell_c4fm_grant``) captured by a tuner
+    reading `ppm` high (at PPM_ERROR the control channel's PLL reads
+    about +266 Hz, 0.58 ppm, above the 0.4 ppm threshold), PPM correction
+    on with a window of `window_s`, so that at 1024 x 5120 the correction
+    fires in the second warm-up chunk, while the third is in flight:
+    ``_apply_ppm`` retunes every active slot. Its step ``ppm`` records
+    every metrics line, the corrections and the device plan after the run
+    (``_watch_ppm``). A cut may move the grant (`grant_from_s`) after the
+    correction, so that ``_activate`` tunes the granted slot with it."""
+    chunks, recipe = _cell_c4fm_grant(
+        slots, timed_chunks, chunk_blocks, cell="c4fm_ppm", ppm=ppm,
+        grant_from_s=grant_from_s, ppm_correction=True,
+        ppm_observation_seconds=window_s)
+    recipe["steps"] = {"ppm": {}}
+    return chunks, recipe
 
 
 def _slot_channels() -> np.ndarray:
@@ -1524,7 +1574,8 @@ CELLS = {"ltr": (_cell_ltr, 1023, 4, 6250),
 PATHS = {"c4fm_grant": (_cell_c4fm_grant, 1023, 4, 5120),
          "slots_c4fm": (_cell_slots_c4fm, SLOT_COUNT, 4, 5120),
          "slots_p25p2": (_cell_slots_p25p2, SLOT_COUNT, 4, 5120),
-         "multibank": (_cell_multibank, SLOT_COUNT, 4, 6250)}
+         "multibank": (_cell_multibank, SLOT_COUNT, 4, 6250),
+         "c4fm_ppm": (_cell_c4fm_ppm, 1023, 4, 5120)}
 
 # cell bytes kept by ``cell_bytes(..., keep=True)``: the main path's scene
 # is built once for its in-process, worker and monitor holds
@@ -1652,6 +1703,15 @@ def scene_bank_c4fm_grant(slots: int = 1023, timed_chunks: int = 4,
                        keep=True)
 
 
+def scene_bank_c4fm_ppm(slots: int = 1023, timed_chunks: int = 4,
+                        chunk_blocks: int = 5120, **kw) -> BankScene:
+    """The main path's scene through a tuner reading PPM_ERROR high
+    (``_cell_c4fm_ppm``) on the port: the PPM correction fires and
+    retunes every active slot; `kw` goes into the recipe's keyword
+    arguments (a tier: ``host_process``, ``bank_mode``, ``banks``)."""
+    return _scene_cell("c4fm_ppm", slots, timed_chunks, chunk_blocks, **kw)
+
+
 def scene_bank_worker(slots: int = 1023, timed_chunks: int = 4,
                       chunk_blocks: int = 5120) -> BankScene:
     """The main path's scene with ``host_process=True``: the bank's host
@@ -1725,6 +1785,97 @@ def monitor_inputs(directory, slots: int | None = None,
             "events": events}
 
 
+MIXED_CHUNKS = 6                 # the mixed monitor: 6 chunks of 1024 x 6250
+MIXED_BLOCKS = 6250
+MIXED_SLOTS = 4                  # --traffic-slots: banks of 1 + 4 slots
+MIXED_CHANNELS = {"p25": 0, "p25_traffic": 610, "dmr": 300,
+                  "dmr_traffic": TRAFFIC_INDEX, "ltr": 900}
+LTR_IDENT = (3, 33)              # the LTR control channel's (home, group)
+
+
+def mixed_monitor_bytes(chunks: int = MIXED_CHUNKS,
+                        chunk_blocks: int = MIXED_BLOCKS):
+    """chip_smoke.py's ``run_monitor_mixed`` scene on the host: three
+    control channels of the 1023-channel grid at 12.8 MS/s, P25 Phase 1
+    (its IDEN_UP announcing band 0, granting channel 610 there), DMR (the
+    TSCC's aloha and Tier III grants of channel 600) and LTR (the voice
+    tone under CALL words of LTR_IDENT's group), and the two granted
+    channels' calls; `chunks` chunks of 1024 x chunk_blocks (K a multiple
+    of 25 for the LTR bank), one peak, rounded (``_cell_chunks``). Returns
+    (the int8 chunks, {name: its RF frequency})."""
+    from sdrtrunk_tpu_torch.protocol.ltr.messages import ltr_encode_word
+    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
+
+    m, rate = 1024, 25000.0
+    fs, chunk = m * 12500.0, m * chunk_blocks
+    k = 2 * chunk // m
+    n = (chunks + 1) * k
+    offsets = _offsets(np.array(list(MIXED_CHANNELS.values())), m, 12500.0)
+    hz = dict(zip(MIXED_CHANNELS, CENTER_HZ + offsets))
+    dibits = int(n / rate * 4800) + 64
+    control, traffic, _ = p25_streams(
+        dibits, hz["p25"],
+        MIXED_CHANNELS["p25_traffic"] - MIXED_CHANNELS["p25"], band_id=0)
+    dmr_control, dmr_traffic, _ = dmr_streams(dibits)
+    rng = np.random.default_rng(23)
+    word = ltr_encode_word(0, LTR_IDENT[0], *LTR_IDENT, LTR_IDENT[0])[None]
+    data = 0.35 * _square_fsk(word, 0, n, rate / 300.0, np.zeros(1, int))
+    streams = np.concatenate([
+        dibit_rows((control, traffic, dmr_control, dmr_traffic),
+                   lambda d: c4fm_modulate(d, rate), n),
+        fm_streams(data + voice(1, n, rate, rng, 0.5), rate)])
+    return _cell_chunks(lambda j: streams[:, j * k:(j + 1) * k], fs,
+                        12500.0, offsets, k, chunks, chunk), hz
+
+
+def mixed_monitor_inputs(directory, chunks: int = MIXED_CHUNKS,
+                         chunk_blocks: int = MIXED_BLOCKS) -> dict:
+    """chip_smoke.py's ``run_monitor_mixed`` on the host-built bytes
+    (``mixed_monitor_bytes``, its arguments): writes them to directory as
+    a 16-bit IQ wave (``mixed.wav``) and a playlist of the three control
+    channels
+    (``mixed.json``: P25 recording its demodulated bits, DMR, LTR
+    recording its calls as mp2, so that every call is written as mp2),
+    and returns the ``monitor ... --traffic-slots MIXED_SLOTS`` command a
+    user runs on them (the calls and the bits tap ``P25.bits`` under
+    ``audio/``, the event log ``audio/events.jsonl``) with those paths and
+    the last chunk as complex64 (a device-time measurement's input):
+    {"argv", "wave", "audio", "events", "last"}."""
+    from sdrtrunk_tpu_torch.config import (ChannelConfig, DecodeConfig,
+                                           Playlist, RecordConfig,
+                                           SourceConfig)
+    from sdrtrunk_tpu_torch.io.wave import write_complex_wave
+
+    iq8, hz = mixed_monitor_bytes(chunks, chunk_blocks)
+    directory = Path(directory)
+    wave, playlist = directory / "mixed.wav", directory / "mixed.json"
+    iq = np.concatenate([c[:, 0] + 1j * c[:, 1] for c in iq8]
+                        ).astype(np.complex64) / 128.0
+    write_complex_wave(wave, iq, int(1024 * 12500.0))
+    del iq
+    Playlist(channels=[
+        ChannelConfig(name="P25", source=SourceConfig(frequency_hz=hz["p25"]),
+                      decode=DecodeConfig(decoder="p25p1"),
+                      record=RecordConfig(demodulated_bits=True)),
+        ChannelConfig(name="DMR", source=SourceConfig(frequency_hz=hz["dmr"]),
+                      decode=DecodeConfig(decoder="dmr")),
+        ChannelConfig(name="LTR", source=SourceConfig(frequency_hz=hz["ltr"]),
+                      decode=DecodeConfig(decoder="ltr"),
+                      record=RecordConfig(audio=True, audio_format="mp2"))]
+    ).save(playlist)
+    audio = directory / "audio"
+    events = audio / "events.jsonl"
+    argv = ["monitor", "--playlist", playlist, "--input", wave,
+            "--center-frequency", CENTER_HZ, "--traffic-slots", MIXED_SLOTS,
+            "--chunk-samples", 1024 * chunk_blocks,
+            "--max-chunks", chunks, "--audio-dir", audio,
+            "--event-log", events]
+    return {"argv": [str(a) for a in argv], "wave": wave, "audio": audio,
+            "events": events,
+            "last": (iq8[-1][:, 0] + 1j * iq8[-1][:, 1]).astype(
+                np.complex64) / 128.0}
+
+
 def run_bank(scene: BankScene) -> dict:
     """Run a scene as its bench leg does: the warm-up chunks, then the
     timed ones; returns the leg's record. A cell recipe's ``steps``
@@ -1734,6 +1885,7 @@ def run_bank(scene: BankScene) -> dict:
     chunk = orch.chunk_samples
     fs = orch.sample_rate
     steps = (scene.recipe or {}).get("steps") or {}
+    ppm = _watch_ppm(orch) if "ppm" in steps else None
     orch.run(max_chunks=scene.warmup)          # kernel load + acquisition
     with tempfile.TemporaryDirectory() as tmp:
         taps = (_start_taps(orch, Path(tmp), **steps["taps"])
@@ -1749,6 +1901,8 @@ def run_bank(scene: BankScene) -> dict:
     msps = chunk * scene.timed_chunks / elapsed / 1e6
     record = {"msps": msps, "realtime_factor": msps * 1e6 / fs,
               "slots": len(orch.slots)}
+    if ppm is not None:
+        scene.steps["ppm"], record["ppm_wall"] = _ppm_record(orch, *ppm)
     if scene.kind == "c4fm":
         record["active_channels"] = metrics.get("active_channels")
     elif scene.kind in ("dmr", "p25p2"):
@@ -1773,7 +1927,60 @@ def run_bank(scene: BankScene) -> dict:
 # the slot at f through the timed chunks (``_start_taps``, ``_stop_taps``);
 # "rate_change": {"sample_rate": r, "noise_seed": s} then sends a tuner's
 # SAMPLE_RATE_CHANGE to r and runs one chunk of seeded noise
-# (``_rate_change``).
+# (``_rate_change``); "ppm": {} records what the PPM correction did over
+# the whole run (``_watch_ppm``, ``_ppm_record``).
+
+def _watch_ppm(orch):
+    """Keep every metrics line (and the host clock at which it came) and
+    time each correction the PPM monitor applies (the retune of every
+    active slot, ``_apply_ppm``); returns (lines, times, applies)."""
+    lines, times, applies = [], [], []
+
+    def sink(line):
+        lines.append(json.loads(line))
+        times.append(time.perf_counter())
+    orch.metrics_sink = sink
+    monitor = orch.ppm_monitor
+    correct = monitor.on_correct
+
+    def on_correct(ppm):
+        t0 = time.perf_counter()
+        correct(ppm)
+        applies.append((len(lines), (time.perf_counter() - t0) * 1e3))
+    monitor.on_correct = on_correct
+    return lines, times, applies
+
+
+def _ppm_record(orch, lines, times, applies):
+    """(what the PPM correction did, the wall ms around it). The first:
+    each metrics line's (t, correction_ppm, pll_error_hz), the monitor's
+    corrections [(t, ppm)], the correction in force and the device plan
+    of each active slot after the run ([slot, its frequency, bin, bin,
+    step], the step in rad/sample at the channel rate, float64). The
+    second: for each correction its line's index, the ms its retune took,
+    the wall ms of the chunk that fired it (between its line and the one
+    before) and the median of the other chunks'."""
+    steps = np.asarray(orch.steps, np.float64)
+    record = {
+        "lines": [[r["t"], r.get("correction_ppm"), r.get("pll_error_hz")]
+                  for r in lines],
+        "corrections": [[float(t), float(p)]
+                        for t, p in orch.ppm_monitor.corrections],
+        "correction_ppm": float(orch.correction_ppm),
+        "channel_rate": float(orch.rx.channelizer.channel_sample_rate),
+        "plan": [[s.index, float(s.frequency_hz),
+                  *map(int, orch.bins[s.index]), float(steps[s.index])]
+                 for s in orch.slots if s.active]}
+    gaps = np.diff(times) * 1e3
+    fired = [i for i, _ in applies]
+    wall = [{"line": i, "apply_ms": ms,
+             "chunk_wall_ms": float(gaps[i - 1]) if i else None}
+            for i, ms in applies]
+    others = [g for j, g in enumerate(gaps, 1) if j not in fired]
+    return record, {"corrections": wall,
+                    "other_chunks_wall_ms_median":
+                        float(np.median(others)) if others else None}
+
 
 def _start_taps(orch, tmp: Path, slot_hz: float):
     slot = next(s.index for s in orch.slots
@@ -2071,15 +2278,18 @@ def compare_digests(got: dict, want: dict, tolerance: dict) -> dict:
       0; null: no bound);
     * ``totals_share``: {"frames": x, "segments": y}, the most each total
       may be off by as a share of the reference's (default: no bound);
-    * ``rms_rel``: the relative RMS difference allowed (default 0).
+    * ``rms_rel``: the relative RMS difference allowed (default 0);
+    * ``ppm``: the bounds of ``compare_ppm``, for a digest with a "ppm"
+      step.
 
     The chunk hashes, the slot count and the frequencies are always held
     equal, and so are the whole fields (``_WHOLE_FIELDS``: the events, a
-    view's segment rows, a scene's steps) where the reference's digest has
-    them, unless ``may_differ`` names them. Returns {"ok", "chunks_equal",
+    view's segment rows, a scene's steps; the "ppm" step within
+    ``compare_ppm``'s bounds) where the reference's digest has them,
+    unless ``may_differ`` names them. Returns {"ok", "chunks_equal",
     "events_equal", "differing": [{slot, field: [got, want], ...}],
     "whole_differing": {field: [got, want]}, "totals": {field: [got,
-    want]}}."""
+    want]}} and, with a "ppm" step, "ppm" (``compare_ppm``'s)."""
     rms_rel = tolerance.get("rms_rel", 0.0)
     differing = []
     same_shape = (got["slots"] == want["slots"]
@@ -2104,13 +2314,18 @@ def compare_digests(got: dict, want: dict, tolerance: dict) -> dict:
     chunks_equal = got["chunks"] == want["chunks"]
     whole = {f: [got.get(f), want[f]] for f in _WHOLE_FIELDS
              if f in want and got.get(f) != want[f]}
-    fields |= set(whole)
     extra = {}
+    if "ppm" in want:
+        extra["ppm"] = compare_ppm(got.get("ppm"), want["ppm"],
+                                   tolerance.get("ppm", {}))
+        if not extra["ppm"]["ok"]:
+            whole["ppm"] = [got.get("ppm"), want["ppm"]]
+    fields |= set(whole)
     if "rms" in want and same_shape:
         extra["rms_rel_max"] = max(
             abs(g - w) / abs(w) if w else abs(g)
             for g, w in zip(got["rms"], want["rms"]))
-    may_differ = tolerance.get("may_differ", fields - set(_WHOLE_FIELDS))
+    may_differ = tolerance.get("may_differ", fields - set(whole))
     ok = (chunks_equal and same_shape and shares_ok
           and len(differing) <= tolerance.get("slots_differing", 0)
           and fields <= set(may_differ)
@@ -2122,56 +2337,242 @@ def compare_digests(got: dict, want: dict, tolerance: dict) -> dict:
             "totals": totals, **extra}
 
 
+def compare_ppm(got: dict | None, want: dict, tolerance: dict) -> dict:
+    """Hold a "ppm" step (``_ppm_record``) to the reference's within
+    ``tolerance``: {"correction_ppm": the most a correction, the one in
+    force and each line's (rounded to 0.001 ppm) may be off by,
+    "pll_error_hz": the most each line's PLL error (rounded to 0.1 Hz) may
+    be off by, "steps": the most a slot's step may be off by once the
+    difference that the corrections' difference makes (2 pi f dppm 1e-6 /
+    rate at the slot's frequency f) is taken out}, each default 0. The
+    corrections' times, the lines' times and None-ness, and the plan's
+    slots, frequencies and bins are held equal. Returns {"ok", "fired"
+    (the corrections' times, port's), "correction_ppm_off", "pll_error_hz_off",
+    "steps_off", "differing": [what is out of bounds]}."""
+    if got is None:
+        return {"ok": False, "differing": ["no ppm step"]}
+    tol = {k: tolerance.get(k, 0.0) for k in ("correction_ppm",
+                                               "pll_error_hz", "steps")}
+    differing = []
+
+    def off(pairs):                 # None-ness equal, else the largest gap
+        if any((g is None) != (w is None) for g, w in pairs):
+            return float("inf")
+        return round(max((abs(g - w) for g, w in pairs if g is not None),
+                         default=0.0), 9)
+    fired = [t for t, _ in got["corrections"]]
+    if fired != [t for t, _ in want["corrections"]]:
+        differing.append("corrections' times")
+    ppm_off = off([(got["correction_ppm"], want["correction_ppm"])]
+                  + [(g[1], w[1]) for g, w in zip(got["corrections"],
+                                                  want["corrections"])])
+    lines = list(zip(got["lines"], want["lines"]))
+    if len(got["lines"]) != len(want["lines"]) or any(
+            g[0] != w[0] for g, w in lines):
+        differing.append("lines' times")
+    line_ppm_off = off([(g[1], w[1]) for g, w in lines])
+    pll_off = off([(g[2], w[2]) for g, w in lines])
+    plan = list(zip(got["plan"], want["plan"]))
+    if len(got["plan"]) != len(want["plan"]) or any(
+            g[:4] != w[:4] for g, w in plan):
+        differing.append("plan's slots, frequencies or bins")
+    dppm = got["correction_ppm"] - want["correction_ppm"]
+    rate = want["channel_rate"]
+    steps_off = max((abs(g[4] - w[4] - 2 * np.pi * w[1] * dppm * 1e-6
+                         / rate) for g, w in plan), default=0.0)
+    for name, value, bound in (
+            ("correction_ppm", max(ppm_off, line_ppm_off),
+             tol["correction_ppm"]),
+            ("pll_error_hz", pll_off, tol["pll_error_hz"]),
+            ("steps", steps_off, tol["steps"])):
+        if not value <= bound:
+            differing.append(name)
+    return {"ok": not differing, "fired": fired,
+            "correction_ppm_off": max(ppm_off, line_ppm_off),
+            "pll_error_hz_off": pll_off, "steps_off": steps_off,
+            "differing": differing}
+
+
 # the monitor's metrics-line keys held exactly (the rest: the PLL error
 # within a bound, the upload's wall-clock ms and MB/s not at all)
 MONITOR_METRICS = ("t", "samples", "active_channels", "frames", "events",
                    "audio_segments", "correction_ppm")
 
 
+# the bytes of one MPEG-1 Layer II frame of the calls the monitor writes
+# as mp2 (96 kbps at 32 kHz, no padding: audio/mpeg.py)
+MP2_FRAME_BYTES = 432
+
+
+def mp2_frame_shas(data: bytes) -> list:
+    """The sha256 of each MP2_FRAME_BYTES frame of an mp2 call
+    (``SLOT_HASH_HEX`` digits)."""
+    return [hashlib.sha256(data[i:i + MP2_FRAME_BYTES]).hexdigest()
+            [:SLOT_HASH_HEX] for i in range(0, len(data), MP2_FRAME_BYTES)]
+
+
+def mp2_frames_apart(got: list, want: list) -> int:
+    """The frames apart between two calls' frame hashes
+    (``mp2_frame_shas``), each missing or extra frame counted."""
+    return sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+
+
+def mp2_encode(mpeg, pcm) -> bytes:
+    """A call's 8 kHz float PCM as the recorder writes it as mp2, through
+    `mpeg`, either package's ``audio.mpeg`` module."""
+    enc = mpeg.MpegLayer2Encoder(pcm_rate=8000.0)
+    return enc.encode(pcm) + enc.flush()
+
+
+@contextlib.contextmanager
+def mp2_pcm_kept(recorder):
+    """While the block runs, `recorder` (either package's
+    ``audio.recorder`` module) keeps the float32 PCM of each call it
+    writes as mp2; yields {call file name: its samples}."""
+    pcm = {}
+    write = recorder.write_audio_mpeg
+
+    def write_audio_mpeg(path, segment):
+        pcm[Path(path).name] = np.asarray(segment.samples, np.float32)
+        write(path, segment)
+    recorder.write_audio_mpeg = write_audio_mpeg
+    try:
+        yield pcm
+    finally:
+        recorder.write_audio_mpeg = write
+
+
+def mp2_swap(want_calls: list, ref_pcm, own_pcm: dict, encode,
+             encode_cpu=None) -> dict:
+    """The PCM swap of a monitor's mp2 calls, which tells a departure of
+    the port's calls from the reference's (`want_calls`, its digest's)
+    as its encoder's or its PCM's: by call name, the PCM's largest
+    difference (the port's `own_pcm` against the reference's own
+    `ref_pcm`, both {name: float32 samples}; None where the port's is
+    missing or of another length), and the reference's PCM through the
+    port's encoder (``encode(pcm) -> bytes``) as frames apart from the
+    reference's; with `encode_cpu` (the same encoder on the CPU), whether
+    the two encoders' bytes are equal."""
+    swap = {}
+    for call in want_calls:
+        name = call["name"]
+        ref, own = ref_pcm[name], own_pcm.get(name)
+        data = encode(ref)
+        row = {"frames": call["frames"],
+               "pcm_max_abs": None if own is None or len(own) != len(ref)
+               else float(np.abs(own - ref).max()),
+               "encoder_apart": mp2_frames_apart(mp2_frame_shas(data),
+                                                 call["frame_sha"])}
+        if encode_cpu is not None:
+            row["encoder_equals_cpu"] = encode_cpu(ref) == data
+        swap[name] = row
+    return swap
+
+
+def compare_mp2_swap(swap: dict, tolerance: dict) -> list:
+    """What of a PCM swap (``mp2_swap``) is outside ``tolerance``
+    ({"mp2_encoder_frames": {call: the most frames the port's encoder on
+    the reference's PCM may part by}, "pcm_abs": the most the port's PCM
+    may part by}): a list of reasons, empty where it holds. An encoder
+    whose bytes on the card are not its bytes on the CPU fails it."""
+    bounds = tolerance.get("mp2_encoder_frames", {})
+    failed = []
+    for name, row in swap.items():
+        if row["encoder_apart"] > bounds.get(name, 0):
+            failed.append(f"{name}: the encoder parts by "
+                          f"{row['encoder_apart']} frames")
+        if row["pcm_max_abs"] is None or \
+                row["pcm_max_abs"] > tolerance.get("pcm_abs", 0.0):
+            failed.append(f"{name}: the PCM parts by {row['pcm_max_abs']}")
+        if row.get("encoder_equals_cpu") is False:
+            failed.append(f"{name}: the card's encoder is not the CPU's")
+    return failed
+
+
 def monitor_digest(lines, audio_dir, event_log, wave_path) -> dict:
     """What ``monitor`` wrote, in a form both CLIs give: the sha256 of the
     IQ wave it read; its header and summary lines; each metrics line's
     ``MONITOR_METRICS`` and, apart, its ``pll_error_hz``; the event log's
-    rows (every field is on the capture's sample clock); and each call
-    file in audio_dir by name: its sidecar (JSON), samples, rate, the
-    sha256 of its PCM and the PCM's RMS (of the int16 values over 32767,
-    summed in float64). lines: its stdout lines (the JSON ones are
+    rows (every field is on the capture's sample clock); each call file in
+    audio_dir by name: its sidecar (JSON) and, for a wave, its samples,
+    rate, the sha256 of its PCM and the PCM's RMS (of the int16 values
+    over 32767, summed in float64), for an mp2 its bytes, frames
+    (MP2_FRAME_BYTES each), sha256 and the sha256 of each frame
+    (``SLOT_HASH_HEX`` digits); and each bits tap (``*.bits``) by name:
+    its bytes and sha256. lines: its stdout lines (the JSON ones are
     read)."""
     import wave
 
     rows = [json.loads(line) for line in lines if line.startswith("{")]
     metrics = [r for r in rows if "t" in r and "samples" in r]
     calls = []
-    for path in sorted(Path(audio_dir).glob("call_*.wav")):
+    for path in sorted(Path(audio_dir).glob("call_*.wav")) + sorted(
+            Path(audio_dir).glob("call_*.mp2")):
+        call = {"name": path.name,
+                "sidecar": json.loads(Path(f"{path}.json").read_text())}
+        if path.suffix == ".mp2":
+            data = path.read_bytes()
+            call.update(
+                bytes=len(data), frames=len(data) // MP2_FRAME_BYTES,
+                sha256=hashlib.sha256(data).hexdigest(),
+                frame_sha=mp2_frame_shas(data))
+            calls.append(call)
+            continue
         with wave.open(str(path), "rb") as wf:
             rate = wf.getframerate()
             pcm = wf.readframes(wf.getnframes())
         x = np.frombuffer(pcm, "<i2").astype(np.float64) / 32767.0
         calls.append({
-            "name": path.name,
-            "sidecar": json.loads(Path(f"{path}.json").read_text()),
-            "samples": len(x), "rate": rate,
+            **call, "samples": len(x), "rate": rate,
             "pcm_sha256": hashlib.sha256(pcm).hexdigest(),
             "rms": float(np.sqrt(np.mean(np.square(x)))) if len(x) else 0.0})
-    return {"wave_sha256": _file_sha(wave_path),
-            "header": next(r for r in rows if r.get("monitor")),
-            "summary": rows[-1],
-            "metrics": [{k: r.get(k) for k in MONITOR_METRICS}
-                        for r in metrics],
-            "pll_error_hz": [r.get("pll_error_hz") for r in metrics],
-            "events": [json.loads(line) for line in
-                       Path(event_log).read_text().splitlines()
-                       if line.strip()],
-            "calls": calls}
+    digest = {"wave_sha256": _file_sha(wave_path),
+              "header": next(r for r in rows if r.get("monitor")),
+              "summary": rows[-1],
+              "metrics": [{k: r.get(k) for k in MONITOR_METRICS}
+                          for r in metrics],
+              "pll_error_hz": [r.get("pll_error_hz") for r in metrics],
+              "events": [json.loads(line) for line in
+                         Path(event_log).read_text().splitlines()
+                         if line.strip()],
+              "calls": calls}
+    taps = sorted(Path(audio_dir).glob("*.bits"))
+    if taps:
+        digest["bits"] = {p.name: {"bytes": p.stat().st_size,
+                                   "sha256": _file_sha(p)} for p in taps}
+    return digest
+
+
+def _mp2_frames_apart(got: list, want: list) -> dict | None:
+    """The mp2 frames that differ between two digests' calls, by call
+    name, where the calls are alike but for their frames' bytes (the same
+    names, sidecars, byte and frame counts); None where they are not."""
+    def shape(calls):
+        return [{k: v for k, v in c.items()
+                 if k not in ("sha256", "frame_sha")} for c in calls]
+    if shape(got) != shape(want):
+        return None
+    return {w["name"]: mp2_frames_apart(g.get("frame_sha", []),
+                                        w.get("frame_sha", []))
+            for g, w in zip(got, want) if "frame_sha" in w}
 
 
 def compare_monitor(got: dict, want: dict, tolerance: dict) -> dict:
     """Hold a monitor run's digest (``monitor_digest``) to the
     reference's: every field equal but ``pll_error_hz``, each line's
-    within ``tolerance["pll_error_hz"]`` Hz (present on the same lines).
-    Returns {"ok", "differing": {field: [got, want]}, "pll_error_hz_max"}."""
+    within ``tolerance["pll_error_hz"]`` Hz (present on the same lines),
+    and the mp2 calls' frame bytes, of which at most
+    ``tolerance["mp2_frames"][call name]`` frames of each call may differ
+    (default 0). Returns {"ok", "differing": {field: [got, want]},
+    "pll_error_hz_max", "mp2_frames_differing": {call name: frames} or
+    None}."""
     differing = {k: [got.get(k), v] for k, v in want.items()
                  if k != "pll_error_hz" and got.get(k) != v}
+    apart = _mp2_frames_apart(got["calls"], want["calls"])
+    bounds = tolerance.get("mp2_frames", {})
+    if apart is not None and all(n <= bounds.get(name, 0)
+                                 for name, n in apart.items()):
+        differing.pop("calls", None)
     pll = list(zip(got["pll_error_hz"], want["pll_error_hz"]))
     if len(got["pll_error_hz"]) != len(want["pll_error_hz"]) or any(
             (g is None) != (w is None) for g, w in pll):
@@ -2181,7 +2582,8 @@ def compare_monitor(got: dict, want: dict, tolerance: dict) -> dict:
     off = round(max((abs(g - w) for g, w in pll if g is not None),
                     default=0.0), 6)
     ok = not differing and off <= tolerance.get("pll_error_hz", 0.0)
-    return {"ok": ok, "differing": differing, "pll_error_hz_max": off}
+    return {"ok": ok, "differing": differing, "pll_error_hz_max": off,
+            "mp2_frames_differing": apart}
 
 
 # ------------------------------------------------------------- scaling

@@ -230,13 +230,26 @@ failure (the exit code is then not 0):
    to the grant) and the 31-slot multibank (one launch a chunk of DQPSK at
    gain 0.3 and 0.4 and of the bit timing at W = 53), each cell's and
    path's bytes rebuilt on the host by ``bench_torch.cell_bytes``, its
-   events held too. Last, ``monitor``: the CLI (``monitor --bank
+   events held too; and ``c4fm_ppm``, the main path's bytes through a
+   tuner reading +0.7 ppm with the PPM correction on and a 0.4 s window:
+   the correction fires in the second warm-up chunk and retunes all 1023
+   slots while the third is in flight, and its chunk, value, every
+   metrics line's correction and PLL error and the retuned plan are held
+   (``compare_ppm``), the retune's host ms and the firing chunk's wall ms
+   printed. Last, ``monitor``: the CLI (``monitor --bank
    --traffic-slots 1022``, every other setting at its default) on the
    main path's bytes as a 16-bit IQ wave whose sha256 must equal the
    file's, what it wrote (event log, call files and sidecars, metrics and
    summary lines) held to the JAX CLI's, the PLL error within the file's
-   bound. A missing file, a chunk hash that differs or a digest outside
-   its tolerance fails the run.
+   bound; then ``monitor_mixed``: phase 19's scene rebuilt on the host
+   (``bench_torch.mixed_monitor_inputs``), the CLI's event log, bits tap,
+   lines and mp2 calls held to the JAX CLI's (the frames of each call
+   that may differ bounded), and the PCM swap held: the port's PCM of
+   each call within 1e-6 of the reference's own, and that PCM through
+   the port's encoder on the card within its bound of the reference's
+   frames and byte for byte the same encoder's on the CPU. A missing
+   file, a chunk hash that differs or a digest outside its tolerance
+   fails the run.
 
 During every live phase (5-24, 5a) a spy on the calls that reach the kernel
 wrappers records the (kernel, C, T) of each launch on the card; after the
@@ -2567,10 +2580,6 @@ APP_DIR = ROOT / ".scratch" / "chip_smoke"
 DECODE_RATE = 25000.0            # the decode captures' channel rate
 DECODE_RATE_48K = 48000.0        # the capture decoded at W = 20
 MONITOR_CHUNKS = WARMUP + TIMED  # phase 5's scene, 3 + 4 chunks
-MIXED_CHUNKS = 6                 # monitor_mixed: 6 chunks of M x 6250
-MIXED_SLOTS = 4                  # --traffic-slots: banks of 1 + 4 slots
-MIXED_CHANNELS = {"p25": 0, "p25_traffic": 610, "dmr": 300,
-                  "dmr_traffic": TRAFFIC_INDEX, "ltr": 900}
 LTR_IDENT = (3, 33)              # the LTR control channel's (home, group)
 
 
@@ -3014,7 +3023,9 @@ def run_monitor_mixed(card: str) -> dict:
     channels carry their calls. ``monitor --traffic-slots 4`` gives banks
     [(c4fm, 5), (dmr, 5), (ltr, 5)] through MultibankReceiver; the LTR
     channel records mp2 (so every call is written as MPEG-1 Layer II) and
-    the P25 channel its dibits (the bits tap).
+    the P25 channel its dibits (the bits tap). The scene is built on the
+    host (``bench_torch.mixed_monitor_inputs``, as the ``reference``
+    phase's hold of it).
 
     Both grants must be followed (a slot tuned to the channel, the grant
     in the event log) and the P25 one decoded there. With ``banks=`` every
@@ -3023,77 +3034,27 @@ def run_monitor_mixed(card: str) -> dict:
     C4FM one and decodes nothing; the record shows its kind."""
     import shutil
 
-    import numpy as np
-    import torch
-
+    import bench_torch
     from sdrtrunk_tpu_torch.audio.recorder import BitsReader
-    from sdrtrunk_tpu_torch.config import (ChannelConfig, DecodeConfig,
-                                           Playlist, RecordConfig,
-                                           SourceConfig)
-    from sdrtrunk_tpu_torch.dsp.channelizer import Channelizer
-    from sdrtrunk_tpu_torch.protocol.ltr.messages import ltr_encode_word
     from sdrtrunk_tpu_torch.protocol.p25p1 import P25P1Framer
-    from sdrtrunk_tpu_torch.signal.generators import c4fm_modulate
 
-    rate = 25000.0
-    n_ch = (MIXED_CHUNKS + 1) * (2 * MIXED_BLOCKS)
-    idx = MIXED_CHANNELS
-    hz = {k: CENTER_HZ + _offset(i) for k, i in idx.items()}
-    t0 = time.perf_counter()
-    control, traffic, _ = _p25_streams(
-        int(n_ch / rate * 4800) + 64, hz["p25"],
-        traffic_index=idx["p25_traffic"] - idx["p25"], band_id=0)
-    dmr_control, dmr_traffic, _ = _dmr_streams(int(n_ch / rate * 4800) + 64)
-    rng = np.random.default_rng(23)
-    word = torch.as_tensor(ltr_encode_word(0, LTR_IDENT[0], *LTR_IDENT,
-                                           LTR_IDENT[0])[None],
-                           device="cuda")
-    data = 0.35 * _square_fsk(word, n_ch, rate / 300.0,
-                              torch.zeros(1, dtype=torch.long,
-                                          device="cuda"))
-    mod = lambda d: c4fm_modulate(d, rate)  # noqa: E731
-    streams = torch.cat([
-        _dibit_rows((control, traffic, dmr_control, dmr_traffic), mod, n_ch),
-        _fm_streams(data.double() + _voice(1, n_ch, rate, rng, 0.5), rate)])
-    offsets = [_offset(idx[k]) for k in ("p25", "p25_traffic", "dmr",
-                                         "dmr_traffic", "ltr")]
-    ch = Channelizer.design(FS, 12500.0, device="cuda")
-    chunks = synthesize_chunks(ch, streams, offsets, MIXED_CHUNKS,
-                               MIXED_BLOCKS)
-    del streams
-    synth_s = time.perf_counter() - t0
+    slots, ident = bench_torch.MIXED_SLOTS, bench_torch.LTR_IDENT
+    hz = {k: CENTER_HZ + _offset(i)
+          for k, i in bench_torch.MIXED_CHANNELS.items()}
     APP_DIR.mkdir(parents=True, exist_ok=True)
     try:
-        iq = np.concatenate([c[:, 0] + 1j * c[:, 1] for c in chunks]
-                            ).astype(np.complex64) / 128.0
-        wave = _write_iq(APP_DIR / "mixed.wav", iq, FS)
-        del iq
-        playlist = APP_DIR / "mixed.json"
-        Playlist(channels=[
-            ChannelConfig(name="P25", source=SourceConfig(
-                frequency_hz=hz["p25"]), decode=DecodeConfig(
-                decoder="p25p1"), record=RecordConfig(demodulated_bits=True)),
-            ChannelConfig(name="DMR", source=SourceConfig(
-                frequency_hz=hz["dmr"]), decode=DecodeConfig(decoder="dmr")),
-            ChannelConfig(name="LTR", source=SourceConfig(
-                frequency_hz=hz["ltr"]), decode=DecodeConfig(decoder="ltr"),
-                record=RecordConfig(audio=True, audio_format="mp2"))]
-        ).save(playlist)
-        audio = APP_DIR / "audio"
-        events = audio / "events.jsonl"
+        t0 = time.perf_counter()
+        inputs = bench_torch.mixed_monitor_inputs(APP_DIR)
+        synth_s = time.perf_counter() - t0
+        audio, events = inputs["audio"], inputs["events"]
         sessions, host_calls = [], []
 
         def on_session(session):
             sessions.append(session)
             _timed_host(session.orch, host_calls, [])
-        chunk = M * MIXED_BLOCKS
-        run = _run_cli(["monitor", "--playlist", playlist, "--input", wave,
-                        "--center-frequency", CENTER_HZ,
-                        "--traffic-slots", MIXED_SLOTS,
-                        "--chunk-samples", chunk,
-                        "--max-chunks", MIXED_CHUNKS,
-                        "--audio-dir", audio, "--event-log", events],
-                       on_session)
+        chunk = M * bench_torch.MIXED_BLOCKS
+        chunks = bench_torch.MIXED_CHUNKS
+        run = _run_cli(inputs["argv"], on_session)
         session = sessions[0]
         orch = session.orch
         header = next(r for r in run["rows"] if r and r.get("monitor"))
@@ -3104,7 +3065,7 @@ def run_monitor_mixed(card: str) -> dict:
             "ltr_own_call_words": sum(
                 1 for m in controls["LTR"].processor.messages
                 if m.message_type.name == "CALL"
-                and (m.home, m.group) == LTR_IDENT)}
+                and (m.home, m.group) == ident)}
         rows = _event_rows(events)
         followed = {}
         for grant in ("p25_traffic", "dmr_traffic"):
@@ -3119,8 +3080,6 @@ def run_monitor_mixed(card: str) -> dict:
         dibits = BitsReader.read(audio / "P25.bits")
         tsbks = sum(1 for m in P25P1Framer().process(dibits)
                     if m.duid.name == "TSBK")
-        last = (chunks[-1][:, 0] + 1j * chunks[-1][:, 1]).astype(
-            np.complex64) / 128.0
         result = {
             "card": card, "banks": [list(b) for b in orch.banks],
             "slots": header["slots"], "bank_mode": header["bank_mode"],
@@ -3129,11 +3088,12 @@ def run_monitor_mixed(card: str) -> dict:
             "mp2_calls": len(mp2), "mp2_frames": mp2_frames,
             "bits_tap_dibits": len(dibits), "bits_tap_tsbks": tsbks,
             "launches": {e: n for e, n in run["launches"].items() if n},
-            **_monitor_record(run, orch, host_calls, chunk, 2, last),
+            **_monitor_record(run, orch, host_calls, chunk, 2,
+                              inputs["last"]),
             "synthesis_s": synth_s}
         print("[app monitor_mixed] " + json.dumps(result), flush=True)
-        want_banks = [("c4fm", 1 + MIXED_SLOTS), ("dmr", 1 + MIXED_SLOTS),
-                      ("ltr", 1 + MIXED_SLOTS)]
+        want_banks = [("c4fm", 1 + slots), ("dmr", 1 + slots),
+                      ("ltr", 1 + slots)]
         if orch.banks != want_banks:
             raise AssertionError(f"monitor_mixed: banks {orch.banks}")
         if not all(decoded.values()):
@@ -3149,11 +3109,10 @@ def run_monitor_mixed(card: str) -> dict:
                                  f"granted slot: {followed}")
         if not mp2 or not all(mp2_frames):
             raise AssertionError("monitor_mixed: no parsable .mp2 call")
-        if len(dibits) < 0.9 * MIXED_CHUNKS * chunk / FS * 4800 or not tsbks:
+        if len(dibits) < 0.9 * chunks * chunk / FS * 4800 or not tsbks:
             raise AssertionError(f"monitor_mixed: the bits tap holds "
                                  f"{len(dibits)} dibits, {tsbks} TSBKs")
-        want = {e: MIXED_CHUNKS * (e in ("dqpsk", "dqpsk_dmr",
-                                         "bit_timing_ltr"))
+        want = {e: chunks * (e in ("dqpsk", "dqpsk_dmr", "bit_timing_ltr"))
                 for e in _ENTRY_KEYS}
         if run["launches"] != want:
             raise AssertionError(f"monitor_mixed: launches "
@@ -4031,6 +3990,7 @@ REFERENCE_BANKS = {
                     ("gardner_p25p2",)),
     "multibank": (PATHS_FILE, "scene_bank_multibank", {},
                   ("dqpsk", "dqpsk_dmr", "bit_timing_ltr")),
+    "c4fm_ppm": (PATHS_FILE, "scene_bank_c4fm_ppm", {}, ("dqpsk",)),
 }
 
 
@@ -4058,13 +4018,15 @@ def run_reference(card: str) -> dict:
     (bench.py's for a bank; ``bench_torch.cell_bytes`` for a cell and a
     path; every chunk's sha256 held to the reference file before it runs),
     run on the card as its bench leg runs (a path's recipe steps
-    included), and its digest (a cell's and a path's with its events)
-    held slot by slot to the JAX package's within the file's tolerance.
-    The worker (``host_process=True``) is held to the reference's own
-    worker's view and, field for field, to the port's in-process view but
-    where the reference's worker parts from its in-process bank; last, the
-    monitor (``monitor --bank`` through the CLI on the main path's bytes
-    as a 16-bit IQ wave) is held to the JAX CLI's files and lines."""
+    included, c4fm_ppm's record of its PPM correction too), and its digest
+    (a cell's and a path's with its events) held slot by slot to the JAX
+    package's within the file's tolerance. The worker
+    (``host_process=True``) is held to the reference's own worker's view
+    and, field for field, to the port's in-process view but where the
+    reference's worker parts from its in-process bank; last, the monitor
+    (``monitor --bank`` through the CLI on the main path's bytes as a
+    16-bit IQ wave) and the mixed monitor are held to the JAX CLI's files
+    and lines (``_reference_monitor``)."""
     import hashlib
 
     import torch
@@ -4118,6 +4080,7 @@ def run_reference(card: str) -> dict:
                "whole_differing": sorted(held["whole_differing"]),
                **({"rms_rel_max": held["rms_rel_max"]}
                   if "rms_rel_max" in held else {}),
+               **({"ppm": held["ppm"]} if "ppm" in held else {}),
                "tolerance": {k: v for k, v in want["tolerance"].items()
                              if k != "why"},
                "within_tolerance": held["ok"]}
@@ -4158,12 +4121,13 @@ def run_reference(card: str) -> dict:
         if not held["ok"]:
             failed.append(bank)
         del scene
-    monitor = _reference_monitor(card, files[PATHS_FILE]["monitor"])
-    for e, n in monitor.pop("launches").items():
-        launches[e] += n
-    result["banks"]["monitor"] = monitor
-    if not monitor["within_tolerance"]:
-        failed.append("monitor")
+    for name in REFERENCE_MONITORS:
+        monitor = _reference_monitor(card, name, files[PATHS_FILE][name])
+        for e, n in monitor.pop("launches").items():
+            launches[e] += n
+        result["banks"][name] = monitor
+        if not monitor["within_tolerance"]:
+            failed.append(name)
     if failed:
         raise AssertionError(f"reference: {failed} outside their tolerance "
                              f"against {sorted(str(f) for f in files)}")
@@ -4171,40 +4135,76 @@ def run_reference(card: str) -> dict:
     return result
 
 
-def _reference_monitor(card: str, want: dict) -> dict:
-    """``python -m sdrtrunk_tpu_torch.cli monitor`` as the reference file
-    ran the JAX CLI (``bench_torch.monitor_inputs``: the main path's bytes
-    as a 16-bit IQ wave, its sha256 held to the file's before the run, a
-    playlist of the control channel, ``--bank --traffic-slots 1022``, the
-    other settings at their defaults), in this process on the card; what
-    it wrote (``monitor_digest``) held to the file's (``compare_monitor``:
-    the PLL error within the tolerance's bound)."""
+# the reference file's monitors -> (their inputs' builder in bench_torch,
+# the keys of the file's entry it takes, the kernels-line entries they
+# launch once a chunk)
+REFERENCE_MONITORS = {
+    "monitor": ("monitor_inputs", ("slots",), ("dqpsk",)),
+    "monitor_mixed": ("mixed_monitor_inputs", (),
+                      ("dqpsk", "dqpsk_dmr", "bit_timing_ltr")),
+}
+
+
+def _reference_monitor(card: str, name: str, want: dict) -> dict:
+    """``python -m sdrtrunk_tpu_torch.cli monitor ...`` as the reference
+    file ran the JAX CLI, in this process on the card: ``monitor`` on the
+    main path's bytes (``bench_torch.monitor_inputs``: a playlist of the
+    control channel, ``--bank --traffic-slots 1022``, the other settings
+    at their defaults) or ``monitor_mixed`` on phase 19's scene
+    (``bench_torch.mixed_monitor_inputs``: P25, DMR and LTR control
+    channels, ``--traffic-slots 4``, every call as mp2, the P25 bits
+    tap), each a 16-bit IQ wave whose sha256 is held to the file's before
+    the run. What it wrote (``monitor_digest``) is held to the file's
+    (``compare_monitor``: the PLL error within the tolerance's bound, the
+    mp2 frames of each call that may differ). Where the file keeps the
+    reference's own PCM of each mp2 call (``pcm``), the PCM swap is held
+    too (``bench_torch.mp2_swap``, ``compare_mp2_swap``): the port's PCM
+    within the tolerance of the reference's, and the reference's PCM
+    through the port's encoder on the card within its bound of the
+    reference's frames and equal to the same encoder's bytes on the CPU,
+    so that a departure is the PCM's or a known one of the encoder's."""
     import shutil
 
-    import bench_torch
+    import numpy as np
 
-    directory = APP_DIR / "reference_monitor"
+    import bench_torch
+    from sdrtrunk_tpu_torch import use_device
+    from sdrtrunk_tpu_torch.audio import mpeg, recorder
+
+    builder, keys, entries = REFERENCE_MONITORS[name]
+    directory = APP_DIR / f"reference_{name}"
     shutil.rmtree(directory, ignore_errors=True)
     directory.mkdir(parents=True)
     try:
         t0 = time.perf_counter()
-        inputs = bench_torch.monitor_inputs(directory, slots=want["slots"])
+        inputs = getattr(bench_torch, builder)(
+            directory, **{k: want[k] for k in keys})
         wave_s = time.perf_counter() - t0
-        _check_hashes("monitor", [bench_torch._file_sha(inputs["wave"])],
+        _check_hashes(name, [bench_torch._file_sha(inputs["wave"])],
                       [want["digest"]["wave_sha256"]], "waves")
-        print(f"[reference] {card}: monitor: the wave's hash matches the "
+        print(f"[reference] {card}: {name}: the wave's hash matches the "
               f"file (written in {wave_s:.1f} s)", flush=True)
-        run = _run_cli(inputs["argv"])
+        with bench_torch.mp2_pcm_kept(recorder) as pcm:
+            run = _run_cli(inputs["argv"])
         digest = bench_torch.monitor_digest(run["lines"], inputs["audio"],
                                             inputs["events"], inputs["wave"])
     finally:
         shutil.rmtree(APP_DIR, ignore_errors=True)
-    expect = {e: want["chunks"] * (e == "dqpsk") for e in _ENTRY_KEYS}
+    expect = {e: want["chunks"] * (e in entries) for e in _ENTRY_KEYS}
     if run["launches"] != expect:
-        raise AssertionError(f"reference monitor: kernel launches "
+        raise AssertionError(f"reference {name}: kernel launches "
                              f"{run['launches']}, expected {expect}")
     held = bench_torch.compare_monitor(digest, want["digest"],
                                        want["tolerance"])
+    swap, swap_failed = {}, []
+    if "pcm" in want:
+        def on_cpu(x):
+            with use_device("cpu"):
+                return bench_torch.mp2_encode(mpeg, x)
+        swap = bench_torch.mp2_swap(
+            want["digest"]["calls"], np.load(ROOT / want["pcm"]), pcm,
+            lambda x: bench_torch.mp2_encode(mpeg, x), on_cpu)
+        swap_failed = bench_torch.compare_mp2_swap(swap, want["tolerance"])
     row = {"chunks": len(digest["metrics"]), "wall_s": run["wall_s"],
            "summary (port)": digest["summary"],
            "calls (port, reference)": [len(digest["calls"]),
@@ -4214,13 +4214,19 @@ def _reference_monitor(card: str, want: dict) -> dict:
            "pll_error_hz (port, reference)": [
                digest["pll_error_hz"], want["digest"]["pll_error_hz"]],
            "pll_error_hz_max": held["pll_error_hz_max"],
+           **({"bits (port, reference)": [digest.get("bits"),
+                                          want["digest"]["bits"]]}
+              if "bits" in want["digest"] else {}),
+           **({"mp2_frames_differing": held["mp2_frames_differing"],
+               "pcm_swap": swap, "pcm_swap_failed": swap_failed}
+              if "pcm" in want else {}),
            "tolerance": {k: v for k, v in want["tolerance"].items()
                          if k != "why"},
            "differing": sorted(held["differing"]),
-           "within_tolerance": held["ok"]}
-    print(f"[reference] {card}: monitor: " + json.dumps(row), flush=True)
+           "within_tolerance": held["ok"] and not swap_failed}
+    print(f"[reference] {card}: {name}: " + json.dumps(row), flush=True)
     for field, (a, b) in held["differing"].items():
-        print(f"[reference] monitor {field} (port, reference): "
+        print(f"[reference] {name} {field} (port, reference): "
               + json.dumps([a, b])[:4000], flush=True)
     return {**row, "launches": run["launches"]}
 

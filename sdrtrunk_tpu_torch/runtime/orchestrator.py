@@ -555,7 +555,10 @@ class Orchestrator:
                     if "dibits" in outs:
                         flat[f"{key}/sym"] = pack_sym(outs["dibits"],
                                                       outs["valid"])
-                        flat[f"{key}/pll"] = outs["pll_freq"]
+                        # a copy: pll_freq is the decoder state's own
+                        # tensor, which a retune resets in place while
+                        # this chunk may still be pulled
+                        flat[f"{key}/pll"] = outs["pll_freq"].clone()
                         continue
                     if "bits" in outs:
                         flat[f"{key}/sym"] = pack_sym(outs["bits"],
@@ -570,7 +573,7 @@ class Orchestrator:
                 out, st = base(ingest(x), state, bins, steps)
                 if "dibits" in out:
                     return {"sym": pack_sym(out["dibits"], out["valid"]),
-                            "pll_freq": out["pll_freq"]}, st
+                            "pll_freq": out["pll_freq"].clone()}, st
                 return {"audio": out["audio"].to(torch.float32),
                         "audio_gate": out["audio_gate"].to(torch.int8)}, st
 

@@ -29,7 +29,9 @@ monitor, held to the JAX package:
   views of the reference's worker and of its in-process run), the
   per-slot and multibank cells (31) and the monitor
   (1023), each with its chunk hashes, digest, events and a tolerance with
-  its why, in under 200 KB.
+  its why, in under 200 KB; beside them c4fm_ppm and the mixed monitor,
+  which tests/test_torch_reference_ppm.py and
+  tests/test_torch_reference_mixed_monitor.py hold.
 """
 import copy
 import importlib.util
@@ -205,8 +207,11 @@ def _file() -> dict:
 def test_the_file_is_small_and_names_the_reference():
     assert FILE.stat().st_size < 200_000
     data = _file()
-    assert list(data["banks"]) == [*bench_torch.PATHS, "monitor"]
-    assert list(bench_torch.PATHS) == list(PATHS)
+    assert list(data["banks"]) == [*bench_torch.PATHS, "monitor",
+                                   "monitor_mixed"]
+    # c4fm_ppm and the mixed monitor are held by their own files
+    # (test_torch_reference_ppm.py, test_torch_reference_mixed_monitor.py)
+    assert list(bench_torch.PATHS) == [*PATHS, "c4fm_ppm"]
     assert data["generated_by"] == "tools/reference_digests.py"
     assert data["numpy"] and data["jax"]
     for name, entry in data["banks"].items():

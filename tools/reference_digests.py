@@ -37,15 +37,24 @@ are the main path's own scene and the tiers beside the bank:
 is held to, and the same view of the in-process run; ``slots_c4fm`` and
 ``slots_p25p2`` (the per-slot tier at 31 slots, the recording taps and a
 sample-rate change, the P25 Phase 2 key handed to a grant) and
-``multibank`` (``banks=``, 31 slots), built by ``bench_torch.cell_bytes``
-and run as the cells are; and ``monitor``: the JAX package's CLI,
-``monitor --bank --traffic-slots 1022`` with every other setting at its
-default, on ``c4fm_grant``'s bytes written as a 16-bit IQ wave
-(``bench_torch.monitor_inputs``), held by ``bench_torch.monitor_digest``.
+``multibank`` (``banks=``, 31 slots) and ``c4fm_ppm`` (c4fm_grant's
+bytes through a tuner reading +0.7 ppm, the PPM correction on: its
+digest also records every metrics line, the correction and the retuned
+plan), built by ``bench_torch.cell_bytes`` and run as the cells are;
+``monitor``: the JAX package's CLI, ``monitor --bank --traffic-slots
+1022`` with every other setting at its default, on ``c4fm_grant``'s
+bytes written as a 16-bit IQ wave (``bench_torch.monitor_inputs``), held
+by ``bench_torch.monitor_digest``; and ``monitor_mixed``: the CLI's
+``monitor --traffic-slots 4`` on chip_smoke.py's mixed scene rebuilt on
+the host (``bench_torch.mixed_monitor_inputs``: P25, DMR and LTR control
+channels, every call as mp2, the P25 bits tap), each mp2 call's PCM kept
+beside the file in tests/torch_reference/monitor_mixed_pcm.npz for the
+card's PCM swap. Every JAX run takes its device plan from copies
+(``plan_copied``).
 
     JAX_PLATFORMS=cpu python tools/reference_digests.py paths_full_width
 
-takes about 2 minutes.
+takes about 4 minutes.
 
 ``python3 chip_smoke.py reference`` rebuilds the same scenes on the card's
 host (bench_torch's scene builders), checks every chunk's sha256 against
@@ -55,6 +64,7 @@ only where the JAX package does.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import platform
 import sys
@@ -65,6 +75,9 @@ ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "tests" / "torch_reference" / "banks_1023.json"
 CELLS_OUT = ROOT / "tests" / "torch_reference" / "cells_full_width.json"
 PATHS_OUT = ROOT / "tests" / "torch_reference" / "paths_full_width.json"
+# the float32 PCM of each mp2 call of the reference's mixed monitor, by
+# call file name (np.savez_compressed)
+MIXED_PCM = ROOT / "tests" / "torch_reference" / "monitor_mixed_pcm.npz"
 
 SLOTS = 1023
 TIMED_CHUNKS = 6            # bench.py's main: timed_chunks=6 for each leg
@@ -165,6 +178,11 @@ _DC_BIN = ("the granted slot's metrics (its dibit count) may differ: for "
            "of grant latency), it reads the untuned DC bin, which carries "
            "no channel here, and its timing loop on the int8 noise there "
            "follows the channelizer's last bits")
+# the mixed monitor's two mp2 calls: the P25 grant's call at 2 s and
+# the LTR channel's own from the start
+MIXED_P25_CALL = "call_00001_2.00s.mp2"
+MIXED_LTR_CALL = "call_00002_0.00s.mp2"
+
 PATH_TOLERANCES = {
     "c4fm_grant": {"slots_differing": 1, "may_differ": ["metrics"],
                    "why": "frames, audio segments, events and the grant "
@@ -199,6 +217,28 @@ PATH_TOLERANCES = {
                          "slots, 3.4e-8 at most, about half their samples "
                          "a few ulps apart; 3.3e-8 with the inverse FFT in "
                          "complex128)"},
+    "c4fm_ppm": {
+        "slots_differing": 330, "frames_per_slot": 6,
+        "may_differ": ["frames", "metrics", "segments", "segments_sha"],
+        "totals_share": {"frames": 0.002, "segments": 0.003},
+        "ppm": {"correction_ppm": 1e-3, "pll_error_hz": 0.1, "steps": 1e-8},
+        "why": "the correction fires at the same chunk, its value within "
+               "1e-3 ppm (it is one PLL reading: on the CPU at full width "
+               "1.3e-7 ppm apart), every metrics line's correction and "
+               "PLL error equal but a 0.1 Hz rounding step, each slot's "
+               "bins equal and its step the reference's plus what the "
+               "corrections' difference makes, within a float32 ulp (the "
+               "plan is float32); events and the grant equal. A frequency "
+               "error the voice slots' loops track with a lag leaves their "
+               "symbols nearer the decision boundaries, where the "
+               "channelizer's last bits move frames: on the CPU at full "
+               "width the port parts from the reference on 107 of 1023 "
+               "slots (frames on 56, by 3 at most, segments on 6, by one), "
+               "and a port-only change of the inverse FFT's precision "
+               "(complex128) parts the port from itself on 100 (48, 3, "
+               "one), the control channel and the granted slot equal in "
+               "all three; totals within 9 frames of 17195 and segments "
+               "equal. Bounds: three times that spread"},
     "monitor": {"pll_error_hz": 0.1,
                 "why": "the event log, call files, sidecars, PCM, summary "
                        "and every metrics line equal but the control PLL's "
@@ -209,6 +249,31 @@ PATH_TOLERANCES = {
                        "within 2.7e-3 Hz of the reference's, 6.4e-3 Hz "
                        "with a port-only change of the inverse FFT's "
                        "precision; every rounded line equal)"},
+    "monitor_mixed": {
+        "pll_error_hz": 0.1,
+        "mp2_frames": {MIXED_P25_CALL: 6, MIXED_LTR_CALL: 35},
+        "mp2_encoder_frames": {MIXED_P25_CALL: 6, MIXED_LTR_CALL: 13},
+        "pcm_abs": 1e-6,
+        "why": "the event log, the bits tap, the calls' names, sidecars, "
+               "byte and frame counts, the summary and every metrics line "
+               "equal but a 0.1 Hz rounding step of the PLL error (as the "
+               "monitor's); each mp2 call's frames apart bounded by what "
+               "its PCM swap shows (the reference's PCM of the call, kept "
+               "in monitor_mixed_pcm.npz, through each encoder). The P25 "
+               "call (20 frames) carries the reference's PCM exactly, so "
+               "it parts by the port's encoder alone: 4 frames on the CPU "
+               "and on the card (its x4 resample sums in another order "
+               "than XLA's, and a quantizer decision within an ulp flips: "
+               "tests/test_torch_mpeg.py); bound 6. The LTR call (84 "
+               "frames): the port's encoder on the reference's PCM parts "
+               "by 11, the reference's encoder on the port's PCM (banks= "
+               "carries it as float audio, 2.98e-7 at most from the "
+               "reference's on the CPU and on the card) by 22; the run by "
+               "24 on the CPU, 27 on the card; bound 35, the two shares "
+               "and 2. The port's encoder on the reference's PCM within "
+               "its share and 2 (6, 13), its bytes on the card the CPU's, "
+               "and the port's PCM within 1e-6 of the reference's "
+               "(measured 0 and 2.98e-7)"},
 }
 WORKER_TOLERANCE = {"why": "equal field by field to the reference's own "
                            "worker (on the CPU at full width the port's "
@@ -275,6 +340,33 @@ def run_cell(cell: str, slots=None, timed_chunks=None, chunk_blocks=None):
     return run_path(cell, slots, timed_chunks, chunk_blocks)[:3]
 
 
+@contextlib.contextmanager
+def plan_copied():
+    """The JAX Orchestrator's device plan uploaded from copies of its host
+    arrays while the block runs. On the CPU ``jnp.asarray`` may alias a
+    64-byte-aligned NumPy buffer instead of copying it, and ``_tune``
+    writes ``bins`` and ``steps`` in place, so a chunk already queued
+    could take a retune one chunk early, or not, by the buffer's alignment
+    and the threads' timing (ROADMAP Queue 3, Waiting 11). From copies, a
+    retune takes effect from chunk n + 2, as ``run()``'s docstring says
+    and as the port does."""
+    import jax.numpy as jnp
+    from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
+
+    dispatch = Orchestrator._dispatch
+
+    def _dispatch(self, dev_iq):
+        if self._plan_dev is None:
+            self._plan_dev = (jnp.asarray(self.bins.copy()),
+                              jnp.asarray(self.steps.copy()))
+        return dispatch(self, dev_iq)
+    Orchestrator._dispatch = _dispatch
+    try:
+        yield
+    finally:
+        Orchestrator._dispatch = dispatch
+
+
 def _jax_orchestrator(recipe: dict, chunks):
     """The JAX package's Orchestrator built from a recipe."""
     import bench_torch
@@ -296,15 +388,34 @@ def run_path(cell: str, slots=None, timed_chunks=None, chunk_blocks=None):
 
     chunks, recipe = bench_torch.cell_bytes(cell, slots, timed_chunks,
                                             chunk_blocks, keep=True)
+    record, _, digest, view = run_recipe(recipe, chunks)
+    return record, digest, recipe, view
+
+
+def run_recipe(recipe: dict, chunks) -> tuple:
+    """A recipe (``bench_torch.cell_bytes``', its keyword arguments as the
+    caller set them: a tier's ``host_process``, ``bank_mode`` or
+    ``banks``) run by the JAX package as ``bench_torch.run_bank`` runs a
+    scene, its steps included. Returns (the record, the steps recorded,
+    the digest with its events and steps, None with ``host_process``, its
+    ``worker_view``)."""
+    import bench_torch
+
     orch = _jax_orchestrator(recipe, chunks)
-    scene = bench_torch.BankScene(
-        recipe["kind"], orch, chunks, recipe["warmup"],
-        recipe["timed_chunks"], bench_torch._segment_slots(orch),
-        recipe=recipe)
-    record = bench_torch.run_bank(scene)
-    digest = bench_torch.bank_digest(orch, chunks, scene.segments,
-                                     events=True, steps=scene.steps)
-    return record, digest, recipe, bench_torch.worker_view(orch, chunks)
+    try:
+        scene = bench_torch.BankScene(
+            recipe["kind"], orch, chunks, recipe["warmup"],
+            recipe["timed_chunks"], bench_torch._segment_slots(orch),
+            recipe=recipe)
+        with plan_copied():
+            record = bench_torch.run_bank(scene)
+        digest = None if orch.bank_host is not None else \
+            bench_torch.bank_digest(orch, chunks, scene.segments,
+                                    events=True, steps=scene.steps)
+        return (record, scene.steps, digest,
+                bench_torch.worker_view(orch, chunks))
+    finally:
+        orch.close()
 
 
 def run_worker(slots=None, timed_chunks=None, chunk_blocks=None) -> dict:
@@ -317,14 +428,7 @@ def run_worker(slots=None, timed_chunks=None, chunk_blocks=None) -> dict:
                                             timed_chunks, chunk_blocks,
                                             keep=True)
     recipe["kwargs"]["host_process"] = True
-    orch = _jax_orchestrator(recipe, chunks)
-    try:
-        bench_torch.run_bank(bench_torch.BankScene(
-            recipe["kind"], orch, chunks, recipe["warmup"],
-            recipe["timed_chunks"], [], recipe=recipe))
-        return bench_torch.worker_view(orch, chunks)
-    finally:
-        orch.close()
+    return run_recipe(recipe, chunks)[3]
 
 
 def run_monitor(directory: Path, slots=None, timed_chunks=None,
@@ -332,7 +436,6 @@ def run_monitor(directory: Path, slots=None, timed_chunks=None,
     """The JAX package's CLI, ``monitor`` on the main path's bytes
     (``bench_torch.monitor_inputs`` in directory), on the CPU in this
     process. Returns (its digest, ``monitor_digest``; the inputs)."""
-    import contextlib
     import io
 
     import bench_torch
@@ -341,13 +444,38 @@ def run_monitor(directory: Path, slots=None, timed_chunks=None,
     inputs = bench_torch.monitor_inputs(directory, slots, timed_chunks,
                                         chunk_blocks)
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), plan_copied():
         rc = cli.main(["--platform", "cpu", *inputs["argv"]])
     if rc != 0:
         raise AssertionError(f"the reference's monitor exited {rc}")
     return bench_torch.monitor_digest(
         out.getvalue().splitlines(), inputs["audio"], inputs["events"],
         inputs["wave"]), inputs
+
+
+def run_mixed_monitor(directory: Path, **kw):
+    """The JAX package's CLI, ``monitor --traffic-slots 4`` on the mixed
+    monitor's bytes (``bench_torch.mixed_monitor_inputs(directory,
+    **kw)``: P25, DMR and LTR control channels, every call as mp2, the P25
+    bits tap), on the CPU in this process. Returns (its digest,
+    ``monitor_digest``; the inputs; {call file name: the float32 PCM its
+    mp2 encodes})."""
+    import io
+
+    import bench_torch
+    from sdrtrunk_tpu import cli
+    from sdrtrunk_tpu.audio import recorder
+
+    inputs = bench_torch.mixed_monitor_inputs(directory, **kw)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), plan_copied(), \
+            bench_torch.mp2_pcm_kept(recorder) as pcm:
+        rc = cli.main(["--platform", "cpu", *inputs["argv"]])
+    if rc != 0:
+        raise AssertionError(f"the reference's mixed monitor exited {rc}")
+    return bench_torch.monitor_digest(
+        out.getvalue().splitlines(), inputs["audio"], inputs["events"],
+        inputs["wave"]), inputs, pcm
 
 
 def write(banks: dict, meta: dict, path: Path = OUT) -> None:
@@ -405,6 +533,8 @@ def _cell_entries() -> dict:
 def _path_entries() -> dict:
     import tempfile
 
+    import numpy as np
+
     import bench_torch
     paths = {}
     for cell in bench_torch.PATHS:
@@ -422,7 +552,7 @@ def _path_entries() -> dict:
             "free_slots": recipe["free_slots"],
             "seconds": round(seconds, 1),
             "record": {k: v for k, v in record.items()
-                       if k not in ("msps", "realtime_factor")},
+                       if k not in ("msps", "realtime_factor", "ppm_wall")},
             "tolerance": PATH_TOLERANCES[cell], "digest": digest}
         if cell == "c4fm_grant":
             paths[cell].update(worker_builder="bench_torch.py::"
@@ -443,6 +573,20 @@ def _path_entries() -> dict:
         "chunks": len(digest["metrics"]), "seconds": round(seconds, 1),
         "tolerance": PATH_TOLERANCES["monitor"], "digest": digest}
     print(json.dumps({"path": "monitor", "seconds": round(seconds, 1),
+                      "summary": digest["summary"]}), flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        digest, inputs, pcm = run_mixed_monitor(Path(tmp))
+        argv = [a.replace(tmp, "<dir>") for a in inputs["argv"]]
+    seconds = time.perf_counter() - t0
+    np.savez_compressed(MIXED_PCM, **pcm)
+    paths["monitor_mixed"] = {
+        "builder": "bench_torch.py::mixed_monitor_inputs", "argv": argv,
+        "slots": digest["header"]["slots"],
+        "chunks": len(digest["metrics"]), "seconds": round(seconds, 1),
+        "pcm": str(MIXED_PCM.relative_to(ROOT)),
+        "tolerance": PATH_TOLERANCES["monitor_mixed"], "digest": digest}
+    print(json.dumps({"path": "monitor_mixed", "seconds": round(seconds, 1),
                       "summary": digest["summary"]}), flush=True)
     return paths
 
