@@ -1,0 +1,6 @@
+"""Device ms of the step's select_mix layer on one chunk, alone, from a copy of
+the running state (CUDA events around three runs after one warm run)."""
+
+
+def read(run):
+    return run.layer_ms.get("select_mix")
