@@ -1,0 +1,10 @@
+"""Device ms a chunk of the tail's compaction, correlation and packing (the
+program's ``step.compact`` spans) inside the running loop: the device's
+busy intervals within the spans' device-side mirrors, in a profiled
+window with the program's tracer on (``spans.step_ms``)."""
+
+
+def read(run):
+    from benchmark import spans
+
+    return spans.step_ms(run, "compact")

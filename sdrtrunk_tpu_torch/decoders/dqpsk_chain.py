@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..dsp import agc, demod, fir
+from ..runtime import tracing
 from ..tree import per_channel
 
 __all__ = ["DQPSKChainDecoder"]
@@ -55,8 +56,11 @@ class DQPSKChainDecoder(nn.Module):
     def batched_call(self, x: torch.Tensor, state: dict
                      ) -> tuple[dict, dict]:
         """Decode a (C, T) block; state leaves carry a leading C axis."""
-        (leveled, power_trace), front_state = self._front(x, state)
-        dibits, valid, psk_state = self.demod.batched(leveled, state["psk"])
+        with tracing.span("step.c4fm_front"):
+            (leveled, power_trace), front_state = self._front(x, state)
+        with tracing.span("step.dqpsk"):
+            dibits, valid, psk_state = self.demod.batched(leveled,
+                                                          state["psk"])
         outputs = {"dibits": dibits, "valid": valid,
                    "power_db": power_trace, "pll_freq": psk_state.pll_freq}
         return outputs, {**front_state, "psk": psk_state}

@@ -20,6 +20,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..dsp import demod, design, fir, iir
+from ..runtime import tracing
 from ..tree import per_channel
 
 __all__ = ["AUDIO_RATE", "NBFMConfig", "NBFMDecoder"]
@@ -71,8 +72,11 @@ class _AnalogDecoder(nn.Module):
         power_db (C, T)}, new state): the chain's front at the channel
         rate (``_front``), then the resampler, whose new state is the
         front's last tpp samples."""
-        audio_full, gate, power_trace, front_state = self._front(x, state)
-        audio, audio_gate = self._resample(audio_full, gate, state["resamp"])
+        with tracing.span("step.nbfm_chain"):
+            audio_full, gate, power_trace, front_state = self._front(x,
+                                                                     state)
+            audio, audio_gate = self._resample(audio_full, gate,
+                                               state["resamp"])
         outputs = {"audio": audio, "audio_gate": audio_gate,
                    "power_db": power_trace}
         return outputs, {**front_state, "resamp": audio_full[:, -self._tpp:]}

@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from ..runtime.tracing import h2d
+
 __all__ = ["single_pole", "single_pole_apply", "dc_removal",
            "deemphasis_alpha", "deemphasis_makeup_gain", "deemphasis"]
 
@@ -32,8 +34,7 @@ def _linrec(a: float, b: torch.Tensor, y0: torch.Tensor,
     nb = -(-n // block)
     dev = b.device
     bp = torch.nn.functional.pad(b, (0, nb * block - n)).reshape(c, nb, block)
-    t_mat = torch.as_tensor(_tri_powers(a, block), dtype=torch.float32,
-                            device=dev)
+    t_mat = h2d(_tri_powers(a, block), dtype=torch.float32, device=dev)
     partial = torch.matmul(bp, t_mat.T)                   # (C, nb, L)
     a_l = float(a) ** block
     s_mat = np.zeros((nb, nb))
@@ -43,12 +44,11 @@ def _linrec(a: float, b: torch.Tensor, y0: torch.Tensor,
         y0_pow = np.power(a_l, np.arange(nb))
         in_pow = np.power(float(a), np.arange(1, block + 1))
     ends = partial[:, :, -1]                              # (C, nb)
-    c_in = (torch.matmul(ends, torch.as_tensor(s_mat, dtype=torch.float32,
-                                               device=dev).T)
-            + torch.as_tensor(y0_pow, dtype=torch.float32, device=dev)
-            * y0[:, None])
-    y = (torch.as_tensor(in_pow, dtype=torch.float32, device=dev)
-         * c_in[:, :, None] + partial)
+    c_in = (torch.matmul(ends, h2d(s_mat, dtype=torch.float32,
+                                   device=dev).T)
+            + h2d(y0_pow, dtype=torch.float32, device=dev) * y0[:, None])
+    y = (h2d(in_pow, dtype=torch.float32, device=dev) * c_in[:, :, None]
+         + partial)
     return y.reshape(c, -1)[:, :n]
 
 

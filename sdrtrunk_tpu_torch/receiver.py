@@ -25,6 +25,7 @@ from . import resolve_device
 from .dsp.channelizer import Channelizer, channelize_core
 from .dsp.extract import plan_channels
 from .dsp.synthesizer import rot4
+from .runtime import tracing
 from .tree import tree_map
 
 __all__ = ["MultibankReceiver", "WidebandReceiver", "dynamic_select_mix",
@@ -95,14 +96,16 @@ def _channelize_select(x, state: dict, hmat: torch.Tensor, bins, step_rad,
     2) float32 I/Q pairs) behind the carried history, then select, join
     and mix every slot. Returns (streams (C, K) complex64, the new
     ``chan``, ``mixer_phase`` and ``rot`` entries)."""
-    if x.dim() == 2:
-        x = torch.view_as_complex(x.to(torch.float32).contiguous())
-    chan = state["chan"]
-    xp = torch.cat([chan, x.to(torch.complex64)])
-    y = channelize_core(xp, hmat)                          # (K, M)
+    with tracing.span("step.channelize"):
+        if x.dim() == 2:
+            x = torch.view_as_complex(x.to(torch.float32).contiguous())
+        chan = state["chan"]
+        xp = torch.cat([chan, x.to(torch.complex64)])
+        y = channelize_core(xp, hmat)                      # (K, M)
     k = y.shape[0]
-    streams, new_phase = dynamic_select_mix(
-        y, state["rot"], state["mixer_phase"], bins, step_rad, rot_table)
+    with tracing.span("step.select_mix"):
+        streams, new_phase = dynamic_select_mix(
+            y, state["rot"], state["mixer_phase"], bins, step_rad, rot_table)
     return streams, {"chan": xp[xp.shape[0] - chan.shape[0]:],
                      "mixer_phase": new_phase,
                      "rot": (state["rot"] + k) % 4}

@@ -54,6 +54,7 @@ from ..protocol.dmr.framer import MAX_SYNC_BIT_ERRORS as _DMR_SYNC_MAX_ERRORS
 from ..protocol.p25p1.bankframer import SYNC_DIBIT_PATTERNS
 from ..protocol.p25p2.bankframer import P25P2_SYNC_DIBITS
 from ..receiver import MultibankReceiver, WidebandReceiver
+from . import tracing
 from .bank_processor import (AnalogBankProcessor, DMRBankProcessor,
                              MixedBankProcessor, P25P1BankProcessor,
                              P25P2BankProcessor, unpack_dibits)
@@ -80,6 +81,10 @@ _PROTOCOL_LABELS = {"c4fm": "APCO25", "p25p1": "APCO25", "lsm": "APCO25",
                     "mpt1327": "MPT1327"}
 _ANALOG_KINDS = ("nbfm", "am")
 _MIXED_KINDS = ("ltr", "ltrnet", "passport", "mpt1327")
+# the spans of a chunk that the metrics line's ``stages_ms`` gives while
+# the tracer is on (each span's own ms, its children's included)
+_STAGES_MS = ("prepare", "upload.stage", "upload.ring_wait", "upload.copy",
+              "dispatch", "h2d", "pull.download", "pull.frame", "process")
 
 
 @dataclass
@@ -110,6 +115,11 @@ def ingest(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.int8:
         return x.to(torch.float32) * (1.0 / 127.0)
     return x
+
+
+def _ingest(x: torch.Tensor) -> torch.Tensor:
+    with tracing.span("step.channelize"):
+        return ingest(x)
 
 
 def pack_sym(symbols: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -164,7 +174,7 @@ def compact_and_correlate(dib: torch.Tensor, valid: torch.Tensor, cap: int,
     d4 = sdib.reshape(c, cap // 4, 4)
     dib4 = d4[..., 0] | (d4[..., 1] << 2) | (d4[..., 2] << 4) | (d4[..., 3] << 6)
 
-    pats = torch.as_tensor(np.asarray(patterns, np.uint8), device=dev)
+    pats = tracing.h2d(np.asarray(patterns, np.uint8), device=dev)
     npat, plen = pats.shape
     lags = cap - (plen - 1)
     err = torch.zeros((c, npat, lags), dtype=torch.int16, device=dev)
@@ -460,7 +470,12 @@ class Orchestrator:
 
         self.now = 0.0
         self.samples_processed = 0
-        self._last_upload: tuple[float, int] | None = None
+        # calls of each stage so far: a chunk's number in each (tracing)
+        self._calls = dict.fromkeys(
+            ("prepare", "upload", "dispatch", "pull", "process"), 0)
+        # upload number -> (copy's start and end events, bytes) on CUDA,
+        # (host seconds, bytes) on the CPU; read by _process
+        self._uploads: dict = {}
         self._pinned: dict = {}
         # live recording taps: the wideband IQ and per-slot dibits can
         # start and stop mid-run
@@ -549,12 +564,13 @@ class Orchestrator:
         base = self.rx.build_dynamic()
         if self.banks is not None:
             def fused_banks(x, state, bins, steps):
-                out, st = base(ingest(x), state, bins, steps)
+                out, st = base(_ingest(x), state, bins, steps)
                 flat = {}
                 for key, outs in out.items():
                     if "dibits" in outs:
-                        flat[f"{key}/sym"] = pack_sym(outs["dibits"],
-                                                      outs["valid"])
+                        with tracing.span("step.compact"):
+                            flat[f"{key}/sym"] = pack_sym(outs["dibits"],
+                                                          outs["valid"])
                         # a copy: pll_freq is the decoder state's own
                         # tensor, which a retune resets in place while
                         # this chunk may still be pulled
@@ -570,9 +586,11 @@ class Orchestrator:
             return fused_banks
         if not self.bank_mode:
             def fused_slots(x, state, bins, steps):
-                out, st = base(ingest(x), state, bins, steps)
+                out, st = base(_ingest(x), state, bins, steps)
                 if "dibits" in out:
-                    return {"sym": pack_sym(out["dibits"], out["valid"]),
+                    with tracing.span("step.compact"):
+                        sym = pack_sym(out["dibits"], out["valid"])
+                    return {"sym": sym,
                             "pll_freq": out["pll_freq"].clone()}, st
                 return {"audio": out["audio"].to(torch.float32),
                         "audio_gate": out["audio_gate"].to(torch.int8)}, st
@@ -582,7 +600,7 @@ class Orchestrator:
             bit_cap = self._bank_bit_cap
 
             def fused_mixed(x, state, bins, steps):
-                out, st = base(ingest(x), state, bins, steps)
+                out, st = base(_ingest(x), state, bins, steps)
                 return {"packed_mixed": pack_mixed(
                     out["audio"], out["audio_gate"], out["bits"],
                     out["valid"], bit_cap)}, st
@@ -592,22 +610,25 @@ class Orchestrator:
             audio_format = self.audio_format
 
             def fused_audio(x, state, bins, steps):
-                out, st = base(ingest(x), state, bins, steps)
-                return {"packed_audio": pack_audio(
-                    out["audio"], out["audio_gate"], audio_format)}, st
+                out, st = base(_ingest(x), state, bins, steps)
+                with tracing.span("step.pack_audio"):
+                    packed = pack_audio(out["audio"], out["audio_gate"],
+                                        audio_format)
+                return {"packed_audio": packed}, st
 
             return fused_audio
         cap = self._bank_cap
         sync = sync_patterns(self.decoder_name)
 
         def fused(x, state, bins, steps):
-            out, st = base(ingest(x), state, bins, steps)
-            dib4, counts, hbits = compact_and_correlate(
-                out["dibits"], out["valid"], cap, *sync)
-            packed = torch.cat([
-                dib4.reshape(-1), hbits.reshape(-1),
-                counts.view(torch.uint8),
-                out["pll_freq"][:1].contiguous().view(torch.uint8)])
+            out, st = base(_ingest(x), state, bins, steps)
+            with tracing.span("step.compact"):
+                dib4, counts, hbits = compact_and_correlate(
+                    out["dibits"], out["valid"], cap, *sync)
+                packed = torch.cat([
+                    dib4.reshape(-1), hbits.reshape(-1),
+                    counts.view(torch.uint8),
+                    out["pll_freq"][:1].contiguous().view(torch.uint8)])
             return {"packed": packed}, st
 
         return fused
@@ -860,63 +881,93 @@ class Orchestrator:
 
     # --- data plane ----------------------------------------------------
 
+    def _chunk(self, stage: str) -> int:
+        """This call's number among the stage's calls: its chunk's number
+        in the tracer's spans."""
+        n = self._calls[stage]
+        self._calls[stage] = n + 1
+        return n
+
     def _prepare(self, iq: np.ndarray) -> np.ndarray:
         """Host-side wire format: int8 (n, 2) passes raw, complex becomes
         float32 (n, 2) pairs; with ``ingest_format="int4"`` either becomes
         packed 4-bit uint8 (n,), one byte a sample (``ingest`` unpacks it
         on the device). The IQ recording tap writes here."""
-        iq = np.asarray(iq)
-        if self._iq_writer is not None:
-            self._iq_writer.write(iq.astype(np.float32) / 127.0
-                                  if iq.dtype == np.int8 else iq)
-        if np.iscomplexobj(iq):
-            iq = np.stack([iq.real, iq.imag], -1).astype(np.float32)
-        if self.ingest_format == "int4":
-            if iq.dtype == np.int8:
-                v = np.clip(np.round(iq.astype(np.float32) / 16.0),
-                            -8, 7).astype(np.int32)
-            else:
-                v = np.clip(np.round(iq * 7.0), -8, 7).astype(np.int32)
-            return (((v[:, 0] & 15) << 4) | (v[:, 1] & 15)).astype(np.uint8)
-        return iq
+        with tracing.span("prepare", self._chunk("prepare")):
+            iq = np.asarray(iq)
+            if self._iq_writer is not None:
+                self._iq_writer.write(iq.astype(np.float32) / 127.0
+                                      if iq.dtype == np.int8 else iq)
+            if np.iscomplexobj(iq):
+                iq = np.stack([iq.real, iq.imag], -1).astype(np.float32)
+            if self.ingest_format == "int4":
+                if iq.dtype == np.int8:
+                    v = np.clip(np.round(iq.astype(np.float32) / 16.0),
+                                -8, 7).astype(np.int32)
+                else:
+                    v = np.clip(np.round(iq * 7.0), -8, 7).astype(np.int32)
+                return (((v[:, 0] & 15) << 4)
+                        | (v[:, 1] & 15)).astype(np.uint8)
+            return iq
 
     def _upload(self, iq: np.ndarray) -> torch.Tensor:
         """Host->device transfer of a prepared chunk (runs on the
         pipeline's upload thread in run()). On CUDA it stages through one
         of two page-locked buffers and copies asynchronously; a buffer is
-        refilled only after its previous copy has finished."""
-        t0 = time.perf_counter()
-        src = torch.from_numpy(np.ascontiguousarray(iq))
-        if self.device.type == "cuda":
-            key = (tuple(src.shape), src.dtype)
-            if key not in self._pinned:
-                self._pinned[key] = [
-                    [torch.empty(src.shape, dtype=src.dtype,
-                                 pin_memory=True), None] for _ in range(2)]
-            ring = self._pinned[key]
-            ring.append(ring.pop(0))
-            buf, done = ring[-1]
-            if done is not None:
-                done.synchronize()
-            buf.copy_(src)
-            dev = buf.to(self.device, non_blocking=True)
-            ring[-1][1] = torch.cuda.Event()
-            ring[-1][1].record()
-        else:
-            dev = src
-        self._last_upload = (time.perf_counter() - t0, iq.nbytes)
+        refilled only after its previous copy has finished. The copy's
+        two timing events (the second is the buffer's) or, on the CPU, the
+        call's host seconds wait for the chunk's metrics line. The events
+        time the copy alone where no other thread queues work on the
+        stream between them: run() queues the next step only once this
+        call has returned."""
+        n = self._chunk("upload")
+        with tracing.span("upload", n):
+            t0 = time.perf_counter()
+            src = torch.from_numpy(np.ascontiguousarray(iq))
+            if self.device.type == "cuda":
+                dev, timing = self._upload_cuda(src)
+            else:
+                dev, timing = src, time.perf_counter() - t0
+        self._uploads[n] = (timing, iq.nbytes)
+        self._uploads.pop(n - 8, None)       # chunks never processed
         return dev
+
+    def _upload_cuda(self, src: torch.Tensor):
+        """(the chunk on the card, its copy's start and end events)."""
+        key = (tuple(src.shape), src.dtype)
+        if key not in self._pinned:
+            self._pinned[key] = [
+                [torch.empty(src.shape, dtype=src.dtype,
+                             pin_memory=True), None] for _ in range(2)]
+        ring = self._pinned[key]
+        ring.append(ring.pop(0))
+        buf, done = ring[-1]
+        if done is not None:
+            with tracing.span("upload.ring_wait"):
+                if tracing.enabled() and not done.query():
+                    tracing.count("upload.ring_waits")
+                done.synchronize()
+        with tracing.span("upload.stage"):
+            buf.copy_(src)
+        with tracing.span("upload.copy"):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dev = buf.to(self.device, non_blocking=True)
+            done = ring[-1][1] = torch.cuda.Event(enable_timing=True)
+            done.record()
+        return dev, (start, done)
 
     def _dispatch(self, dev_iq: torch.Tensor):
         """Queue the live step for an already-uploaded chunk."""
-        if self._plan_dev is None:
-            self._plan_dev = (
-                torch.as_tensor(self.bins, dtype=torch.long,
+        with tracing.span("dispatch", self._chunk("dispatch")):
+            if self._plan_dev is None:
+                self._plan_dev = (
+                    tracing.h2d(self.bins, dtype=torch.long,
                                 device=self.device),
-                torch.as_tensor(self.steps, device=self.device))
-        out, self.state = self.step(dev_iq, self.state, *self._plan_dev)
-        self.samples_processed += dev_iq.shape[0]
-        return out, self.samples_processed / self.sample_rate
+                    tracing.h2d(self.steps, device=self.device))
+            out, self.state = self.step(dev_iq, self.state, *self._plan_dev)
+            self.samples_processed += dev_iq.shape[0]
+            return out, self.samples_processed / self.sample_rate
 
     def run_chunk(self, iq: np.ndarray) -> dict:
         """Process one wideband chunk through the slot bank + host layer."""
@@ -986,34 +1037,58 @@ class Orchestrator:
         run(), strictly in chunk order): the bank tier's transfer, unpack
         and framing (``_pull_bank``), or the per-slot outputs to the
         host."""
-        if self.bank_mode:
-            return self._pull_bank(out, now)
-        return {key: v.cpu().numpy() for key, v in out.items()}
+        with tracing.span("pull", self._chunk("pull")):
+            if self.bank_mode:
+                return self._pull_bank(out, now)
+            with tracing.span("pull.download"):
+                return {key: v.cpu().numpy() for key, v in out.items()}
 
     def _pull_bank(self, out: dict, now: float) -> dict:
         """Transfer + unpack (+ bank-frame for the digital kinds, or the
         worker process's round trip; stateful, in chunk order)."""
         if self.bank_host is not None:
+            # the slots' mask as the pull starts, before the transfer
             active = np.array([s.active for s in self.slots])
             control_index = next(s.index for s in self.slots if s.is_control)
-            reply = self.bank_host.process_chunk(
-                out["packed"].cpu().numpy(), active, now, control_index)
-            return {"worker_reply": reply}
-        if self.bank_mixed:
-            return {"bank_mixed": self._split_packed_mixed(
-                out["packed_mixed"].cpu().numpy())}
-        if self.bank_analog:
-            audio, gate = self._split_packed_audio(
-                out["packed_audio"].cpu().numpy())
-            return {"bank_audio": audio, "bank_gate": gate}
-        dib4, hits, counts, pll_raw = self._split_packed(
-            out["packed"].cpu().numpy())
-        if self._bits_recorders:
-            self._tap_bits_bank(dib4, counts)
-        msgs = self.bank_proc.frame_chunk(dib4, counts, hits)
-        return {"bank_msgs": msgs, "counts": counts, "pll_raw": pll_raw}
+        key = ("packed_mixed" if self.bank_mixed else
+               "packed_audio" if self.bank_analog else "packed")
+        with tracing.span("pull.download"):
+            buf = out[key].cpu().numpy()
+        with tracing.span("pull.frame"):
+            if self.bank_host is not None:
+                reply = self.bank_host.process_chunk(buf, active, now,
+                                                     control_index)
+                return {"worker_reply": reply}
+            if self.bank_mixed:
+                return {"bank_mixed": self._split_packed_mixed(buf)}
+            if self.bank_analog:
+                audio, gate = self._split_packed_audio(buf)
+                return {"bank_audio": audio, "bank_gate": gate}
+            dib4, hits, counts, pll_raw = self._split_packed(buf)
+            if self._bits_recorders:
+                self._tap_bits_bank(dib4, counts)
+            msgs = self.bank_proc.frame_chunk(dib4, counts, hits)
+            return {"bank_msgs": msgs, "counts": counts, "pll_raw": pll_raw}
 
     def _process(self, out: dict, now: float) -> dict:
+        """The host layer of a chunk whose outputs are on the host (or
+        pulled here): route, follow traffic, and emit the metrics line.
+        While the tracer is on the line also gives the chunk's host ms by
+        span (``stages_ms``) and its host arrays copied to the device
+        (``h2d_copies``)."""
+        n = self._chunk("process")
+        with tracing.span("process", n):
+            metrics = self._metrics_of(out, now, n)
+        if tracing.enabled():
+            spans = tracing.take_chunk(n)
+            metrics["stages_ms"] = {name: round(spans[name][0] * 1e3, 3)
+                                    for name in _STAGES_MS if name in spans}
+            metrics["h2d_copies"] = spans.get("h2d", (0.0, 0))[1]
+        if self.metrics_sink is not None:
+            self.metrics_sink(json.dumps(metrics))
+        return metrics
+
+    def _metrics_of(self, out: dict, now: float, n: int) -> dict:
         self.now = now
         if any(isinstance(v, torch.Tensor) for v in out.values()):
             out = self._pull(out, now)                 # un-pipelined path
@@ -1064,9 +1139,14 @@ class Orchestrator:
             "events": len(self.traffic.events),
             "audio_segments": len(self.audio_segments),
         }
-        if self._last_upload is not None:
-            dt, nbytes = self._last_upload
-            metrics["upload_ms"] = round(dt * 1e3, 1)
+        upload = self._uploads.pop(n, None)
+        if upload is not None:
+            # on CUDA the copy's device time: the chunk is on the host, so
+            # its copy has ended and reading the events does not wait
+            timing, nbytes = upload
+            dt = (timing[0].elapsed_time(timing[1]) * 1e-3
+                  if isinstance(timing, tuple) else timing)
+            metrics["upload_ms"] = round(dt * 1e3, 3)
             if dt > 0:
                 metrics["upload_mbps"] = round(nbytes / dt / 1e6, 1)
         framer = getattr(self.bank_proc, "framer", None)
@@ -1090,8 +1170,6 @@ class Orchestrator:
         if pll_err_hz is not None:
             metrics["pll_error_hz"] = round(pll_err_hz, 1)
             metrics["correction_ppm"] = round(self.correction_ppm, 3)
-        if self.metrics_sink is not None:
-            self.metrics_sink(json.dumps(metrics))
         return metrics
 
     def _route_bank(self, out: dict) -> int:

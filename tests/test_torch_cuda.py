@@ -793,3 +793,45 @@ def test_pipeline_world_size_one_over_nccl_on_card(card, tmp_path):
         assert torch.equal(carry["tail"], state)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_tracer_on_card(card):
+    """The port's tracer over a small C4FM bank's ``run()`` on the card:
+    every chunk's upload stages and launches its copy under its own spans,
+    and waits on its pinned buffer's previous copy from the third chunk on
+    (two buffers); the metrics line gives the copy's device time and the
+    step's 5 host arrays copied to the card (7 with the slots' plan)."""
+    import json
+
+    from sdrtrunk_tpu_torch.runtime import tracing
+    from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
+
+    orch = Orchestrator(None, 800000.0, 450e6, [0.0], slots=40,
+                        bank_mode=True, ppm_correction=False,
+                        chunk_samples=64 * 400, device=card)
+    rng = np.random.default_rng(8)
+    chunks = iter([rng.integers(-128, 128, (orch.chunk_samples, 2))
+                   .astype(np.int8) for _ in range(5)])
+    orch.source = lambda n: next(chunks)
+    lines = []
+    orch.metrics_sink = lambda line: lines.append(json.loads(line))
+    tracing.drain()
+    tracing.enable(True)
+    try:
+        orch.run(max_chunks=5)
+    finally:
+        tracing.enable(False)
+    records, counts = tracing.drain()
+    orch.close()
+    names = {(r.name, r.chunk): r for r in records}
+    for g in range(5):
+        for part in ("upload.stage", "upload.copy"):
+            assert names[(part, g)].parent is names[("upload", g)]
+        assert (("upload.ring_wait", g) in names) == (g >= 2)
+    assert counts.get("upload.ring_waits", 0) <= 3
+    assert [line["h2d_copies"] for line in lines] == [7, 5, 5, 5, 5]
+    for line in lines:
+        assert 0 < line["upload_ms"] < 50
+        assert line["upload_mbps"] > 0
+        assert {"upload.stage", "upload.copy"} <= set(line["stages_ms"])
