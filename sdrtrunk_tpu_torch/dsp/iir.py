@@ -13,7 +13,7 @@ import math
 import numpy as np
 import torch
 
-from ..runtime.tracing import h2d
+from ..runtime.tracing import h2d_once
 
 __all__ = ["single_pole", "single_pole_apply", "dc_removal",
            "deemphasis_alpha", "deemphasis_makeup_gain", "deemphasis"]
@@ -32,24 +32,40 @@ def _linrec(a: float, b: torch.Tensor, y0: torch.Tensor,
     """Solve y[c, t] = a*y[c, t-1] + b[c, t] with y[c, -1] = y0[c]."""
     c, n = b.shape
     nb = -(-n // block)
+    a = float(a)
+    a_l = a ** block
     dev = b.device
+
+    def const(name: str, build) -> torch.Tensor:
+        # made on the host and copied once per pole, shape and device
+        return h2d_once(("linrec." + name, a, block, nb), build,
+                        dtype=torch.float32, device=dev)
+
     bp = torch.nn.functional.pad(b, (0, nb * block - n)).reshape(c, nb, block)
-    t_mat = h2d(_tri_powers(a, block), dtype=torch.float32, device=dev)
+    t_mat = const("t", lambda: _tri_powers(a, block))
+    s_mat = const("s", lambda: _carry_powers(a_l, nb))
+    y0_pow = const("y0", lambda: _powers(a_l, 0, nb))
+    in_pow = const("in", lambda: _powers(a, 1, block + 1))
     partial = torch.matmul(bp, t_mat.T)                   # (C, nb, L)
-    a_l = float(a) ** block
+    ends = partial[:, :, -1]                              # (C, nb)
+    c_in = torch.matmul(ends, s_mat.T) + y0_pow * y0[:, None]
+    y = in_pow * c_in[:, :, None] + partial
+    return y.reshape(c, -1)[:, :n]
+
+
+def _carry_powers(a_l: float, nb: int) -> np.ndarray:
+    """(nb, nb) S[i, j] = a_l^(i-1-j) for j < i, else 0: block j's end
+    carried into block i."""
     s_mat = np.zeros((nb, nb))
     if nb > 1:
         s_mat[1:, :-1] = _tri_powers(a_l, nb - 1)
+    return s_mat
+
+
+def _powers(a: float, start: int, stop: int) -> np.ndarray:
+    """a^k for k in [start, stop)."""
     with np.errstate(under="ignore"):
-        y0_pow = np.power(a_l, np.arange(nb))
-        in_pow = np.power(float(a), np.arange(1, block + 1))
-    ends = partial[:, :, -1]                              # (C, nb)
-    c_in = (torch.matmul(ends, h2d(s_mat, dtype=torch.float32,
-                                   device=dev).T)
-            + h2d(y0_pow, dtype=torch.float32, device=dev) * y0[:, None])
-    y = (h2d(in_pow, dtype=torch.float32, device=dev) * c_in[:, :, None]
-         + partial)
-    return y.reshape(c, -1)[:, :n]
+        return np.power(a, np.arange(start, stop))
 
 
 def single_pole(x: torch.Tensor, alpha: float, y0=0.0) -> torch.Tensor:

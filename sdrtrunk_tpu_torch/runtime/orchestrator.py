@@ -162,7 +162,8 @@ def compact_and_correlate(dib: torch.Tensor, valid: torch.Tensor, cap: int,
     :141-145), which reads the first 23 compacted dibits: below counts
     whenever a slot has 23 symbols in the chunk (a live chunk of K
     channel samples has about K / 5.2).
-    Each compact lag is tested against every pattern (``sync_patterns``)
+    Each compact lag is tested against every pattern (``sync_patterns``,
+    copied to the device on first use by ``tracing.h2d_once``)
     by XOR-popcount; a hit is a lag whose best pattern has <= max_errors
     bit errors. Returns (dib4 (C, cap/4) uint8,
     counts (C,) int32, hits (C, cap/8) uint8) in the bank processor's
@@ -174,7 +175,9 @@ def compact_and_correlate(dib: torch.Tensor, valid: torch.Tensor, cap: int,
     d4 = sdib.reshape(c, cap // 4, 4)
     dib4 = d4[..., 0] | (d4[..., 1] << 2) | (d4[..., 2] << 4) | (d4[..., 3] << 6)
 
-    pats = tracing.h2d(np.asarray(patterns, np.uint8), device=dev)
+    host = np.asarray(patterns, np.uint8)
+    pats = tracing.h2d_once(("sync_patterns", host.tobytes(), host.shape),
+                            host.copy, device=dev)
     npat, plen = pats.shape
     lags = cap - (plen - 1)
     err = torch.zeros((c, npat, lags), dtype=torch.int16, device=dev)
@@ -1074,8 +1077,9 @@ class Orchestrator:
         """The host layer of a chunk whose outputs are on the host (or
         pulled here): route, follow traffic, and emit the metrics line.
         While the tracer is on the line also gives the chunk's host ms by
-        span (``stages_ms``) and its host arrays copied to the device
-        (``h2d_copies``)."""
+        span (``stages_ms``), its host arrays copied to the device
+        (``h2d_copies``) and its constants served from their kept device
+        copies (``h2d_cached``)."""
         n = self._chunk("process")
         with tracing.span("process", n):
             metrics = self._metrics_of(out, now, n)
@@ -1084,6 +1088,7 @@ class Orchestrator:
             metrics["stages_ms"] = {name: round(spans[name][0] * 1e3, 3)
                                     for name in _STAGES_MS if name in spans}
             metrics["h2d_copies"] = spans.get("h2d", (0.0, 0))[1]
+            metrics["h2d_cached"] = spans.get("h2d.cached", (0.0, 0))[1]
         if self.metrics_sink is not None:
             self.metrics_sink(json.dumps(metrics))
         return metrics

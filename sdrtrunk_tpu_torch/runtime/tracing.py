@@ -21,6 +21,10 @@ Chunks: the Orchestrator numbers the calls of each of its stages
 Each stage takes every chunk once, in chunk order, so equal numbers are
 one chunk's. The tracer is process-wide: trace one Orchestrator at a
 time. Names below a stage or a layer take a dot (``upload.stage``).
+
+Host arrays reach the device through ``h2d`` (a copy, and on CUDA a
+synchronise, each call) or, for the step's constants, ``h2d_once`` (a copy
+on first use, then the kept device tensor).
 """
 from __future__ import annotations
 
@@ -31,8 +35,8 @@ from contextlib import nullcontext
 
 import torch
 
-__all__ = ["PREFIX", "Span", "count", "drain", "enable", "enabled", "h2d",
-           "span", "take_chunk"]
+__all__ = ["PREFIX", "Span", "count", "drain", "enable", "enabled",
+           "forget_constants", "h2d", "h2d_once", "span", "take_chunk"]
 
 PREFIX = "sdr."
 # records kept between drains (the oldest go first) and chunks whose sums
@@ -47,6 +51,9 @@ _local = threading.local()
 _records: deque = deque(maxlen=_MAX_RECORDS)
 _counts: dict = {}
 _chunks: dict = {}           # chunk -> {name: [seconds, calls]}
+# h2d_once's device copies, emptied whole past this many
+_MAX_CONSTANTS = 256
+_constants: dict = {}        # (key, dtype, device) -> torch.Tensor
 
 
 def enable(on: bool = True) -> None:
@@ -97,15 +104,21 @@ class Span:
         with _lock:
             _records.append(self)
             if self.chunk is not None:
-                sums = _chunks.get(self.chunk)
-                if sums is None:
-                    sums = _chunks[self.chunk] = {}
-                    if len(_chunks) > _MAX_CHUNKS:
-                        del _chunks[next(iter(_chunks))]
-                acc = sums.setdefault(self.name, [0.0, 0])
-                acc[0] += self.end - self.start
-                acc[1] += 1
+                _add(self.chunk, self.name, self.end - self.start)
         return False
+
+
+def _add(chunk, name: str, seconds: float) -> None:
+    """One call of ``seconds`` to ``name`` in ``chunk``'s sums (under
+    _lock)."""
+    sums = _chunks.get(chunk)
+    if sums is None:
+        sums = _chunks[chunk] = {}
+        if len(_chunks) > _MAX_CHUNKS:
+            del _chunks[next(iter(_chunks))]
+    acc = sums.setdefault(name, [0.0, 0])
+    acc[0] += seconds
+    acc[1] += 1
 
 
 def _stack() -> list:
@@ -154,9 +167,42 @@ def h2d(array, dtype=None, device=None) -> torch.Tensor:
     """``torch.as_tensor(array, dtype=dtype, device=device)``: the one way
     the live step copies a host array to the device. On CUDA the copy is
     from pageable memory and ends in a stream synchronise; traced, each is
-    an ``h2d`` span and counts under ``h2d``."""
+    an ``h2d`` span and counts under ``h2d``. A constant the step needs on
+    every call goes through ``h2d_once`` instead, which copies it here on
+    first use only."""
     if not _on:
         return torch.as_tensor(array, dtype=dtype, device=device)
     count("h2d")
     with span("h2d"):
         return torch.as_tensor(array, dtype=dtype, device=device)
+
+
+def h2d_once(key, build, dtype=None, device=None) -> torch.Tensor:
+    """The device copy of the host array ``build()``, made through ``h2d``
+    the first time (``key``, ``dtype``, ``device``) is asked for and kept:
+    a later call builds nothing, copies nothing and never synchronises.
+    ``key`` holds exactly what the array's values depend on. The tensor is
+    shared by every caller of the key, so it is only read, never written
+    in place. Traced, each call served from the kept copies counts under
+    ``h2d.cached``, and in the chunk of the span open on its thread (the
+    metrics line's ``h2d_cached``). Past 256 keys the kept copies are
+    dropped and made again on use."""
+    k = (key, dtype, device)
+    t = _constants.get(k)
+    if t is None:
+        if len(_constants) >= _MAX_CONSTANTS:
+            _constants.clear()
+        t = _constants[k] = h2d(build(), dtype=dtype, device=device)
+    elif _on:
+        stack = _stack()
+        with _lock:
+            _counts["h2d.cached"] = _counts.get("h2d.cached", 0) + 1
+            if stack and stack[-1].chunk is not None:
+                _add(stack[-1].chunk, "h2d.cached", 0.0)
+    return t
+
+
+def forget_constants() -> None:
+    """Drop ``h2d_once``'s kept copies: each key is built and copied anew
+    on its next use."""
+    _constants.clear()

@@ -800,8 +800,10 @@ def test_tracer_on_card(card):
     """The port's tracer over a small C4FM bank's ``run()`` on the card:
     every chunk's upload stages and launches its copy under its own spans,
     and waits on its pinned buffer's previous copy from the third chunk on
-    (two buffers); the metrics line gives the copy's device time and the
-    step's 5 host arrays copied to the card (7 with the slots' plan)."""
+    (two buffers); the metrics line gives the copy's device time, the
+    first step's 5 host-built constants copied to the card with the slots'
+    plan (7), and no copy after: each warm step takes the 5 from the
+    card."""
     import json
 
     from sdrtrunk_tpu_torch.runtime import tracing
@@ -817,6 +819,7 @@ def test_tracer_on_card(card):
     lines = []
     orch.metrics_sink = lambda line: lines.append(json.loads(line))
     tracing.drain()
+    tracing.forget_constants()
     tracing.enable(True)
     try:
         orch.run(max_chunks=5)
@@ -830,7 +833,8 @@ def test_tracer_on_card(card):
             assert names[(part, g)].parent is names[("upload", g)]
         assert (("upload.ring_wait", g) in names) == (g >= 2)
     assert counts.get("upload.ring_waits", 0) <= 3
-    assert [line["h2d_copies"] for line in lines] == [7, 5, 5, 5, 5]
+    assert [line["h2d_copies"] for line in lines] == [7, 0, 0, 0, 0]
+    assert [line["h2d_cached"] for line in lines] == [0, 5, 5, 5, 5]
     for line in lines:
         assert 0 < line["upload_ms"] < 50
         assert line["upload_mbps"] > 0
