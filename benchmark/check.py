@@ -26,7 +26,8 @@ itself; ``near``, the least gap to any of the reference's candidates
 (``<leaf>_near``, the raw samples beside the one it keeps). The chain's
 ``GUARDED`` leaves are compared in the slots its ``guard`` holds: the
 C4FM loop's where both sides took as many symbols, the NBFM audio's
-where the squelch is open.
+where the squelch is open and the discriminator is well conditioned
+near the chunk's end (``reference/nbfm.py``).
 
 Each number's limit is in ``checks/<workload>.json``, beside the sample
 sizes, with the readings it was set from in PERF.md.

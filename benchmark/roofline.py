@@ -19,6 +19,24 @@ FP64_OPS_PER_S = 34e12
 # line a sample, the interpolation, decision and loop updates a symbol
 DQPSK_OPS_PER_SAMPLE = 13
 DQPSK_OPS_PER_SYMBOL = 70
+# the Gardner kernel's (csrc/gardner.cu, psk_common.cuh), counted as: a
+# product, sum or compare one, a fused multiply-add two, cos, sin and a
+# reciprocal square root one each; selects, negations, conversions and the
+# phase wrap's rare subtraction none. A sample, 13: the same symbol_loop as
+# the DQPSK kernel's (the PLL mix 8: cos, sin, two products, two
+# multiply-adds; the phase sum and its wrap's two compares 3; sp - 1 and
+# the due compare 2). A symbol, 144: the mid point 41 (the clip of sp 2,
+# floor and fraction 2, the arm's product and clip 3, the base's clip 2,
+# two 8-tap interpolations of a product and seven multiply-adds 30, the
+# base-set compares 2); the current point 40 (dsps / 2, then as the mid
+# point's but the clip of sp); two differential normalisations 28 (each:
+# the product's parts 6, the squared magnitude 3, two compares, the
+# reciprocal square root, two products); the timing error 8 (two
+# differences, a product and a multiply-add, the NaN test, a clip 2); the
+# quadrant decision 9 (two sign compares, three products and a difference,
+# a clip 2, the NaN test); the timing and PLL updates 18
+GARDNER_OPS_PER_SAMPLE = 13
+GARDNER_OPS_PER_SYMBOL = 144
 
 
 def least_ms(nbytes: float, ops: float, ops_per_s: float) -> float:
@@ -43,7 +61,20 @@ def dqpsk_ms(c: int, t: int, window: int, sps: float) -> float:
     four float32 and two complex64 leaves a channel), writes one byte a
     sample and the new state; its operations at the float64 rate, for
     the symbols T / sps a channel."""
-    state = window * 8 + 4 * 4 + 2 * 8
+    return _symbol_loop_ms(c, t, window * 8 + 4 * 4 + 2 * 8, sps,
+                           DQPSK_OPS_PER_SAMPLE, DQPSK_OPS_PER_SYMBOL)
+
+
+def gardner_ms(c: int, t: int, window: int, sps: float) -> float:
+    """The Gardner kernel, as ``dqpsk_ms`` counts it: its state a W-sample
+    complex64 window, four float32 and three complex64 leaves a
+    channel."""
+    return _symbol_loop_ms(c, t, window * 8 + 4 * 4 + 3 * 8, sps,
+                           GARDNER_OPS_PER_SAMPLE, GARDNER_OPS_PER_SYMBOL)
+
+
+def _symbol_loop_ms(c: int, t: int, state: int, sps: float,
+                    per_sample: int, per_symbol: int) -> float:
     nbytes = 8 * c * t + t * c + 129 * 8 * 4 + 2 * c * state
-    ops = c * t * DQPSK_OPS_PER_SAMPLE + c * (t / sps) * DQPSK_OPS_PER_SYMBOL
+    ops = c * t * per_sample + c * (t / sps) * per_symbol
     return least_ms(nbytes, ops, FP64_OPS_PER_S)

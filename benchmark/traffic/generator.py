@@ -4,14 +4,10 @@ seed.
 
 A mix places ``slots`` channels on the configuration's bin grid
 ("all": every usable bin, lowest first, as a full bank; "spread": evenly
-over the span) and gives each slot a signal from its ``signals`` list:
-
-* ``c4fm``: 4-level FM at the symbol rate, +/-600 and +/-1800 Hz,
-  through the standard's C4FM pulse (raised cosine, alpha 0.2, with its
-  inverse-sinc shaping), of a dibit sequence in a data file
-  beside the mix, repeated; each slot starts at its own seeded point of it;
-* ``fm_tone``: narrowband FM of a seeded voice-band tone;
-* ``noise``: nothing but the channel noise.
+over the span) and gives each slot a signal from its ``signals`` list.
+An entry's ``signal`` names its kind, the module ``signals/<kind>.py``
+(the contract is in ``signals/__init__.py``), which makes the slots'
+baseband; a new kind is a new module there.
 
 An entry takes ``count`` slots (the first free ones), a seeded ``share``
 of the free ones, or the ``rest``. Every slot gets a seeded carrier offset
@@ -28,6 +24,7 @@ of bytes on one device type.
 """
 from __future__ import annotations
 
+import importlib
 import math
 from dataclasses import dataclass
 from pathlib import Path
@@ -38,8 +35,6 @@ import torch
 from ..reference import dsp
 
 HERE = Path(__file__).resolve().parent
-C4FM_DEVIATION_HZ = 600.0          # one symbol unit (TIA-102.BAAA)
-DIBIT_LEVELS = np.array([1.0, 3.0, -1.0, -3.0])
 
 
 @dataclass
@@ -56,46 +51,24 @@ class Replay:
 
 
 def read_dibits(name: str) -> np.ndarray:
+    """A dibit sequence from a data file beside the mixes: one digit
+    0-3 a dibit."""
     text = (HERE / name).read_text().strip()
     return np.frombuffer(text.encode(), np.uint8) - ord("0")
 
 
-def c4fm_pulse(alpha: float = 0.2, span: int = 12, res: int = 64):
-    """TIA-102.BAAA's C4FM frequency pulse on a grid of 1 / res symbol:
-    the raised-cosine Nyquist filter cascaded with the shaping filter
-    P(f) = (pi f T) / sin(pi f T), by a cosine transform of the product,
-    scaled so that a train of equal symbols sums to their level. Returns
-    (times in symbols, values)."""
-    fmax = (1.0 + alpha) / 2.0
-    f = np.linspace(0.0, fmax, 2048)
-    f1 = (1.0 - alpha) / 2.0
-    h = np.where(f > f1, 0.5 * (1.0 + np.cos(np.pi / alpha * (f - f1))), 1.0)
-    x = np.maximum(np.pi * f, 1e-12)
-    h = h * np.where(f > 0, x / np.sin(np.minimum(x, np.pi - 1e-9)), 1.0)
-    t = np.arange(-span // 2 * res, span // 2 * res + 1) / res
-    return t, 2.0 * np.trapezoid(
-        h[None, :] * np.cos(2.0 * np.pi * t[:, None] * f[None, :]), f, axis=1)
-
-
-def c4fm_baseband(dibits: np.ndarray, n: int, rate: float,
-                  symbol_rate: float, span: int = 12) -> np.ndarray:
-    """n samples of the repeated dibit sequence as C4FM: the symbol
-    levels through the C4FM pulse, evaluated at each sample's true
-    fractional symbol time, then frequency modulated at 600 Hz a level."""
-    sps = rate / symbol_rate
-    nsym = int(np.ceil(n / sps)) + span
-    levels = DIBIT_LEVELS[np.resize(dibits, nsym)]
-    grid, pulse = c4fm_pulse(span=span)
-    t = np.arange(n) / sps
-    k0 = np.floor(t).astype(np.int64)
-    msg = np.zeros(n)
-    for d in range(-span // 2, span // 2 + 1):
-        k = k0 + d
-        ok = (k >= 0) & (k < nsym)
-        msg += np.where(ok, levels[np.clip(k, 0, nsym - 1)]
-                        * np.interp(t - k, grid, pulse, 0.0, 0.0), 0.0)
-    phase = dsp.TWO_PI * C4FM_DEVIATION_HZ * np.cumsum(msg) / rate
-    return np.exp(1j * phase)
+def signal_kind(name: str):
+    """The module of a signal kind, ``signals/<name>.py``."""
+    path = HERE / "signals" / f"{name}.py"
+    full = f"{__package__}.signals.{name}"
+    if not name.isidentifier():
+        raise ValueError(f"unknown signal {name!r}: no {path}")
+    try:
+        return importlib.import_module(full)
+    except ModuleNotFoundError as e:
+        if e.name != full:
+            raise
+        raise ValueError(f"unknown signal {name!r}: no {path}") from None
 
 
 def slot_offsets(config: dict, mix: dict) -> np.ndarray:
@@ -156,32 +129,9 @@ class _Rows:
             rows = [s for s in range(slots) if owner[s] == i]
             if not rows:
                 continue
-            kind = e["signal"]
-            if kind == "c4fm":
-                dib = read_dibits(e["dibits"])
-                period = len(dib) * self.rate / e["symbol_rate_hz"]
-                starts = rng.integers(
-                    0, int(e.get("start_spread_periods", 1) * period),
-                    len(rows))
-                n = int(starts.max()) + chunks * k + 1
-                base = c4fm_baseband(dib, n, self.rate, e["symbol_rate_hz"])
-                self.parts.append((kind, rows, {
-                    "base": torch.as_tensor(base, device=device),
-                    "starts": torch.as_tensor(starts, device=device)}))
-            elif kind == "fm_tone":
-                lo, hi = e["tone_hz"]
-                tone = rng.uniform(lo, hi, len(rows))
-                self.parts.append((kind, rows, {
-                    "tone": torch.as_tensor(tone, device=device),
-                    "beta": torch.as_tensor(
-                        e["level"] * e["deviation_hz"] / tone, device=device),
-                    "phi": torch.as_tensor(
-                        rng.uniform(0.0, dsp.TWO_PI, len(rows)),
-                        device=device)}))
-            elif kind == "noise":
-                self.parts.append((kind, rows, {}))
-            else:
-                raise ValueError(f"unknown signal {kind!r}")
+            kind = signal_kind(e["signal"])
+            self.parts.append((kind, rows, kind.make(
+                e, rows, rng, self.rate, chunks * k, device)))
         self.noise = 10.0 ** (-mix["snr_db"] / 20.0) / math.sqrt(2.0)
         self.gen = torch.Generator(device=device)
         self.gen.manual_seed(int(mix["seed"]) % (2 ** 63))
@@ -193,16 +143,10 @@ class _Rows:
         n = j * self.k + torch.arange(self.k, device=dev, dtype=torch.float64)
         rows = torch.zeros((self.slots, self.k), dtype=torch.complex128,
                            device=dev)
-        for kind, idx, par in self.parts:
-            sel = torch.as_tensor(idx, device=dev)
-            if kind == "c4fm":
-                at = par["starts"][:, None] + n.long()[None, :]
-                rows[sel] = par["base"][at]
-            elif kind == "fm_tone":
-                ph = par["beta"][:, None] * torch.sin(
-                    dsp.TWO_PI * par["tone"][:, None] * n[None, :] / self.rate
-                    + par["phi"][:, None])
-                rows[sel] = torch.polar(torch.ones_like(ph), ph)
+        for kind, idx, part in self.parts:
+            v = kind.fill(part, n)
+            if v is not None:
+                rows[torch.as_tensor(idx, device=dev)] = v
         freq = torch.as_tensor(self.freq, device=dev)[:, None]
         theta = torch.as_tensor(self.theta, device=dev)[:, None]
         turn = torch.remainder(dsp.TWO_PI * freq * n[None, :] / self.rate
