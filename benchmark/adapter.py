@@ -6,8 +6,10 @@ download, and, for the traced run, each layer of the step alone.
 
 The program's private names this file uses, the benchmark's contract with
 the program: ``Orchestrator._prepare``, ``_upload``, ``_dispatch``,
-``_activate``, ``_bank_cap``, ``state``, ``bins``, ``steps``, ``rx``,
-``bank_mode``, ``audio_format``, ``decoder_name``; the receiver's
+``_activate``, ``_bank_cap``, ``state``, ``bins`` and ``steps`` (the
+slots' plan: each slot's bin pair, equal for one bin, and float32
+residual mixer step, held against ``check.slot_front`` at set-up),
+``rx``, ``bank_mode``, ``audio_format``, ``decoder_name``; the receiver's
 ``channelizer.hmat``, ``rot4`` and ``decoder`` (``_front``,
 ``demod.batched``, ``_resample``); and the module functions ``ingest``,
 ``channelize_core``, ``dynamic_select_mix``, ``compact_and_correlate``,
@@ -18,6 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .check import slot_front
 
 
 class System:
@@ -47,6 +51,7 @@ class System:
                 not all(s.active for s in self.orch.slots):
             raise RuntimeError("the orchestrator did not tune the slots in "
                                "the replay set's order")
+        _same_front(self.orch, *slot_front(config, replay))
         self.tier = "bank" if self.orch.bank_mode else "slot"
         self.slots = len(offsets)
         self.device = torch.device(device)
@@ -162,6 +167,22 @@ class System:
     def close(self) -> None:
         self.orch.close()
         self.orch = None
+
+
+def _same_front(orch, pairs: np.ndarray, steps: np.ndarray) -> None:
+    """Raise, naming the first slot, where the orchestrator's bins and
+    steps are not the slots' front as the check takes it: its pair (both
+    the slot's bin for one bin) and the float32 rounding of its step."""
+    steps = steps.astype(np.float32)
+    bad = np.flatnonzero((np.asarray(orch.bins) != pairs).any(axis=1)
+                         | (np.asarray(orch.steps) != steps))
+    if bad.size:
+        i = int(bad[0])
+        raise RuntimeError(
+            f"slot {i} ({bad.size} in all): the orchestrator tuned bins "
+            f"{orch.bins[i].tolist()}, step {float(orch.steps[i])!r}; the "
+            f"check's front has bins {pairs[i].tolist()}, step "
+            f"{float(steps[i])!r}")
 
 
 def _clone(tree):

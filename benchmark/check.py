@@ -6,11 +6,14 @@ states a rounding apart they can settle on different timings for
 seconds, so the reference cannot follow the program from a state of its
 own. It follows the program step by step instead: for each chunk the
 window kept, it starts from the program's own carried state before the
-chunk, runs the chunk through ingest, channelizer, select and mix and
-the decoder chain, and compares the chunk's outputs (what the program's
-transfer says for a seeded sample of slots) and every leaf of the state
-after it: the front's (``FRONT``: the channelizer's input history, the
-slots' mixer phases, the two-bin join's rotation) and the chain's
+chunk, runs the chunk through ingest, the slots' channel front
+(``front``: the channelizer, each slot's bin or, where its decoder
+kind's reference states ``SLOT_FRONT = "bin_pair"``, its two bins
+joined, and the residual mix: ``slot_front``) and the decoder chain,
+and compares the chunk's outputs (what the program's transfer says for
+a seeded sample of slots) and every leaf of the state after it: the
+front's (``FRONT``: the channelizer's input history, the slots' mixer
+phases, the two-bin join's rotation) and the chain's
 (``STATE`` of the reference module). So a step that stops carrying any
 leaf across chunks, whose outputs the reference would follow, fails
 that leaf's gap. Two more numbers cover the start: the program's state
@@ -78,6 +81,69 @@ def leaf_gaps(kinds: dict, got: dict, want: dict, guarded=(),
     return out
 
 
+def bin_pairs(config: dict, offsets: np.ndarray) -> tuple:
+    """(the bin pair (slots, 2), the residual mixer step) of slots at
+    baseband offsets f served from two adjacent bins: the wide channel of
+    a P25 Phase 2 slot, which sdrtrunk's DecodeConfigP25Phase2 asks for
+    (50 kHz) and serves from two channelizer outputs through
+    TwoChannelSynthesizerM2; the JAX package's
+    ``runtime/orchestrator.py:609-631`` keeps the rule, and the port with
+    it. With spacing = sample rate / M, the pair is (floor(f / spacing)
+    mod M, floor(f / spacing) + 1 mod M), the residual f - (centre of the
+    lower bin + spacing / 2), a bin's centre m spacing with m taken into
+    (-M/2, M/2], and the step 2 pi residual / the channel rate (2
+    spacing)."""
+    m = config["channels"]
+    spacing = config["sample_rate_hz"] / m
+    low = np.floor(offsets / spacing).astype(np.int64)
+    wrapped = low % m
+    centre = np.where(wrapped > m // 2, wrapped - m, wrapped) * spacing
+    residual = offsets - (centre + spacing / 2.0)
+    rate = 2.0 * config["sample_rate_hz"] / m
+    pairs = np.stack([low % m, (low + 1) % m], axis=1)
+    return pairs, 2.0 * np.pi * residual / rate
+
+
+def slot_front(config: dict, replay) -> tuple:
+    """Each slot's channel front, slot by slot, as its decoder kind's
+    reference module states it in ``SLOT_FRONT``: ``"bin"`` (the
+    default), the bin the replay set put it in at the replay set's step,
+    or ``"bin_pair"`` (``bin_pairs``). Returns (the bin pairs (slots, 2),
+    both the slot's bin for one bin, the residual mixer steps), the form
+    of the program's plan. The replay set's bytes do not depend on it:
+    each slot is synthesised into its own bin at the bin's centre, inside
+    its pair's flat band (``tests/test_harness_front.py``). Every slot of
+    a configuration has its decoder kind."""
+    mod = importlib.import_module(
+        f"benchmark.reference.{config['decoder']['kind']}")
+    paired = np.full(len(replay.bins),
+                     getattr(mod, "SLOT_FRONT", "bin") == "bin_pair")
+    pairs, steps = bin_pairs(config, replay.offsets_hz)
+    return (np.where(paired[:, None], pairs, replay.bins[:, None]),
+            np.where(paired, steps, replay.step_rad))
+
+
+def front(x: torch.Tensor, before: dict, hmat: np.ndarray, pairs, steps,
+          p: dsp.Precision) -> tuple:
+    """The channel front of slots over one ingested chunk from ``before``
+    (its ``chan``, ``mixer_phase`` and ``rot``): each slot's bin, or where
+    its pair (a row of ``pairs``) holds two bins, the two joined from
+    ``rot`` on; then mixed by the slot's residual step. Returns ((slots,
+    K) rows, the mixer phase after the chunk)."""
+    paired = pairs[:, 0] != pairs[:, 1]
+    if not paired.any():
+        streams = dsp.channelize_bins(x, before["chan"], hmat, pairs[:, 0],
+                                      p)
+    else:
+        both = dsp.channelize_bins(x, before["chan"], hmat,
+                                   pairs.reshape(-1), p)
+        lo = both[0::2]
+        joined = dsp.join_pair(lo, both[1::2], before["rot"])
+        streams = torch.where(torch.as_tensor(paired, device=lo.device)
+                              [:, None], joined, lo)
+    return dsp.mix(streams, steps, before["mixer_phase"])
+
+
 class Checker:
     """The reference side of one run: the configuration's chain, the
     replay set and the workload's limits."""
@@ -92,6 +158,7 @@ class Checker:
         self.hmat = dsp.channelizer_prototype(
             m, config["taps_per_branch"]).reshape(-1, m)
         self.kinds = {**FRONT, **self.mod.STATE}
+        self.pairs, self.steps = slot_front(config, replay)
         self.replay = replay
         self.tier = tier
         self.limits = limits
@@ -111,10 +178,8 @@ class Checker:
         """One chunk through the reference from ``before`` (host state of
         the slots): (what its outputs would say, the state after it)."""
         x = dsp.ingest(chunk, p, self.device)
-        streams = dsp.channelize_bins(x, before["chan"], self.hmat,
-                                      self.replay.bins[slots], p)
-        rows, phase = dsp.mix(streams, self.replay.step_rad[slots],
-                              before["mixer_phase"])
+        rows, phase = front(x, before, self.hmat, self.pairs[slots],
+                            self.steps[slots], p)
         out, after = self.mod.decode(self.chain, rows, before, p)
         hist = torch.cat([torch.as_tensor(before["chan"], device=x.device),
                           x.to(torch.complex128)])

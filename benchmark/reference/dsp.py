@@ -207,6 +207,26 @@ def channelize_bins(x: torch.Tensor, history: np.ndarray, hmat: np.ndarray,
     return (y * sign).T.contiguous()
 
 
+# e^(-i pi j / 2), j = 0..3
+QUARTER_TURNS = (1 + 0j, -1j, -1 + 0j, 1j)
+
+
+def join_pair(lo: torch.Tensor, hi: torch.Tensor, rot: int) -> torch.Tensor:
+    """Two adjacent bins' (C, K) streams joined into one wide stream
+    centred midway between them, the role of sdrtrunk's
+    TwoChannelSynthesizerM2 behind an M/2 channelizer whose bin m sits at
+    +m fs / M. In closed form (no synthesis filter: the prototype's
+    half-amplitude band edge makes the joint response flat),
+    z[n] = e^(-i pi (rot + n) / 2) lo[n] - e^(+i pi (rot + n) / 2) hi[n]:
+    the lower bin moved down, the upper up, by a quarter of the channel
+    rate, the cycle taken on from ``rot`` (the port states the same form
+    in ``sdrtrunk_tpu_torch/dsp/synthesizer.py:5-13``)."""
+    n = torch.arange(lo.shape[-1], device=lo.device)
+    turn = torch.tensor(QUARTER_TURNS, dtype=lo.dtype,
+                        device=lo.device)[(int(rot) + n) % 4]
+    return turn * lo - turn.conj() * hi
+
+
 def mix(streams: torch.Tensor, step_rad, phase0) -> tuple:
     """Each row turned by -(phase0 + step n) (the slot's residual offset
     from its bin). Returns (rows, the phase after the chunk mod 2 pi)."""

@@ -1,7 +1,9 @@
 """What a later cell adds as files alone: a signal kind is a module found
 by name, and moving the kinds out of the generator left every replay
-set's bytes as they were; the Gardner kernel's roofline count; the NBFM
-check's guard against a discriminator unsure near a chunk's end."""
+set's bytes as they were; the check's front, taught the two-bin join,
+leaves every reading of the one-bin cells as it was; the Gardner
+kernel's roofline count; the NBFM check's guard against a discriminator
+unsure near a chunk's end."""
 import hashlib
 import json
 import math
@@ -55,6 +57,76 @@ def test_replay_bytes_as_recorded(workload, seed):
     s = tiny.spec(workload, blocks=64)
     assert digest(generator.build(s.config, s.mix, seed, "cpu")) \
         == RECORDED[workload, seed]
+
+
+def _readings(workload: str, slots: int, seed: int) -> dict:
+    """Every number ``Checker.all_readings`` gives on a run of the cut cell
+    that drives three chunks from the end of its warm-up (by count, not by
+    the clock), checking the two the seed draws."""
+    import sdrtrunk_tpu_torch as st
+    from benchmark import run
+    from benchmark import window as win
+    from benchmark.check import Checker
+
+    s = tiny.spec(workload, slots=slots)
+    cpu = torch.device("cpu")
+    with st.use_device("cpu"):
+        replay, system, init = run.set_up(s, seed, cpu)
+        w = win.drive(system, replay.chunks, s.mix["warmup_chunks"], count=3,
+                      sampler=win.Sampler(s.checks["checked_chunks"], seed,
+                                          len(replay.chunks)))
+        checker = Checker(s.config, replay, system.tier, s.checks, cpu)
+        kept, init_host = run.hand_over(system, checker, w, init, seed)
+    return checker.all_readings([checker.readings([k], seed) for k in kept],
+                                checker.start(init_host))
+
+
+READINGS_SEED = 2147483659
+# each cell's readings at the tiny cut (12, 40 and 12 slots), taken on the
+# CPU with one thread before the check's front learnt the two-bin join
+READINGS = {
+    "c4fm_bank_1023": {
+        "dibit_errors": 0, "count_gap": 0, "hit_errors": 0,
+        "chan_gap": 3.263179289445053e-08, "mixer_phase_gap": 0.0,
+        "rot_gap": 0.0, "fir_gap": 1.872117731895836e-07,
+        "agc_gap": 4.0510229425082e-07, "power_gap": 1.3190406602842432e-07,
+        "window_gap": 0.00043959682952776315,
+        "sampling_point_gap": 0.002251855555329918,
+        "detected_sps_gap": 6.555648562756033e-05,
+        "pll_phase_gap": 0.00029683515339229416,
+        "pll_freq_gap": 6.637880906865991e-06,
+        "prev_preceding_gap": 0.00011874952380592958,
+        "prev_current_gap": 0.003753249542087992, "init_gap": 0.0,
+        "leaves_unmatched": 0},
+    "nbfm_bank_1023": {
+        "pcm_differ_pct": 0.0, "gate_errors": 0, "lanes_checked": 16,
+        "lanes_set_aside": 0, "chan_gap": 3.263179289445053e-08,
+        "mixer_phase_gap": 0.0, "rot_gap": 0.0,
+        "fir_gap": 3.934601263042097e-06, "prev_gap": 2.931450404671619e-07,
+        "power_gap": 8.88314186919237e-08, "deemph_gap": 5.309284017984695e-07,
+        "resamp_gap": 3.6875388952362087e-06, "init_gap": 0.0,
+        "leaves_unmatched": 0},
+    "c4fm_site_31": {
+        "dibit_errors": 0, "count_gap": 0, "hit_errors": 0,
+        "chan_gap": 3.236661680358512e-08, "mixer_phase_gap": 0.0,
+        "rot_gap": 0.0, "fir_gap": 1.7597474399223997e-07,
+        "agc_gap": 4.311850072675537e-07, "power_gap": 1.2419303692638054e-07,
+        "window_gap": 0.00031635920768298116,
+        "sampling_point_gap": 0.0042791557456913765,
+        "detected_sps_gap": 9.737584372260244e-05,
+        "pll_phase_gap": 0.0002665793994069965,
+        "pll_freq_gap": 1.479450995153092e-06,
+        "prev_preceding_gap": 0.00017355328171956368,
+        "prev_current_gap": 0.000851850639493003, "init_gap": 0.0,
+        "leaves_unmatched": 0},
+}
+
+
+@pytest.mark.parametrize("workload,slots", [("c4fm_bank_1023", 12),
+                                            ("nbfm_bank_1023", 40),
+                                            ("c4fm_site_31", 12)])
+def test_readings_as_recorded(workload, slots):
+    assert _readings(workload, slots, READINGS_SEED) == READINGS[workload]
 
 
 def _tone_mix(kind: str) -> dict:
