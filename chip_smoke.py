@@ -11,7 +11,8 @@ bit-timing and symbol-loop kernels, ``c4fm``, ``c4fm_25k``, ``p25p2``,
 ``lsm``, ``dmr``,
 ``nbfm``, ``am``, ``ltr``, ``mpt1327``, ``slots``, ``slots_p25p2``,
 ``multibank``, ``worker``: the live loops; ``cli``, ``monitor``,
-``monitor_mixed``: the application; ``parity``, ``receiver``: the
+``monitor_mixed``: the application; ``channelize``: the channelizer's
+branch-sum kernel; ``parity``, ``receiver``: the
 per-channel path and the static receiver; ``parallel``: the sharded
 channelizer pipeline; ``bench``: the port's bench; ``reference``: the
 five bench banks, five cells, five paths and the monitor against the JAX
@@ -20,12 +21,13 @@ build, in this order; an unknown name raises. Each phase raises on
 failure (the exit code is then not 0):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: the five kernels, sdrtrunk_tpu_torch/csrc/dqpsk.cu, gardner.cu,
-   bit_timing.cu, biquad.cu and cma.cu, one nvcc each, started together,
-   each library's build time; ptxas's registers and spills for each
-   instantiation (a symbol loop's lane layout (G, K) and the window
-   lengths it serves, the bit-timing line's 64-bit words L, the biquad's
-   floats a sample V and copy path, the CMA's tree width P);
+2. build: the six kernels, sdrtrunk_tpu_torch/csrc/dqpsk.cu, gardner.cu,
+   bit_timing.cu, biquad.cu, cma.cu and channelize.cu, one nvcc each,
+   started together, each library's build time; ptxas's registers and
+   spills for each instantiation (a symbol loop's lane layout (G, K) and
+   the window lengths it serves, the bit-timing line's 64-bit words L, the
+   biquad's floats a sample V and copy path, the CMA's tree width P, the
+   channelizer's one instantiation);
 3. edge cases of the kernels' symbol-major loop, each kernel held bit for
    bit against its plain loop at every live window length and at W = 13,
    20, 21, 32, 40 and 80 (captures at 32 to 192 kHz; 25 kHz channels),
@@ -251,6 +253,16 @@ failure (the exit code is then not 0):
    file, a chunk hash that differs or a digest outside its tolerance
    fails the run.
 
+``channelize`` (after phase 4): the channelizer's branch-sum kernel at the
+bank cells' shapes (M = 1024, T = 9, K = 40960 and 51200, the designed
+prototype, a nonzero history), its u and ``channelize_core``'s y bit for
+bit against the plain versions on the card; the kernel through its wrapper
+by CUDA events, its device ms behind a sleep, beside its bytes bound (the
+padded input and the branches read once, u written once), the plain sums'
+ms, and the whole layer (sums, inverse FFT, the odd blocks' flip) both
+ways. Every path channelizes through the kernel, a live loop's step once
+a chunk: its launches are counted as every other kernel's are (below).
+
 During every live phase (5-24, 5a) a spy on the calls that reach the kernel
 wrappers records the (kernel, C, T) of each launch on the card; after the
 phase, each shape it recorded is held bit for bit against its plain loop
@@ -276,10 +288,11 @@ sdrtrunk_tpu_torch.protocol).
 Each live loop resets every kernel's launch counts just before it runs and
 reads them just after. A wrapper counts a launch in all and under its
 loop's timing gain and window length (DQPSK) or window length (Gardner,
-bit timing), row dtype (biquad) or tap count (CMA), so each entry of the
-kernels line (C4FM, DMR, P25P2 decision-timed and W = 20 DQPSK, P25P2 and
-LSM Gardner, LTR, AFSK, 16 and 48 kHz LTR bit timing, the biquad, the
-CMA) has its own count from the launch itself. At the end
+bit timing), row dtype (biquad), tap count (CMA) or input dtype (the
+channelizer), so each entry of the kernels line (C4FM, DMR, P25P2
+decision-timed and W = 20 DQPSK, P25P2 and LSM Gardner, LTR, AFSK, 16 and
+48 kHz LTR bit timing, the biquad, the CMA, the channelizer) has its own
+count from the launch itself. At the end
 the script prints its own run time, then the kernels' JSON record on the
 line before the last (the kernels a run checked; an entry's ``launches``
 is the sum over the live loops that ran it, ``launches_by_path`` each
@@ -388,18 +401,20 @@ def _device_span_ms(fn, reps: int = 20) -> float:
 def _launch_counters():
     from sdrtrunk_tpu_torch.dsp.biquad_cuda import biquad_cuda
     from sdrtrunk_tpu_torch.dsp.bit_timing_cuda import bit_timing_cuda
+    from sdrtrunk_tpu_torch.dsp.channelize_cuda import channelize_cuda
     from sdrtrunk_tpu_torch.dsp.cma_cuda import cma_cuda
     from sdrtrunk_tpu_torch.dsp.dqpsk_cuda import dqpsk_cuda
     from sdrtrunk_tpu_torch.dsp.gardner_cuda import gardner_cuda
     return {"dqpsk": dqpsk_cuda, "gardner": gardner_cuda,
             "bit_timing": bit_timing_cuda, "biquad": biquad_cuda,
-            "cma": cma_cuda}
+            "cma": cma_cuda, "channelize": channelize_cuda}
 
 
 # the kernels line's entries, in its order: (the wrapper whose launches
 # they are, the key its ``launches_by`` counts them under: the DQPSK timing
 # gain and window length, the Gardner and bit-timing window lengths, the
-# biquad's row dtype and the CMA's tap count)
+# biquad's row dtype, the CMA's tap count and the channelizer's input
+# dtype, complex64 at every launch)
 _ENTRY_KEYS = {"dqpsk": ("dqpsk", (0.3, 10)),
                "gardner_p25p2": ("gardner", 16),
                "gardner_lsm": ("gardner", 11),
@@ -411,7 +426,8 @@ _ENTRY_KEYS = {"dqpsk": ("dqpsk", (0.3, 10)),
                "bit_timing_w106": ("bit_timing", 106),
                "bit_timing_w320": ("bit_timing", 320),
                "biquad": ("biquad", "float32"),
-               "cma": ("cma", 11)}
+               "cma": ("cma", 11),
+               "channelize": ("channelize", "complex64")}
 
 
 def _reset_launches() -> None:
@@ -454,8 +470,8 @@ def build_kernels() -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     from sdrtrunk_tpu_torch.dsp import (biquad_cuda, bit_timing_cuda,
-                                        cma_cuda, dqpsk_cuda, gardner_cuda,
-                                        nvcc)
+                                        channelize_cuda, cma_cuda,
+                                        dqpsk_cuda, gardner_cuda, nvcc)
 
     def timed(m):
         t1 = time.perf_counter()
@@ -465,7 +481,7 @@ def build_kernels() -> dict:
     t0 = time.perf_counter()
     mods = {"dqpsk": dqpsk_cuda, "gardner": gardner_cuda,
             "bit_timing": bit_timing_cuda, "biquad": biquad_cuda,
-            "cma": cma_cuda}
+            "cma": cma_cuda, "channelize": channelize_cuda}
     with ThreadPoolExecutor(len(mods)) as pool:
         futures = {n: pool.submit(timed, m) for n, m in mods.items()}
         each = {n: round(f.result(), 2) for n, f in futures.items()}
@@ -495,6 +511,9 @@ def build_kernels() -> dict:
                           line)
             if m:
                 entry = f"cma<P={m.group(1)}>"
+            if re.search(r"Compiling entry function '.*?channelize_kernel",
+                         line):
+                entry = "channelize"
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m and entry:
@@ -1326,7 +1345,7 @@ def drive(orch, expect: dict, chunks: int, warmup: int,
     after. Checks that every live-step output lay on the card and that
     each kernel launched as `expect` says ({kernels-line entry: launches a
     chunk}, as the wrappers counted them by timing gain or window length;
-    an entry not named, none). ``before_timed(orch)``, when given, runs
+    an entry not named, none; the channelizer once a chunk unless named). ``before_timed(orch)``, when given, runs
     between the warm-up and the timed chunks. The host layer
     (``_host_layer``) is timed. Returns timing and counts."""
     import torch
@@ -1364,6 +1383,7 @@ def drive(orch, expect: dict, chunks: int, warmup: int,
     launches = _read_launches()
 
     timed = orch.chunk_samples * (chunks - warmup)
+    expect = {"channelize": 1, **expect}
     want = {entry: chunks * expect.get(entry, 0) for entry in _ENTRY_KEYS}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} for {chunks} "
@@ -2177,7 +2197,8 @@ def _taps_and_rate_change(orch, voice_slot: int, entry: str, chunk: int,
         "rate_change_launches": launched})
     if orch.rx.channelizer.channels != M // 2 \
             or orch.samples_processed - before != orch.chunk_samples \
-            or launched != {e: int(e == entry) for e in _ENTRY_KEYS} \
+            or launched != {e: int(e in (entry, "channelize"))
+                            for e in _ENTRY_KEYS} \
             or not orch.slots[0].active \
             or orch.rx.channelizer.hmat.device.type != "cuda":
         raise AssertionError(f"after the sample-rate change: {found}")
@@ -2810,7 +2831,8 @@ def run_cli(card: str) -> dict:
                     in decode_scenes(APP_DIR)]
         commands.append(("replay p25p1 x2",
                          ["replay", cap, "--playlist", playlist,
-                          "--center-frequency", center], {"dqpsk": 1}))
+                          "--center-frequency", center],
+                         {"dqpsk": 1, "channelize": 1}))
         for name, argv, expect in commands:
             card_run = _run_cli(argv)
             cpu_run = _run_cli(["--platform", "cpu", *argv])
@@ -2988,7 +3010,8 @@ def run_monitor(card: str) -> dict:
         if not sidecars:
             raise AssertionError("monitor: no call written as WAV and "
                                  "sidecar")
-        want = {e: MONITOR_CHUNKS * (e == "dqpsk") for e in _ENTRY_KEYS}
+        want = {e: MONITOR_CHUNKS * (e in ("dqpsk", "channelize"))
+                for e in _ENTRY_KEYS}
         if run["launches"] != want:
             raise AssertionError(f"monitor: launches {run['launches']}, "
                                  f"expected {want}")
@@ -3112,7 +3135,8 @@ def run_monitor_mixed(card: str) -> dict:
         if len(dibits) < 0.9 * chunks * chunk / FS * 4800 or not tsbks:
             raise AssertionError(f"monitor_mixed: the bits tap holds "
                                  f"{len(dibits)} dibits, {tsbks} TSBKs")
-        want = {e: chunks * (e in ("dqpsk", "dqpsk_dmr", "bit_timing_ltr"))
+        want = {e: chunks * (e in ("dqpsk", "dqpsk_dmr", "bit_timing_ltr",
+                                   "channelize"))
                 for e in _ENTRY_KEYS}
         if run["launches"] != want:
             raise AssertionError(f"monitor_mixed: launches "
@@ -3120,6 +3144,86 @@ def run_monitor_mixed(card: str) -> dict:
     finally:
         shutil.rmtree(APP_DIR, ignore_errors=True)
     return {**result, "kernel_launches": run["launches"]}
+
+
+# --- channelize: the channelizer's branch-sum kernel ------------------------
+
+CHANNELIZE_SOURCE = "sdrtrunk_tpu_torch/csrc/channelize.cu"
+# the bank cells' chunks, blocks of M samples: c4fm_bank_1023 and
+# nbfm_bank_1023 (benchmark/traffic/*.json)
+CHANNELIZE_BLOCKS = {"c4fm_bank": 20480, "nbfm_bank": 25600}
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+    return torch.equal(torch.view_as_real(a).view(torch.int32),
+                       torch.view_as_real(b).view(torch.int32))
+
+
+def check_channelize(card: str) -> dict:
+    """The branch-sum kernel at the bank cells' shapes (M = 1024 bins, T =
+    9 taps of the designed prototype, K = 2 x CHANNELIZE_BLOCKS, a random
+    nonzero history): u and channelize_core's y held bit for bit against
+    ``branch_sums_plain`` and ``channelize_core_plain`` on the card; the
+    kernel timed through its wrapper by CUDA events (5 calls) and alone
+    behind a sleep (``_device_span_ms``) beside its bytes bound (xp and the
+    branches read once, u written once, over the memory rate), the plain
+    sums once; the layer (sums, inverse FFT, flip) both ways. No PyTorch
+    call computes the sums (library_ms None). Returns the kernels-line
+    entry, the second shape under "nbfm_bank"."""
+    import torch
+
+    from sdrtrunk_tpu_torch.dsp.channelize_cuda import channelize_cuda
+    from sdrtrunk_tpu_torch.dsp.channelizer import (Channelizer,
+                                                    branch_sums_plain,
+                                                    channelize_core,
+                                                    channelize_core_plain)
+
+    hmat = Channelizer.design(FS, 12500.0, device="cuda").hmat
+    t, m = hmat.shape
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    records = {}
+    for cell, blocks in CHANNELIZE_BLOCKS.items():
+        n = m * blocks
+        k = 2 * n // m
+        xp = torch.view_as_complex(torch.randn(
+            (t * m + n, 2), generator=gen, device="cuda") / 4)
+        plain = {}
+        plain_ms = _cuda_ms(lambda: plain.update(u=branch_sums_plain(xp,
+                                                                     hmat)))
+        if not _bits_equal(channelize_cuda(xp, hmat), plain.pop("u")):
+            raise AssertionError(f"channelize {cell}: the kernel's u differs "
+                                 "from branch_sums_plain on the card")
+        if not _bits_equal(channelize_core(xp, hmat),
+                           channelize_core_plain(xp, hmat)):
+            raise AssertionError(f"channelize {cell}: channelize_core's y "
+                                 "differs from channelize_core_plain on the "
+                                 "card")
+        ms = _cuda_ms(lambda: channelize_cuda(xp, hmat), reps=5)
+        device_ms = _device_span_ms(lambda: channelize_cuda(xp, hmat))
+        layer_ms = _cuda_ms(lambda: channelize_core(xp, hmat), reps=5)
+        layer_device_ms = _device_span_ms(lambda: channelize_core(xp, hmat))
+        layer_plain_ms = _cuda_ms(lambda: channelize_core_plain(xp, hmat),
+                                  reps=3)
+        bound_ms = (8 * xp.numel() + 4 * hmat.numel() + 8 * k * m) \
+            / HBM_BYTES_PER_S * 1e3
+        records[cell] = {
+            "name": "channelize", "route": "cuda",
+            "source": CHANNELIZE_SOURCE, "replaces": None,
+            "max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "shape": [k, m], "plain_shape": [k, m],
+            "taps": t, "layer_ms": layer_ms,
+            "layer_device_ms": layer_device_ms,
+            "layer_plain_ms": layer_plain_ms}
+        print(f"[channelize] {card}: {cell} M = {m}, T = {t}, K = {k}: u and "
+              f"y identical to the plain versions on the card; kernel "
+              f"{ms:.4f} ms, device {device_ms:.4f} ms against a "
+              f"{bound_ms:.4f} ms bytes bound ({100 * bound_ms / device_ms:.2f}"
+              f"% of it), plain sums {plain_ms:.3f} ms; layer {layer_ms:.4f} "
+              f"ms, device {layer_device_ms:.4f}, plain {layer_plain_ms:.3f} "
+              f"ms", flush=True)
+    return {**records["c4fm_bank"], "nbfm_bank": records["nbfm_bank"]}
 
 
 # --- parity: the golden captures, the parity reports, per-channel calls ---
@@ -3467,7 +3571,8 @@ def _static_build(card: str) -> dict:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = _read_launches()
-    want = {e: total if e == "dqpsk" else 0 for e in _ENTRY_KEYS}
+    want = {e: total if e in ("dqpsk", "channelize") else 0
+            for e in _ENTRY_KEYS}
     if launches != want:
         raise AssertionError(f"receiver: launches {launches}, expected "
                              f"{want}")
@@ -3884,9 +3989,12 @@ def run_parallel(card: str) -> dict:
             dist.destroy_process_group()
     torch.cuda.synchronize()
     launches = _read_launches()
-    if any(launches.values()):
-        raise AssertionError(f"parallel: a kernel launched on a path that "
-                             f"has none: {launches}")
+    # the channelizer once a call: build() and ch() on the first chunk,
+    # build_streaming() and ch() on each streamed one, the timed calls
+    calls = 2 * (1 + PARALLEL_STREAMED + PARALLEL_REPS)
+    if launches != {e: calls * (e == "channelize") for e in _ENTRY_KEYS}:
+        raise AssertionError(f"parallel: launches {launches}, expected "
+                             f"{calls} of the channelizer and none else")
     n = x.shape[0]
     result = {"card": card, "world_size": 1, "backend": backend,
               "channels": plan.count, "chunk_samples": n,
@@ -3914,8 +4022,8 @@ def run_bench(card: str) -> dict:
     a subprocess, every family passing, then its two flagship receiver
     legs in this process at full width, ``bench_receiver`` for NBFM and
     C4FM (M = 1024, 1023 channels, chunks of 1024 x 5120, 24 timed
-    iterations), their MS/s and ``roofline_nbfm``; the C4FM leg launches
-    the DQPSK kernel once a call, the NBFM leg no kernel."""
+    iterations), their MS/s and ``roofline_nbfm``; each leg launches the
+    channelizer once a call, the C4FM leg the DQPSK kernel too."""
     import torch
 
     import bench_torch
@@ -3948,10 +4056,16 @@ def run_bench(card: str) -> dict:
               "roofline": roofline, "kernel_launches": launches}
     print(f"[bench] {card}: bench_receiver " + json.dumps(
         {k: result[k] for k in ("nbfm", "c4fm", "roofline")}), flush=True)
-    want = {e: BENCH_ITERS + 1 if e == "dqpsk" else 0 for e in _ENTRY_KEYS}
-    if any(nbfm_launches.values()) or launches != want:
+    # each leg's steps channelize once a call; the C4FM leg's launch the
+    # DQPSK kernel once a call too
+    steps = BENCH_ITERS + 1
+    want_nbfm = {e: steps * (e == "channelize") for e in _ENTRY_KEYS}
+    want = {e: {"dqpsk": steps, "channelize": 2 * steps}.get(e, 0)
+            for e in _ENTRY_KEYS}
+    if nbfm_launches != want_nbfm or launches != want:
         raise AssertionError(f"bench: launches {nbfm_launches} (NBFM), "
-                             f"{launches} (both), expected {want}")
+                             f"{launches} (both), expected {want_nbfm}, "
+                             f"{want}")
     if not (nbfm["msps"] > 0 and c4fm["msps"] > 0
             and nbfm["channels"] == c4fm["channels"] == SLOTS):
         raise AssertionError(f"bench: {nbfm}, {c4fm}")
@@ -4057,7 +4171,8 @@ def run_reference(card: str) -> dict:
             got_launches = _read_launches()
             chunks = (scene.warmup + scene.timed_chunks
                       + ("rate_change" in scene.steps))
-            expect = {e: chunks * (e in entries) for e in _ENTRY_KEYS}
+            expect = {e: chunks * (e in (*entries, "channelize"))
+                      for e in _ENTRY_KEYS}
             if got_launches != expect:
                 raise AssertionError(f"reference {bank}: kernel launches "
                                      f"{got_launches}, expected {expect}")
@@ -4190,7 +4305,8 @@ def _reference_monitor(card: str, name: str, want: dict) -> dict:
                                             inputs["events"], inputs["wave"])
     finally:
         shutil.rmtree(APP_DIR, ignore_errors=True)
-    expect = {e: want["chunks"] * (e in entries) for e in _ENTRY_KEYS}
+    expect = {e: want["chunks"] * (e in (*entries, "channelize"))
+              for e in _ENTRY_KEYS}
     if run["launches"] != expect:
         raise AssertionError(f"reference {name}: kernel launches "
                              f"{run['launches']}, expected {expect}")
@@ -4233,10 +4349,11 @@ def _reference_monitor(card: str, name: str, want: dict) -> dict:
 
 # phases a run can name, in the order a run takes them; the environment
 # and the build always run
-PHASES = ("edges", "bits", "psk", "c4fm", "c4fm_25k", "p25p2", "lsm", "dmr",
-          "nbfm", "am", "ltr", "mpt1327", "slots", "slots_p25p2",
-          "multibank", "worker", "cli", "monitor", "monitor_mixed", "parity",
-          "receiver", "parallel", "bench", "reference")
+PHASES = ("edges", "bits", "psk", "channelize", "c4fm", "c4fm_25k", "p25p2",
+          "lsm", "dmr", "nbfm", "am", "ltr", "mpt1327", "slots",
+          "slots_p25p2", "multibank", "worker", "cli", "monitor",
+          "monitor_mixed", "parity", "receiver", "parallel", "bench",
+          "reference")
 _LIVE = {"c4fm": run_c4fm, "c4fm_25k": run_c4fm_25k, "p25p2": run_p25p2,
          "lsm": run_lsm, "dmr": run_dmr, "nbfm": run_nbfm, "am": run_am,
          "ltr": run_ltr,
@@ -4299,6 +4416,8 @@ def main(argv: list[str]) -> int:
             entry = check_kernel(card, *k)
             entries[k[0]] = {**entry, "launches": None}
             held[(k[0], *entry["shape"])] = ("psk", entry)
+    if "channelize" in phases:
+        entries["channelize"] = {**check_channelize(card), "launches": None}
     for name, run in _LIVE.items():
         if name not in phases:
             continue
@@ -4321,9 +4440,11 @@ def main(argv: list[str]) -> int:
                                           "bound_by")}})
         for entry, n in result["kernel_launches"].items():
             if n:
-                by_path = entries[entry].setdefault("launches_by_path", {})
+                record = entries.setdefault(entry, {"name": entry,
+                                                    "launches": None})
+                by_path = record.setdefault("launches_by_path", {})
                 by_path[name] = n
-                entries[entry]["launches"] = sum(by_path.values())
+                record["launches"] = sum(by_path.values())
     ran = [p for p in PHASES if p in phases]
     print(f"[done] {'every phase' if len(ran) == len(PHASES) else ', '.join(ran)}"
           f" passed in {time.perf_counter() - t0:.1f} s", flush=True)

@@ -5,10 +5,13 @@ All output blocks of a time slice are computed at once:
     u[k, r]  = sum_q h[q*M + r] * x[k*M/2 - q*M - r]      (branch filter)
     y[k, m]  = (-1)^{m*k} * M * IFFT_M(u[k, :])[m]         (phase alignment)
 
-The branch sums are T shifted multiply-adds over reversed (rows, M) views
-of the padded input (no gathers), and the IFFT is ``torch.fft.ifft``
-batched over all blocks. Channel m is centered at +m * fs/M (negative
-frequencies wrap); the output rate is 2*fs/M per channel.
+On a CUDA tensor the branch sums are one kernel (csrc/channelize.cu, via
+``dsp/channelize_cuda.py``); on the CPU they are ``branch_sums_plain``, T
+shifted multiply-adds over reversed (rows, M) views of the padded input (no
+gathers), the same products summed in the same order. The IFFT is
+``torch.fft.ifft`` batched over all blocks. Channel m is centered at
++m * fs/M (negative frequencies wrap); the output rate is 2*fs/M per
+channel.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ from . import design
 
 from .. import resolve_device
 
-__all__ = ["Channelizer", "channel_count_for_rate", "channelize",
-           "channelize_core", "polyphase_branch_filters"]
+__all__ = ["Channelizer", "branch_sums_plain", "channel_count_for_rate",
+           "channelize", "channelize_core", "channelize_core_plain",
+           "polyphase_branch_filters"]
 
 
 def channel_count_for_rate(sample_rate: float,
@@ -51,7 +55,30 @@ def channelize_core(xp: torch.Tensor, hmat: torch.Tensor) -> torch.Tensor:
         and N a multiple of M (two output blocks per M samples).
     hmat: float32 (T, M) polyphase branches.
     Returns y: complex64 (K, M) with K = 2*N/M.
+
+    A CPU tensor runs ``channelize_core_plain``; any other tensor launches
+    the branch-sum kernel of ``dsp/channelize_cuda.py`` (which launches or
+    raises) ahead of the inverse FFT. Where M is a power of two the IFFT's
+    1/M and the plain version's * M are both exact, so the kernel path
+    takes the unscaled transform (``norm="forward"``) and equals the plain
+    version bit for bit; for any other M it keeps both passes.
     """
+    if xp.device.type == "cpu":
+        return channelize_core_plain(xp, hmat)
+    from .channelize_cuda import channelize_cuda
+    u = channelize_cuda(xp, hmat)
+    m = u.shape[1]
+    if m & (m - 1) == 0:
+        y = torch.fft.ifft(u, dim=-1, norm="forward")
+    else:
+        y = torch.fft.ifft(u, dim=-1) * m
+    return _align_odd_blocks(y)
+
+
+def branch_sums_plain(xp: torch.Tensor, hmat: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the branch-sum kernel: u (K, M) complex64,
+    u[b, r] = sum_q hmat[q, r] xp[(b + 2 (T - q)) M/2 - r], on each plane
+    from the q = 0 product, then q = 1, ..., T - 1 in order."""
     t, m = hmat.shape
     n = xp.shape[0] - m * t
     k = 2 * n // m                # output blocks (hop M/2)
@@ -72,11 +99,23 @@ def channelize_core(xp: torch.Tensor, hmat: torch.Tensor) -> torch.Tensor:
         return acc.flip(0)        # newest-block-first -> block order
 
     u = torch.stack([branch_sums(m - 1), branch_sums(half - 1)], dim=1)
-    u = torch.view_as_complex(u.reshape(k, m, 2))
-    y = torch.fft.ifft(u, dim=-1) * m
-    # odd blocks carry the M/2 hop's half-bin rotation (-1)^m
+    return torch.view_as_complex(u.reshape(k, m, 2))
+
+
+def channelize_core_plain(xp: torch.Tensor, hmat: torch.Tensor
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of ``channelize_core``: the plain branch sums,
+    then ``ifft(u) * M`` and the odd blocks' half-bin rotation."""
+    u = branch_sums_plain(xp, hmat)
+    y = torch.fft.ifft(u, dim=-1) * u.shape[1]
+    return _align_odd_blocks(y)
+
+
+def _align_odd_blocks(y: torch.Tensor) -> torch.Tensor:
+    """Odd blocks carry the M/2 hop's half-bin rotation (-1)^m: negate
+    their odd bins, in place on y."""
     odd = torch.view_as_real(y)[1::2, 1::2]
-    odd.neg_()                    # in place on y's odd-block, odd-bin entries
+    odd.neg_()
     return y
 
 

@@ -1,6 +1,6 @@
-"""Tests of the CUDA kernels (DQPSK, Gardner DQPSK, bit timing, the biquad
-and the CMA equalizer) and of the analog and analog-trunking chains on the
-card; they need a card and skip without one.
+"""Tests of the CUDA kernels (DQPSK, Gardner DQPSK, bit timing, the biquad,
+the CMA equalizer and the channelizer's branch sums) and of the analog and
+analog-trunking chains on the card; they need a card and skip without one.
 
 The file imports no JAX, so that it runs on a machine with a card and no
 JAX installed. tests/conftest.py imports JAX, so run it there with
@@ -795,6 +795,88 @@ def test_pipeline_world_size_one_over_nccl_on_card(card, tmp_path):
         dist.destroy_process_group()
 
 
+def _channelize_inputs(m: int, t: int, k: int, seed: int,
+                       taps: int | None = None):
+    """A padded block ((T M + N,) complex64, its T M history nonzero) and
+    (T, M) branches: the sinc prototype the cells design at M = 1024, else
+    ``taps`` (T M when None) random taps."""
+    from sdrtrunk_tpu_torch.dsp.channelizer import (Channelizer,
+                                                    polyphase_branch_filters)
+
+    rng = np.random.default_rng(seed)
+    if m == 1024 and taps is None:
+        hmat = Channelizer.design(12_800_000.0, 12500.0, device="cpu").hmat
+    else:
+        hmat = torch.as_tensor(polyphase_branch_filters(
+            rng.standard_normal(taps or t * m) / m, m).astype(np.float32))
+    assert tuple(hmat.shape) == (t, m)
+    n = t * m + k * m // 2
+    xp = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) / 4
+    return torch.as_tensor(xp.astype(np.complex64)), hmat
+
+
+def _bits(z: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_real(z).view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,t,k,taps", [
+    (1024, 9, 40960, None), (1024, 9, 51200, None), (192, 9, 100, None),
+    (64, 9, 2, None), (64, 1, 30, None), (48, 4, 10, 150),
+    (1024, 9, 32, None), (1024, 9, 300, None)],
+    ids=["c4fm_bank", "nbfm_bank", "m192", "k2", "t1", "proto150",
+         "k32", "k300"])
+def test_channelize_kernel_matches_plain_on_card(card, m, t, k, taps):
+    """``channelize_core`` on the card launches the branch-sum kernel once
+    and equals ``channelize_core_plain`` on the same card tensors bit for
+    bit, the kernel's u equal to ``branch_sums_plain``'s: at the cells'
+    shapes (M = 1024, T = 9, K = 40960 and 51200, the designed prototype),
+    at M = 192 (not a power of two: the scaled IFFT), at K = 2, at T = 1,
+    with a prototype of 150 taps at M = 48, and at K = 32 and K = 300 (a
+    whole and a partial last tile of 16 blocks)."""
+    from sdrtrunk_tpu_torch.dsp import channelize_cuda
+    from sdrtrunk_tpu_torch.dsp.channelizer import (branch_sums_plain,
+                                                    channelize_core,
+                                                    channelize_core_plain)
+
+    xp, hmat = _channelize_inputs(m, t, k, seed=m + t + k, taps=taps)
+    xp, hmat = xp.to(card), hmat.to(card)
+    fn = channelize_cuda.channelize_cuda
+    before = fn.launches
+    y = channelize_core(xp, hmat)
+    assert fn.launches == before + 1
+    want = channelize_core_plain(xp, hmat)
+    assert y.shape == (k, m)
+    assert torch.equal(_bits(y), _bits(want))
+    assert torch.equal(_bits(fn(xp, hmat)), _bits(branch_sums_plain(xp, hmat)))
+    assert fn.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_channelize_kernel_rejects_what_it_does_not_take(card):
+    """A non-contiguous, complex128 or float64, or odd-M input is refused
+    with ValueError before any launch."""
+    from sdrtrunk_tpu_torch.dsp import channelize_cuda
+    from sdrtrunk_tpu_torch.dsp.channelizer import channelize_core
+
+    xp, hmat = _channelize_inputs(64, 9, 8, seed=3)
+    xp, hmat = xp.to(card), hmat.to(card)
+    fn = channelize_cuda.channelize_cuda
+    before = fn.launches
+    spread = torch.zeros(2 * xp.shape[0], dtype=torch.complex64,
+                         device=card)[::2]
+    spread.copy_(xp)
+    odd = torch.ones((9, 63), dtype=torch.float32, device=card)
+    for bad_xp, bad_h, match in (
+            (spread, hmat, "contiguous"),
+            (xp.to(torch.complex128), hmat, "complex64"),
+            (xp, hmat.double(), "float32"),
+            (xp[:9 * 63 + 63], odd, "even M")):
+        with pytest.raises(ValueError, match=match):
+            channelize_core(bad_xp, bad_h)
+    assert fn.launches == before
+
+
 @pytest.mark.cuda
 def test_tracer_on_card(card):
     """The port's tracer over a small C4FM bank's ``run()`` on the card:
@@ -803,9 +885,11 @@ def test_tracer_on_card(card):
     (two buffers); the metrics line gives the copy's device time, the
     first step's 5 host-built constants copied to the card with the slots'
     plan (7), and no copy after: each warm step takes the 5 from the
-    card."""
+    card. Each step channelizes through the branch-sum kernel: the counter
+    ``channelize.kernel`` and the wrapper's launches rise by one a chunk."""
     import json
 
+    from sdrtrunk_tpu_torch.dsp.channelize_cuda import channelize_cuda
     from sdrtrunk_tpu_torch.runtime import tracing
     from sdrtrunk_tpu_torch.runtime.orchestrator import Orchestrator
 
@@ -820,6 +904,7 @@ def test_tracer_on_card(card):
     orch.metrics_sink = lambda line: lines.append(json.loads(line))
     tracing.drain()
     tracing.forget_constants()
+    launched = channelize_cuda.launches
     tracing.enable(True)
     try:
         orch.run(max_chunks=5)
@@ -827,6 +912,8 @@ def test_tracer_on_card(card):
         tracing.enable(False)
     records, counts = tracing.drain()
     orch.close()
+    assert counts["channelize.kernel"] == 5
+    assert channelize_cuda.launches == launched + 5
     names = {(r.name, r.chunk): r for r in records}
     for g in range(5):
         for part in ("upload.stage", "upload.copy"):

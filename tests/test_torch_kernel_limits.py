@@ -12,8 +12,9 @@ import ctypes
 import pytest
 import torch
 
-from sdrtrunk_tpu_torch.dsp import (biquad_cuda, bit_timing_cuda, cma_cuda,
-                                    dqpsk_cuda, gardner_cuda, nvcc)
+from sdrtrunk_tpu_torch.dsp import (biquad_cuda, bit_timing_cuda,
+                                    channelize_cuda, cma_cuda, dqpsk_cuda,
+                                    gardner_cuda, nvcc)
 from sdrtrunk_tpu_torch.dsp.fsk import LTRFSKDemodulator
 from sdrtrunk_tpu_torch.dsp.psk import (DQPSKDemodulator, DQPSKState,
                                         GardnerDQPSKDemodulator, GardnerState)
@@ -50,7 +51,7 @@ def _no_build(monkeypatch):
     def fail():
         raise AssertionError("built before refusing")
     for mod in (biquad_cuda, cma_cuda, bit_timing_cuda, dqpsk_cuda,
-                gardner_cuda):
+                gardner_cuda, channelize_cuda):
         monkeypatch.setattr(mod, "build", fail)
 
 
@@ -79,15 +80,17 @@ def _symbol(cls, state_cls, c, t):
     ("gardner_t", f"gardner_cuda: T = {2**32 + 5} "),
     ("gardner_c", f"gardner_cuda: C = {nvcc.SYMBOL_LOOP_MAX_C + 1} "),
     ("bit_timing_t", f"bit_timing_cuda: T = {bit_timing_cuda.MAX_T + 1} "),
-    ("bit_timing_c", f"bit_timing_cuda: C = {BIG} ")])
+    ("bit_timing_c", f"bit_timing_cuda: C = {BIG} "),
+    ("channelize_km", f"channelize_cuda: K M = {2**31} "),
+    ("channelize_len", f"channelize_cuda: T M \\+ N = {2**31 + 1024} ")])
 def test_wrappers_refuse_a_count_past_their_limit(monkeypatch, case, match):
     """Each wrapper refuses, with ValueError naming the count and the limit
     and before it builds, a count its C entry's int or its kernel's index
     cannot hold: the biquad's rows (the product of the leading axes) and
     samples a row (a complex row's 2 N floats are indexed in 64 bits), the
     CMA's samples, the symbol loops' channels and samples (a pass reads 63
-    past its start) and the bit timing's (a tile ends 8192 past its
-    start)."""
+    past its start), the bit timing's (a tile ends 8192 past its start)
+    and the channelizer's output K M and input T M + N."""
     _no_build(monkeypatch)
     geom = LTRFSKDemodulator(device="cpu").geometry
     win, sp = torch.zeros((1, geom.window_len), dtype=torch.int8), \
@@ -115,6 +118,11 @@ def test_wrappers_refuse_a_count_past_their_limit(monkeypatch, case, match):
             geom, _meta((1, bit_timing_cuda.MAX_T + 1)), win, sp),
         "bit_timing_c": lambda: bit_timing_cuda.bit_timing_cuda(
             geom, _meta((BIG, 8)), win, sp),
+        # K M = 2 N: N = 2**30 at M = 1024; T M alone past a C int
+        "channelize_km": lambda: channelize_cuda.channelize_cuda(
+            _meta((9 * 1024 + 2**30,), torch.complex64), _meta((9, 1024))),
+        "channelize_len": lambda: channelize_cuda.channelize_cuda(
+            _meta((2**31 + 1024,), torch.complex64), _meta((2**21, 1024))),
     }[case]
     with pytest.raises(ValueError, match=match + "is above the kernel's "
                                                  "limit"):
@@ -123,7 +131,7 @@ def test_wrappers_refuse_a_count_past_their_limit(monkeypatch, case, match):
 
 @pytest.mark.parametrize("case", ["biquad", "biquad_complex", "cma",
                                   "dqpsk_c", "dqpsk_t", "bit_timing_c",
-                                  "bit_timing_t"])
+                                  "bit_timing_t", "channelize"])
 def test_wrappers_pass_the_largest_count_on_to_the_device_check(monkeypatch,
                                                                case):
     """At the limit itself the count check passes and the wrapper goes on
@@ -148,6 +156,9 @@ def test_wrappers_pass_the_largest_count_on_to_the_device_check(monkeypatch,
             geom, _meta((bit_timing_cuda.MAX_C, 8)), win, sp),
         "bit_timing_t": lambda: bit_timing_cuda.bit_timing_cuda(
             geom, _meta((1, bit_timing_cuda.MAX_T)), win, sp),
+        # K M = 2 N = 2**31 - 4 at M = 2 (N = 2**30 - 2), T = 3
+        "channelize": lambda: channelize_cuda.channelize_cuda(
+            _meta((6 + 2**30 - 2,), torch.complex64), _meta((3, 2))),
     }[case]
     monkeypatch.setattr(dqpsk_cuda, "build", lambda: None)
     monkeypatch.setattr(bit_timing_cuda, "build", lambda: None)
